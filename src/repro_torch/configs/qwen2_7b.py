@@ -1,0 +1,8 @@
+"""qwen2-7b — dense GQA with QKV bias [arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen2-7b", family="dense", citation="arXiv:2407.10671",
+    n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+    d_ff=18944, vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+))
