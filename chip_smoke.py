@@ -11,14 +11,29 @@ Phases, each of which exits nonzero on a failed check:
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
    library call's time as a yardstick and the card's least time (bound);
+   the two multi-LoRA kernels also row by row against ``lora_matmul`` run
+   with that row's adapter, which must give the same bits;
 4. main path: qwen2-7b at its full published size (28 layers, d_model
    3584, bf16, random weights from the seed) serves 16 ragged requests
-   through ``DecodeEngine(slots=8)``, with in-wave refill; every kernel's
-   launch counter must rise during the drain, and the full-size prefill
-   logits through the kernels must agree with the plain path's;
-5. end to end: a 2-layer, full-width f32 qwen2-7b drains the same kind of
+   through ``DecodeEngine(slots=8)``, with in-wave refill; lora_matmul,
+   flash_attention and flash_decode must launch during the drain, and the
+   full-size prefill logits through the kernels must agree with the plain
+   path's;
+5. bank path, on the same backbone: an ``AdapterBank`` of 4 domains
+   (seeded prefix slots, seeded nonzero LoRA b) serves 16 ragged requests
+   of mixed domains through ``DecodeEngine(slots=8, bank=...)``; the
+   multi-LoRA kernels, flash_attention and flash_decode must launch and
+   lora_matmul must not; a mixed 4-domain prefill must agree with each
+   domain's own prefill (cosine > 0.999, same top-1), and the domains must
+   not all give the same tokens;
+6. end to end: a 2-layer, full-width f32 qwen2-7b drains the same kind of
    queue through the kernels and through ``backend="torch"``; the greedy
-   tokens must be identical, and equal to solo generation.
+   tokens must be identical, and equal to solo generation; a mixed-domain
+   bank drain must give identical tokens through the kernels, through
+   ``backend="torch"`` and through per-domain single-tenant drains;
+7. classify: vit-edge at its configured size (12 layers, d_model 768)
+   scores a mixed-domain batch through the bank's per-row heads, within
+   bf16 tolerance of each domain's own ``classify``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -49,7 +64,10 @@ REPLACES = {
     "lora_matmul": "src/repro/kernels/lora_matmul.py:75",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "flash_decode": "src/repro/kernels/flash_decode.py:207",
+    "lora_bgmv_rows": "src/repro/kernels/lora_bgmv.py:91",
+    "lora_bgmv_seq": "src/repro/kernels/lora_bgmv.py:168",
 }
+N_DOMAINS = 4
 
 
 class SmokeFailure(Exception):
@@ -117,13 +135,15 @@ def compare(name: str, got, want, dtype) -> float:
 def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import lora_bgmv as bg
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ref
 
     def randn(*shape, dtype=torch.bfloat16, s=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
 
-    cases = {"lora_matmul": [], "flash_attention": [], "flash_decode": []}
+    cases = {"lora_matmul": [], "flash_attention": [], "flash_decode": [],
+             "lora_bgmv_rows": [], "lora_bgmv_seq": []}
 
     # lora_matmul: q (N 3584) and v (N 512) projections of qwen2-7b, at
     # decode (M = 8 rows) and prefill (M = 8 x 512); r = 8, bias
@@ -236,11 +256,76 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)),
             bound_ms=bms, bound_by=by))
         log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+
+    # multi-LoRA: the q (N 3584) and v (N 512) projections of a 4-domain
+    # bank wave; rows at decode (M = 8 rows, ids repeating), seq at
+    # prefill (8 sequences x 512 tokens); r = 8, bias
+    K, r, scale, n_slots = 3584, 8, 16.0 / 8, N_DOMAINS
+    for name, dtype, lead, N in (
+            ("lora_bgmv_rows", torch.bfloat16, (8,), 3584),
+            ("lora_bgmv_rows", torch.bfloat16, (8,), 512),
+            ("lora_bgmv_rows", torch.float32, (8,), 3584),
+            ("lora_bgmv_seq", torch.bfloat16, (8, 512), 3584),
+            ("lora_bgmv_seq", torch.bfloat16, (8, 512), 512),
+            ("lora_bgmv_seq", torch.float32, (8, 512), 3584)):
+        x = randn(*lead, K, dtype=dtype)
+        w = randn(K, N, dtype=dtype, s=K ** -0.5)
+        a = randn(n_slots, K, r, dtype=dtype, s=K ** -0.5)
+        b = randn(n_slots, r, N, dtype=dtype, s=0.1)
+        bias = randn(N, dtype=dtype, s=0.1)
+        ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                           device="cuda")
+        fn = bg.lora_bgmv_rows if name == "lora_bgmv_rows" \
+            else bg.lora_bgmv_seq
+        got = fn(x, w, a, b, ids, scale, bias, backend="cuda")
+        want = fn(x, w, a, b, ids, scale, bias, backend="torch")
+        torch.cuda.synchronize()
+        err = compare(f"{name} N={N} {dtype}", got, want, dtype)
+        # per row (sequence): the same bits as lora_matmul alone with its
+        # own adapter
+        bit_err = 0.0
+        for i, sl in enumerate(ids.tolist()):
+            xi = x[i:i + 1] if x.dim() == 2 else x[i]
+            gi = got[i:i + 1] if x.dim() == 2 else got[i]
+            one = lm.lora_matmul(xi, w, a[sl], b[sl], scale, bias,
+                                 backend="cuda")
+            bit_err = max(bit_err, (gi.float() - one.float()).abs()
+                          .max().item())
+            check(torch.equal(gi, one),
+                  f"{name} N={N} {dtype}: row {i} differs from lora_matmul "
+                  f"with its adapter by {bit_err}")
+        M_ = x.numel() // K
+        used = len(set(ids.tolist()))
+        elt = x.element_size()
+        bms, by = bound(elt * (M_ * K + K * N + used * (K * r + r * N) + N
+                               + M_ * N) + 4 * ids.numel(),
+                        2 * M_ * N * K + 2 * M_ * r * (K + N), dtype)
+        x2 = x.reshape(M_, K)
+
+        def library():
+            # addmm for x W + bias, a gathered bmm for the low-rank term
+            if x.dim() == 2:
+                lo = torch.bmm(torch.bmm(x[:, None], a[ids]), b[ids])[:, 0]
+            else:
+                lo = torch.bmm(torch.bmm(x, a[ids]), b[ids]).reshape(M_, N)
+            return torch.addmm(bias, x2, w) + scale * lo
+
+        cases[name].append(dict(
+            shape=f"{'M' if x.dim() == 2 else 'B x S'}="
+                  f"{' x '.join(map(str, lead))} K={K} N={N} r={r} "
+                  f"slots={n_slots} bias {str(dtype)[6:]}",
+            max_abs_err=err, tol=TOL[dtype], bits_vs_lora_matmul=bit_err,
+            ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
+                                backend="cuda")),
+            plain_ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
+                                      backend="torch")),
+            library_ms=timer(library), bound_ms=bms, bound_by=by))
+        log(f"kernel {name} {cases[name][-1]}")
     return cases
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the serving path
+# phases 4 to 7: the serving paths
 # ---------------------------------------------------------------------------
 
 def queue(rng, n, lens, gens, vocab):
@@ -248,10 +333,11 @@ def queue(rng, n, lens, gens, vocab):
              int(rng.integers(*gens))) for _ in range(n)]
 
 
-def drain(cfg, params, reqs, slots):
+def drain(cfg, params, reqs, slots, bank=None, domains=None):
     from repro_torch.launch.engine import DecodeEngine
-    eng = DecodeEngine(cfg, slots=slots, device="cuda")
-    uids = [eng.submit(p, g) for p, g in reqs]
+    eng = DecodeEngine(cfg, slots=slots, bank=bank, device="cuda")
+    uids = [eng.submit(p, g, domain=None if domains is None else domains[i])
+            for i, (p, g) in enumerate(reqs)]
     comps, stats = eng.run(params)
     torch.cuda.synchronize()
     by = {c.uid: c for c in comps}
@@ -259,7 +345,53 @@ def drain(cfg, params, reqs, slots):
     return [by[u] for u in uids], stats
 
 
-def main_path(seed: int) -> dict:
+def domain_adapters(cfg, seed: int) -> dict:
+    """N_DOMAINS adapter sets from the spec alone (no backbone is built):
+    seeded prefix slots and LoRA a, and seeded nonzero LoRA b (the spec
+    inits b to zeros, which would make every domain serve alike)."""
+    from repro_torch.models.model import adapter_spec
+    from repro_torch.models.params import init_from_spec
+    out = {}
+    for i in range(N_DOMAINS):
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + i)
+        ad = init_from_spec(gen, adapter_spec(cfg), torch.device("cuda"))
+        for layer in ad["stack"]["g0"]:
+            for t in layer["s0"]["lora"].values():
+                t["b"] = (torch.randn(t["b"].shape, generator=gen,
+                                      device="cuda") * 0.1).to(t["b"].dtype)
+        out[f"domain{i}"] = ad
+    return out
+
+
+def served_ok(cfg, comps, reqs, what):
+    for c, (p, g) in zip(comps, reqs):
+        check(len(c.tokens) == g and not c.timed_out,
+              f"{what}: request {c.uid}: {len(c.tokens)} tokens, budget {g}")
+        check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+              f"{what}: request {c.uid}: token out of vocab")
+
+
+def drain_record(stats, launches, peak) -> dict:
+    h = stats.ttft_hist
+    return dict(launches=launches, requests=stats.requests,
+                tokens=stats.tokens, wall_s=stats.wall_s,
+                tok_per_s=stats.tok_per_s, waves=stats.waves,
+                segments=stats.segments, padded_tokens=stats.padded_tokens,
+                ttft_p50_s=h["p50"], ttft_p99_s=h["p99"],
+                tok_latency_p50_s=stats.tok_latency_hist["p50"],
+                peak_mem_gib=peak / 2 ** 30)
+
+
+def drain_line(r: dict) -> str:
+    return (f"{r['requests']} requests, {r['tokens']} tokens in "
+            f"{r['wall_s']:.3f}s = {r['tok_per_s']:.2f} tok/s; waves "
+            f"{r['waves']}, segments {r['segments']}, padded_tokens "
+            f"{r['padded_tokens']}; ttft p50 {r['ttft_p50_s']:.4f}s p99 "
+            f"{r['ttft_p99_s']:.4f}s; peak memory {r['peak_mem_gib']:.2f} "
+            f"GiB; launches {r['launches']}")
+
+
+def main_path(seed: int) -> tuple[dict, dict]:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -280,22 +412,13 @@ def main_path(seed: int) -> dict:
     ops.reset_launch_counts()
     comps, stats = drain(cfg, params, reqs, slots=8)
     launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for c, (p, g) in zip(comps, reqs):
-        check(len(c.tokens) == g and not c.timed_out,
-              f"request {c.uid}: {len(c.tokens)} tokens, budget {g}")
-        check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
-              f"request {c.uid}: token out of vocab")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "main")
+    check(all(launches[k] > 0 for k in ("lora_matmul", "flash_attention",
+                                        "flash_decode")),
+          f"a kernel of the single-tenant path never launched: {launches}")
     check(stats.waves > 1, "no in-wave refill happened")
-    h = stats.ttft_hist
-    log(f"main: {stats.requests} requests, {stats.tokens} tokens in "
-        f"{stats.wall_s:.3f}s = {stats.tok_per_s:.2f} tok/s; waves "
-        f"{stats.waves}, segments {stats.segments}, padded_tokens "
-        f"{stats.padded_tokens}; ttft p50 {h['p50']:.4f}s p99 "
-        f"{h['p99']:.4f}s; peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}")
+    log(f"main: {drain_line(rec)}")
 
     # full-size reference check: one prompt's prefill logits through the
     # kernels against the plain path (bf16 through 28 layers: cosine)
@@ -309,19 +432,86 @@ def main_path(seed: int) -> dict:
     log(f"main: full-size prefill logits kernels vs plain: cosine {cos:.6f},"
         f" max_abs_err {(kl - pl).abs().max().item():.4f}, top-1 "
         f"{int(kl.argmax())} vs {int(pl.argmax())}")
+    rec["prefill_logits_cosine"] = cos
+    bank_rec = bank_path(cfg, params["backbone"], reqs, seed)
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches, requests=stats.requests,
-                tokens=stats.tokens, wall_s=stats.wall_s,
-                tok_per_s=stats.tok_per_s, waves=stats.waves,
-                segments=stats.segments, padded_tokens=stats.padded_tokens,
-                ttft_p50_s=h["p50"], ttft_p99_s=h["p99"],
-                tok_latency_p50_s=stats.tok_latency_hist["p50"],
-                peak_mem_gib=peak / 2 ** 30, prefill_logits_cosine=cos)
+    return rec, bank_rec
+
+
+def bank_path(cfg, backbone: dict, reqs: list, seed: int) -> dict:
+    """The multi-tenant path on the main path's backbone, serving the main
+    path's queue with a seeded domain per request."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
+    sp = bank.serving_params(backbone)
+    rng = np.random.default_rng(seed + 10)
+    doms = [bank.domains[int(i)]
+            for i in rng.integers(0, N_DOMAINS, len(reqs))]
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comps, stats = drain(cfg, sp, reqs, slots=8, bank=bank, domains=doms)
+    launches = ops.launch_counts()
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "bank")
+    check(all(launches[k] > 0 for k in ("lora_bgmv_rows", "lora_bgmv_seq",
+                                        "flash_attention", "flash_decode"))
+          and launches["lora_matmul"] == 0,
+          f"bank path: every LoRA projection must go through the "
+          f"multi-LoRA kernels: {launches}")
+    check(stats.waves > 1, "bank: no in-wave refill happened")
+    log(f"bank: {N_DOMAINS} domains, mix "
+        f"{[doms.count(d) for d in bank.domains]}: {drain_line(rec)}")
+
+    # full-size check: one prompt per domain in one mixed prefill through
+    # the multi-LoRA kernels, against each domain's own single-tenant
+    # prefill through lora_matmul
+    S = 256
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (N_DOMAINS, S)),
+                           device="cuda")
+    ids = bank.adapter_ids(bank.domains)
+    ops.reset_launch_counts()
+    mixed, _ = M.prefill(sp, {"tokens": toks}, cfg, adapter_ids=ids)
+    n = ops.launch_counts()
+    check(n["lora_bgmv_seq"] > 0 and n["lora_matmul"] == 0,
+          f"mixed prefill did not take the seq kernel: {n}")
+    coss, errs, same = [], [], []
+    for i, d in enumerate(bank.domains):
+        one, _ = M.prefill({"backbone": backbone,
+                            "adapters": bank.snapshot(d)},
+                           {"tokens": toks[i:i + 1]}, cfg)
+        cos = F.cosine_similarity(mixed[i].flatten(), one[0].flatten(),
+                                  dim=0).item()
+        top = (int(mixed[i].argmax()), int(one[0].argmax()))
+        coss.append(cos)
+        errs.append((mixed[i] - one[0]).abs().max().item())
+        same.append(bool(torch.equal(mixed[i], one[0])))
+        check(bool(torch.isfinite(mixed[i]).all()) and cos > 0.999
+              and top[0] == top[1],
+              f"bank: mixed vs {d} prefill logits cosine {cos}, top-1 {top}")
+    log(f"bank: mixed vs per-domain prefill logits at full size: cosine "
+        f"{['%.6f' % c for c in coss]}, max_abs_err "
+        f"{['%.4f' % e for e in errs]}, bit-equal {same}")
+    # adapter selection is visible: one prompt, every domain
+    gen = M.generate(sp, cfg, toks[:1].expand(N_DOMAINS, S), gen=8,
+                     adapter_ids=ids).cpu().numpy()
+    distinct = len({tuple(r) for r in gen})
+    check(distinct >= 2, f"bank: all {N_DOMAINS} domains gave the same "
+                         f"tokens {gen[0]}")
+    log(f"bank: one prompt through {N_DOMAINS} domains: {distinct} distinct "
+        f"token rows")
+    rec.update(mixed_prefill_cosine=coss, mixed_prefill_max_abs_err=errs,
+               mixed_prefill_bit_equal=same, distinct_domain_rows=distinct)
+    return rec
 
 
 def end_to_end(seed: int) -> dict:
     from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
@@ -343,9 +533,81 @@ def end_to_end(seed: int) -> dict:
           "e2e f32: drain differs from solo generate")
     log(f"e2e: 2-layer f32 qwen2-7b, {len(reqs)} requests, {st.waves} waves:"
         f" kernel tokens == plain tokens == solo generate")
+
+    # the bank path at the same size: one mixed-domain drain through the
+    # kernels, through the plain versions, and per domain single-tenant
+    backbone = params["backbone"]
+    bank = AdapterBank.create(domain_adapters(cfg, seed + 2))
+    sp = bank.serving_params(backbone)
+    rng = np.random.default_rng(seed + 3)
+    breqs = queue(rng, 8, (32, 513), (4, 17), cfg.vocab_size)
+    doms = [bank.domains[int(i)] for i in rng.integers(0, N_DOMAINS, 8)]
+    ops.reset_launch_counts()
+    bk, bst = drain(cfg, sp, breqs, slots=4, bank=bank, domains=doms)
+    n = ops.launch_counts()
+    check(n["lora_bgmv_rows"] > 0 and n["lora_bgmv_seq"] > 0
+          and n["lora_matmul"] == 0, f"e2e bank launches {n}")
+    with ops.backend("torch"):
+        bp, _ = drain(cfg, sp, breqs, slots=4, bank=bank, domains=doms)
+    for a, b in zip(bk, bp):
+        check(np.array_equal(a.tokens, b.tokens),
+              f"e2e f32 bank: request {a.uid} kernel {a.tokens} vs plain "
+              f"{b.tokens}")
+    for d in sorted(set(doms)):
+        idx = [i for i, x in enumerate(doms) if x == d]
+        one, _ = drain(cfg, {"backbone": backbone,
+                             "adapters": bank.snapshot(d)},
+                       [breqs[i] for i in idx], slots=4)
+        for i, c in zip(idx, one):
+            check(np.array_equal(bk[i].tokens, c.tokens),
+                  f"e2e f32 bank: request {i} ({d}) mixed {bk[i].tokens} vs "
+                  f"per-domain {c.tokens}")
+    log(f"e2e: 2-layer f32 bank of {N_DOMAINS} domains, {len(breqs)} "
+        f"requests, {bst.waves} waves: kernel tokens == plain tokens == "
+        f"per-domain drains")
     del params
     torch.cuda.empty_cache()
-    return dict(requests=len(reqs), waves=st.waves, tokens_equal=True)
+    return dict(requests=len(reqs), waves=st.waves, tokens_equal=True,
+                bank_requests=len(breqs), bank_waves=bst.waves,
+                bank_tokens_equal=True)
+
+
+def classify_phase(seed: int) -> dict:
+    """vit-edge (the paper's case-study backbone) at its configured size:
+    mixed-domain classify through the bank's per-row heads."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("vit-edge")
+    check((cfg.n_layers, cfg.d_model) == (12, 768),
+          "vit-edge is not at its configured size")
+    backbone = M.init(cfg, seed, device="cuda")["backbone"]
+    adapters = domain_adapters(cfg, seed + 4)
+    bank = AdapterBank.create(adapters)
+    rng = np.random.default_rng(seed + 5)
+    B, S = 8, 197
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device="cuda")
+    doms = [bank.domains[int(i)] for i in rng.integers(0, N_DOMAINS, B)]
+    dt = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        mixed = M.classify(bank.serving_params(backbone), {"tokens": toks},
+                           cfg, adapter_ids=bank.adapter_ids(doms))
+        n = ops.launch_counts()
+        check(n["lora_bgmv_seq"] > 0 and n["lora_matmul"] == 0,
+              f"classify did not take the seq kernel: {n}")
+        want = torch.cat([M.classify({"backbone": backbone,
+                                      "adapters": adapters[d]},
+                                     {"tokens": toks[i:i + 1]}, cfg)
+                          for i, d in enumerate(doms)])
+    err = compare("classify mixed vs per-domain", mixed, want, dt)
+    check(mixed.shape == (B, cfg.peft.head_dim_out), "classify shape")
+    log(f"classify: vit-edge {B} x {S} tokens over {len(set(doms))} domains:"
+        f" mixed vs per-domain max_abs_err {err:.3e} (tol {TOL[dt]})")
+    return dict(batch=B, seq=S, max_abs_err=err, tol=TOL[dt])
 
 
 def _leaves(tree):
@@ -397,17 +659,21 @@ def main(argv=None) -> int:
     rec = {"gpu": smi, "kind": kind, "build_s": build_s}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     cases = kernel_cases(gen, Timer())
-    rec["main"] = main_path(args.seed)
+    rec["main"], rec["bank"] = main_path(args.seed)
+    log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
+        f"beside single-tenant {rec['main']['tok_per_s']:.2f} tok/s")
     rec["e2e"] = end_to_end(args.seed)
+    rec["classify"] = classify_phase(args.seed)
 
     kernels = []
     for name, cs in cases.items():
         head = cs[0]
+        path = "bank" if name.startswith("lora_bgmv") else "main"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": rec["main"]["launches"][name],
+            "launches": rec[path]["launches"][name],
             "max_abs_err": head["max_abs_err"], "tol": head["tol"],
             "shape": head["shape"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -6,8 +6,11 @@ never sees a jax array). bf16 leaves arrive as ``ml_dtypes.bfloat16``
 arrays: they are widened to f32 and cast to ``torch.bfloat16``, which is
 exact. Leaves under a ``layers`` or ``stack`` key carry the reference's
 leading scanned-layer dim; the bridge unstacks it into the port's list of
-per-layer dicts. :func:`to_numpy` is the inverse (bf16 leaves come back as
-f32 arrays holding the same values).
+per-layer dicts. A JAX AdapterBank's ``serving_params`` crosses the same
+way: its ``stack`` leaves ``(L, n_slots, ...)`` become per-layer
+``(n_slots, ...)`` leaves and its ``head`` stays slot-leading, which is
+the port's bank layout (``core/adapter_bank.py``). :func:`to_numpy` is the
+inverse (bf16 leaves come back as f32 arrays holding the same values).
 """
 from __future__ import annotations
 

@@ -19,10 +19,16 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
 
 _BACKEND: Optional[str] = None          # None: by tensor device
-_KERNELS = {"lora_matmul": lm, "flash_attention": fa, "flash_decode": fd}
+# kernel name -> (module, attribute holding its launch count)
+_KERNELS = {"lora_matmul": (lm, "launches"),
+            "flash_attention": (fa, "launches"),
+            "flash_decode": (fd, "launches"),
+            "lora_bgmv_rows": (bg, "rows_launches"),
+            "lora_bgmv_seq": (bg, "seq_launches")}
 
 
 def set_backend(name: Optional[str]) -> None:
@@ -53,12 +59,13 @@ def _pick(b: Optional[str]) -> Optional[str]:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per op since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +82,33 @@ def lora_matmul(x, w, a=None, b=None, scale: float = 1.0, bias=None, *,
         return (y + bias.to(y.dtype)) if bias is not None else y
     return lm.lora_matmul(x, w, a, b, float(scale), bias,
                           backend=_pick(backend))
+
+
+def lora_bgmv(x, w, a, b, adapter_ids, scale: float = 1.0, bias=None, *,
+              backend: Optional[str] = None):
+    """Multi-tenant LoRA matmul: per-row adapter selection from a stacked
+    bank (serving only, no backward).
+
+    x: (M, K) with adapter_ids (M,), or (B, S, K) with adapter_ids (B,).
+    a: (n_slots, K, r); b: (n_slots, r, N); ids in [0, n_slots). Row i gets
+    ``x_i @ w + scale * (x_i @ a[id_i]) @ b[id_i]`` (+ bias), bit-identical
+    to :func:`lora_matmul` with that row's adapter. 3-D x with S > 1 takes
+    the seq kernel (one adapter per sequence); any other x the rows
+    kernel."""
+    ids = torch.as_tensor(adapter_ids, device=x.device).to(torch.int32)
+    # ids address x's leading dim: rows of 2-D x, whole sequences of 3-D x
+    if tuple(ids.shape) != (x.shape[0],):
+        raise ValueError(
+            f"adapter_ids {tuple(ids.shape)} must be ({x.shape[0]},): one id "
+            f"per {'sequence' if x.dim() == 3 else 'row'} of x "
+            f"{tuple(x.shape)}")
+    if x.dim() == 3 and x.shape[1] > 1:
+        return bg.lora_bgmv_seq(x, w, a, b, ids, float(scale), bias,
+                                backend=_pick(backend))
+    shp = x.shape
+    y = bg.lora_bgmv_rows(x.reshape(-1, shp[-1]), w, a, b, ids,
+                          float(scale), bias, backend=_pick(backend))
+    return y.reshape(*shp[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -77,3 +77,27 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def lora_bgmv(x: torch.Tensor, w: torch.Tensor, a_stack: torch.Tensor,
+              b_stack: torch.Tensor, adapter_ids: torch.Tensor, scale: float,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Naive multi-LoRA matmul: per-row adapter gather, f32 math.
+
+    x: (M, K) with adapter_ids (M,), or (B, S, K) with adapter_ids (B,)
+    (one adapter per sequence). a_stack: (n_slots, K, r); b_stack:
+    (n_slots, r, N). Row i computes
+    ``x_i @ w + scale * (x_i @ a[id_i]) @ b[id_i]`` (+ bias)."""
+    shp = x.shape
+    x2 = x.reshape(-1, shp[-1]).float()
+    ids = torch.as_tensor(adapter_ids, device=x.device).long()
+    if ids.shape[0] != x2.shape[0]:                # per-sequence -> per-row
+        ids = ids.repeat_interleave(shp[1])
+    a_sel = a_stack.float()[ids]                   # (M, K, r)
+    b_sel = b_stack.float()[ids]                   # (M, r, N)
+    y = x2 @ w.float()
+    u = torch.einsum("mk,mkr->mr", x2, a_sel)
+    y = y + scale * torch.einsum("mr,mrn->mn", u, b_sel)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*shp[:-1], w.shape[-1])

@@ -1,5 +1,5 @@
-"""Ragged continuous-batching decode engine, dense single-tenant mode
-(counterpart of ``repro/launch/engine.py``).
+"""Ragged continuous-batching decode engine, dense mode, single- and
+multi-tenant (counterpart of ``repro/launch/engine.py``).
 
 One ``run()`` drain:
 
@@ -22,8 +22,15 @@ One ``run()`` drain:
 
 The host-side logic is the reference's, so for one queue both engines
 count the same ``waves``, ``segments``, ``tokens`` and ``padded_tokens``.
-A drain is token for token the same as serving each request alone. The
-AdapterBank, speculative, paged and mesh modes are later slices.
+A drain is token for token the same as serving each request alone.
+
+**Multi-tenant serving**: constructed with an
+:class:`~repro_torch.core.adapter_bank.AdapterBank`, requests carry a
+``domain`` and one wave freely mixes domains; each row's bank slot id
+rides the wave as per-row ``adapter_ids`` into the multi-LoRA kernels.
+``bank.stacked`` is re-read at every prefill, refill and segment, so a
+publish between drains (or between segments) is served by the very next
+dispatch. The speculative, paged and mesh modes are later slices.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ class Request:
     uid: int
     tokens: np.ndarray                 # (S,) int32 prompt
     max_new_tokens: int
+    domain: Optional[str] = None       # multi-tenant: AdapterBank slot owner
     deadline_s: Optional[float] = None  # monotonic budget from submit time
     t_submit: float = 0.0              # time.perf_counter() at submit
     sla: Optional[str] = None          # service class label
@@ -122,7 +130,6 @@ class DecodeEngine:
                  seed: int = 0, bank=None, mesh=None, spec=None,
                  tel: Optional[Telemetry] = None, paged=None, device=None):
         for name, val, item in (
-                ("bank=", bank, "slice 2, multi-tenant produce"),
                 ("spec=", spec, "slice 6, ssm family and speculative "
                                 "decoding"),
                 ("paged=", paged, "slice 5, paged engine"),
@@ -133,6 +140,7 @@ class DecodeEngine:
         self.cfg = cfg
         self.slots = slots
         self.greedy = greedy
+        self.bank = bank                   # Optional[AdapterBank]
         self.tel = tel
         self.device = resolve_device(device)
         self.slot_table = [Slot() for _ in range(slots)]
@@ -150,7 +158,8 @@ class DecodeEngine:
         from now: a row still live past it retires mid-wave as a
         ``timed_out`` completion with its partial tokens. ``sla`` labels
         the request's service class (per-class histograms and misses in
-        ``EngineStats.sla_stats``). Malformed requests fail here with
+        ``EngineStats.sla_stats``). ``domain`` names the request's adapter
+        slot in the engine's AdapterBank. Malformed requests fail here with
         ``ValueError``, as in the reference."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or tokens.size == 0:
@@ -164,19 +173,34 @@ class DecodeEngine:
             raise ValueError(
                 f"submit: deadline_s must be >= 0, got {deadline_s}")
         if domain is not None:
-            raise ValueError("submit(domain=...) requires an engine "
-                             "constructed with an AdapterBank")
+            if self.bank is None:
+                raise ValueError("submit(domain=...) requires an engine "
+                                 "constructed with an AdapterBank")
+            if domain not in self.bank.domains:
+                raise ValueError(
+                    f"domain {domain!r} has no adapter slot "
+                    f"(known: {list(self.bank.domains)})")
+        # all-or-none tenancy, enforced at the door (the offending request
+        # is rejected, the queue is left intact): bank params served
+        # without adapter_ids would fail deep inside the projections
+        if self._queue and (domain is None) != (self._queue[0].domain is None):
+            raise ValueError("all requests in a drain must carry a domain "
+                             "or none (mixing tenant-addressed and "
+                             "merged-param requests is ambiguous)")
         if extras is not None:
             raise unported("submit(extras=...)", "later, remaining families")
         uid = self._uid
         self._uid += 1
-        self._queue.append(Request(uid, tokens, int(max_new_tokens),
+        self._queue.append(Request(uid, tokens, int(max_new_tokens), domain,
                                    deadline_s, time.perf_counter(), sla))
         self._telemetry().count("engine.submitted")
         return uid
 
     def _telemetry(self) -> Telemetry:
         return self.tel if self.tel is not None else telemetry.get()
+
+    def pending(self) -> int:
+        return len(self._queue)
 
     def _fill_slots(self) -> list[tuple[int, Request]]:
         """Assign queued requests to free slots FIFO (no length bucketing).
@@ -192,6 +216,11 @@ class DecodeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _wave_params(self, params, tenant: bool):
+        """Per-dispatch params: re-read the bank so publishes are fresh."""
+        return params if not tenant else \
+            {**params, "adapters": self.bank.stacked}
 
     # -- serving ------------------------------------------------------------
     @torch.no_grad()
@@ -215,6 +244,9 @@ class DecodeEngine:
         bufs: list[list[np.ndarray]] = [[] for _ in range(B)]
         remaining = np.zeros(B, np.int64)
         tok = caches = pos = None
+        tenant = self._queue[0].domain is not None
+        ids = None                         # (B,) adapter slot ids of the wave
+        cur_dom: list[Optional[str]] = [None] * B
         t_admit = [0.0] * B
         t_first: list[Optional[float]] = [None] * B
 
@@ -253,7 +285,8 @@ class DecodeEngine:
             tel.count("engine.retired")
             tel.record_span("engine.request", req.t_submit, now,
                             uid=req.uid, wave=slot_wave[i],
-                            tokens=len(toks_i), timed_out=timed_out)
+                            tokens=len(toks_i), domain=req.domain,
+                            timed_out=timed_out)
             bufs[i] = []
             remaining[i] = 0
             slot_req[i] = None
@@ -269,9 +302,19 @@ class DecodeEngine:
                 for i, req in packed:
                     slot_req[i], slot_wave[i] = req, stats.waves - 1
                     remaining[i] = req.max_new_tokens
+                    cur_dom[i] = req.domain
                     t_admit[i], t_first[i] = t_adm, None
                     h_queue.record(t_adm - req.t_submit)
                     tel.observe("engine.queue_s", t_adm - req.t_submit)
+                if tenant:
+                    # full-wave ids for the segments, recomputed at every
+                    # packing; a slot that never filled takes the first
+                    # live row's domain (its tokens are discarded)
+                    live = [i for i in range(B) if slot_req[i] is not None]
+                    ids = self.bank.adapter_ids(
+                        [cur_dom[i] if cur_dom[i] is not None
+                         else cur_dom[live[0]] for i in range(B)])
+                wp = self._wave_params(params, tenant)
                 S_pad = _pow2ceil(max(len(req.tokens) for _, req in packed))
                 if caches is None:
                     # initial wave prefill: all B slots (empty slots carry
@@ -284,9 +327,9 @@ class DecodeEngine:
                     with tel.span("engine.prefill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
                         tok, caches, pos = M.wave_prefill(
-                            params, self.cfg, cap,
+                            wp, self.cfg, cap,
                             {"tokens": self._tensor(prompts)},
-                            self._tensor(lens))
+                            self._tensor(lens), ids)
                 else:
                     # in-wave refill: prefill only the admitted rows
                     # (pow2-padded row count) into their slots
@@ -298,12 +341,18 @@ class DecodeEngine:
                         prompts[r, :len(req.tokens)] = req.tokens
                         lens[r] = len(req.tokens)
                         row_idx[r] = i
+                    ids_rows = None
+                    if tenant:             # pad rows take the first row's
+                        rdom = [req.domain for _, req in packed]
+                        rdom += [rdom[0]] * (Br - len(packed))
+                        ids_rows = self.bank.adapter_ids(rdom)
                     with tel.span("engine.refill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
                         tok, caches, pos = M.refill(
-                            params, self.cfg, cap,
+                            wp, self.cfg, cap,
                             {"tokens": self._tensor(prompts)},
-                            self._tensor(lens), row_idx, tok, caches, pos)
+                            self._tensor(lens), row_idx, tok, caches, pos,
+                            ids_rows)
             # deadline sweep: a live row past its budget retires here with
             # the tokens it has so far
             now = time.perf_counter()
@@ -322,8 +371,9 @@ class DecodeEngine:
                                  else live_rem.max()))
             with tel.span("engine.segment", seg=seg, live=live_n):
                 toks, tok, caches, pos, _ = M.segment(
-                    params, self.cfg, seg, self.greedy, tok, caches, pos,
-                    self._tensor(remaining.astype(np.int32)), self._gen)
+                    self._wave_params(params, tenant), self.cfg, seg,
+                    self.greedy, tok, caches, pos,
+                    self._tensor(remaining.astype(np.int32)), self._gen, ids)
                 toks = toks.cpu().numpy()      # the one sync: segment done
             counts = np.minimum(seg, remaining)
             executed = seg * B
@@ -366,11 +416,19 @@ class DecodeEngine:
         drain.__exit__(None, None, None)
         return out, stats
 
-    def serve(self, params, prompts, *, gen: int
+    def serve(self, params, prompts, *, gen: int,
+              domains: Optional[list] = None
               ) -> tuple[np.ndarray, EngineStats]:
-        """Serve an (N, S) prompt batch in one drain; returns ((N, gen)
-        tokens in submission order, stats)."""
-        uids = [self.submit(p, gen) for p in np.asarray(prompts)]
+        """Serve an (N, S) prompt batch in one drain, row i with adapter
+        slot ``domains[i]`` if given; returns ((N, gen) tokens in
+        submission order, stats)."""
+        prompts = np.asarray(prompts)
+        if domains is not None and len(domains) != len(prompts):
+            raise ValueError(f"domains ({len(domains)}) must name one "
+                             f"adapter slot per prompt ({len(prompts)})")
+        uids = [self.submit(p, gen,
+                            domain=None if domains is None else domains[i])
+                for i, p in enumerate(prompts)]
         comps, stats = self.run(params)
         by_uid = {c.uid: c.tokens for c in comps}
         return np.stack([by_uid[u] for u in uids]), stats

@@ -51,9 +51,18 @@ def attn_spec(cfg: ModelConfig) -> dict:
     return s
 
 
-def _proj(x, w, bias, lora, scale):
-    """Projection with optional LoRA branch (the fused kernel)."""
+def _proj(x, w, bias, lora, scale, adapter_ids=None):
+    """Projection with optional LoRA branch (the fused kernel).
+
+    Multi-tenant serving passes ``adapter_ids`` (one slot id per batch row)
+    with ``lora`` leaves carrying a leading ``n_slots`` dim (the
+    AdapterBank layout); the un-reshaped x then goes to the multi-LoRA
+    kernels, so a 3-D prefill x reaches the seq kernel and a decode x the
+    rows kernel."""
     if lora is not None:
+        if adapter_ids is not None:
+            return kops.lora_bgmv(x, w, lora["a"], lora["b"], adapter_ids,
+                                  scale, bias)
         shp = x.shape
         y = kops.lora_matmul(x.reshape(-1, shp[-1]), w, lora["a"], lora["b"],
                              scale, bias)
@@ -65,55 +74,73 @@ def _lora_scale(cfg: ModelConfig) -> float:
     return cfg.peft.lora_alpha / max(cfg.peft.lora_rank, 1)
 
 
-def _qkv(params, adapters, x, cfg: ModelConfig):
+def _qkv(params, adapters, x, cfg: ModelConfig, adapter_ids=None):
     """q, k, v with LoRA, reshaped to (B, S, H, D)."""
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     lora = (adapters or {}).get("lora", {})
     ls = _lora_scale(cfg)
-    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls)
-    k = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls)
-    v = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls)
+    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
+              adapter_ids)
+    k = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
+              adapter_ids)
+    v = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
+              adapter_ids)
     B, S = x.shape[:2]
     return (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
             v.reshape(B, S, nkv, hd))
 
 
-def _with_prefix(k, v, adapters, B):
-    """Prepend the layer's prefix-KV slots (broadcast over batch)."""
+def _prefix_slots(pfx: dict, B: int, adapter_ids=None):
+    """The layer's prefix-KV slots per batch row, (B, n_p, Hkv, D): one
+    bank broadcast over the batch, or with ``adapter_ids`` each row's own
+    domain's slots gathered from the stacked (n_slots, n_p, Hkv, D) bank."""
+    if adapter_ids is not None:
+        ids = adapter_ids.to(device=pfx["k"].device, dtype=torch.long)
+        return pfx["k"].index_select(0, ids), pfx["v"].index_select(0, ids)
+    return (pfx["k"][None].expand(B, *pfx["k"].shape),
+            pfx["v"][None].expand(B, *pfx["v"].shape))
+
+
+def _with_prefix(k, v, adapters, B, adapter_ids=None):
+    """Prepend the layer's prefix-KV slots (see :func:`_prefix_slots`)."""
     pfx = (adapters or {}).get("prefix")
     if pfx is None:
         return k, v, 0
-    pk = pfx["k"][None].expand(B, *pfx["k"].shape).to(k.dtype)
-    pv = pfx["v"][None].expand(B, *pfx["v"].shape).to(v.dtype)
+    pk, pv = _prefix_slots(pfx, B, adapter_ids)
     n_p = pk.shape[1]
-    return torch.cat([pk, k], 1), torch.cat([pv, v], 1), n_p
+    return (torch.cat([pk.to(k.dtype), k], 1),
+            torch.cat([pv.to(v.dtype), v], 1), n_p)
 
 
 def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
                   cfg: ModelConfig, *, positions: torch.Tensor,
                   causal: bool = True, window: int = 0,
                   make_cache: bool = False, cache_len: Optional[int] = None,
-                  lengths: Optional[torch.Tensor] = None):
+                  lengths: Optional[torch.Tensor] = None,
+                  adapter_ids: Optional[torch.Tensor] = None):
     """Returns (out (B, S, d_model), cache or None).
 
     ``lengths`` (B,) marks ragged right-padded rows: row b's valid tokens
     are columns ``[0, lengths[b])``. Padding sits on the right and masking
     is causal, so valid rows never see padded columns; the per-row cache
     ``pos`` plane (B, L) carries the ``+1e9`` sentinel beyond each row's
-    length, which keeps padded K/V invisible to decode."""
+    length, which keeps padded K/V invisible to decode. ``adapter_ids``
+    (B,) selects each row's adapters from stacked (n_slots, ...) leaves
+    (multi-tenant serving)."""
     B, S = x.shape[:2]
-    q, k, v = _qkv(params, adapters, x, cfg)
+    q, k, v = _qkv(params, adapters, x, cfg, adapter_ids)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    kp, vp, n_p = _with_prefix(k, v, adapters, B)
+    kp, vp, n_p = _with_prefix(k, v, adapters, B, adapter_ids)
     pos32 = positions.to(torch.int32)
     kv_pos = torch.cat([pos32.new_full((n_p,), -1), pos32]) if n_p else pos32
     out = kops.flash_attention(q, kp, vp, q_pos=pos32, kv_pos=kv_pos,
                                window=window, causal=causal)
     out = out.reshape(B, S, -1)
     y = _proj(out, params["wo"], None,
-              (adapters or {}).get("lora", {}).get("o"), _lora_scale(cfg))
+              (adapters or {}).get("lora", {}).get("o"), _lora_scale(cfg),
+              adapter_ids)
 
     cache = None
     if make_cache:
@@ -158,23 +185,28 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
 def attention_decode(params: dict, adapters: Optional[dict],
                      x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
                      pos: torch.Tensor, window: int = 0,
-                     active: Optional[torch.Tensor] = None):
+                     active: Optional[torch.Tensor] = None,
+                     adapter_ids: Optional[torch.Tensor] = None):
     """x: (B, 1, d). cache: {'k', 'v', 'pos'} of one layer, updated in
     place. ``pos`` (B,): each row writes its own slot ``pos[b]``
     (``pos[b] % window`` for sliding), so one wave mixes rows at different
     positions. ``active`` (B,) bool retires rows: a retired row's slot is
-    left as it was. Returns (out (B, 1, d), cache)."""
+    left as it was. ``adapter_ids`` (B,) selects each row's adapters from
+    stacked (n_slots, ...) leaves. Returns (out (B, 1, d), cache)."""
     B = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     lora = (adapters or {}).get("lora", {})
     ls = _lora_scale(cfg)
     pos = pos.to(torch.int64).expand(B)
 
-    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls)
+    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
+              adapter_ids)
     q = rope(q.reshape(B, 1, nh, hd), pos[:, None], cfg.rope_theta)
-    k1 = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls)
+    k1 = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
+               adapter_ids)
     k1 = rope(k1.reshape(B, 1, nkv, hd), pos[:, None], cfg.rope_theta)
-    v1 = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls)
+    v1 = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
+               adapter_ids)
     v1 = v1.reshape(B, 1, nkv, hd)
 
     T = cache["k"].shape[1]
@@ -191,13 +223,17 @@ def attention_decode(params: dict, adapters: Optional[dict],
         buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
 
     pfx = (adapters or {}).get("prefix")
+    pfx_k = pfx_v = None
+    if pfx is not None:
+        if adapter_ids is not None:                # per-row domain prefix
+            pfx_k, pfx_v = _prefix_slots(pfx, B, adapter_ids)
+        else:
+            pfx_k, pfx_v = pfx["k"], pfx["v"]
     o = kops.flash_decode(
         q[:, 0], cache["k"], cache["v"], q_pos=pos, kv_pos=cache["pos"],
-        prefix_k=None if pfx is None else pfx["k"],
-        prefix_v=None if pfx is None else pfx["v"],
-        window=window, causal=True)
+        prefix_k=pfx_k, prefix_v=pfx_v, window=window, causal=True)
     o = o.reshape(B, 1, nh * hd).to(x.dtype)
-    y = _proj(o, params["wo"], None, lora.get("o"), ls)
+    y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
 
 

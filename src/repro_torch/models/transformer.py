@@ -94,10 +94,15 @@ def _layer_adapters(adapters: dict, name: str, n: int) -> list:
 
 def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
               cfg: ModelConfig, *, positions: torch.Tensor,
-              make_cache: bool = False, cache_len=None, lengths=None):
+              make_cache: bool = False, cache_len=None, lengths=None,
+              adapter_ids=None):
     """Run all groups over a full sequence. ``lengths`` (B,) serves ragged
     right-padded rows (per-row sentinel cache positions past each row's
-    length). Returns (x, caches | None, aux_sum)."""
+    length). ``adapter_ids`` (B,) serves a multi-tenant wave: each layer's
+    adapter leaves carry a leading ``n_slots`` dim (the AdapterBank
+    layout, the port's form of the reference's ``(L, n_slots, ...)``) and
+    row b uses slot ``adapter_ids[b]``. Returns (x, caches | None,
+    aux_sum)."""
     caches: dict = {}
     for name, kinds, n in groups_for(cfg):
         per_layer = []
@@ -110,7 +115,7 @@ def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
                     p["attn"], a, rmsnorm(p["ln1"], x), cfg,
                     positions=positions, window=attn_window(cfg, k),
                     make_cache=make_cache, cache_len=cache_len,
-                    lengths=lengths)
+                    lengths=lengths, adapter_ids=adapter_ids)
                 x = x + h
                 x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
                 if c is not None:
@@ -127,11 +132,11 @@ def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
 
 def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                  caches: dict, cfg: ModelConfig, *, pos: torch.Tensor,
-                 active=None):
+                 active=None, adapter_ids=None):
     """Single-token step through all groups; ``caches`` are updated in
     place (each layer writes its slice of the (L, B, ...) leaves).
-    ``pos`` (B,) per row; ``active`` (B,) bool freezes retired rows' caches.
-    Returns (x, caches)."""
+    ``pos`` (B,) per row; ``active`` (B,) bool freezes retired rows' caches;
+    ``adapter_ids`` (B,) as in :func:`stack_seq`. Returns (x, caches)."""
     for name, kinds, n in groups_for(cfg):
         gc = caches[name]
         for l, (lp, la) in enumerate(zip(params[name],
@@ -142,7 +147,8 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                 lc = {leaf: t[l] for leaf, t in gc[key].items()}
                 h, _ = attn_mod.attention_decode(
                     p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
-                    window=attn_window(cfg, k), active=active)
+                    window=attn_window(cfg, k), active=active,
+                    adapter_ids=adapter_ids)
                 x = x + h
                 x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x, caches

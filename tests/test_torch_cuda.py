@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: odd shapes (M, N, K not multiples of any tile, g = 7, D = 64),
-windows, non-causal masks, sentinels and prefix slots. A CUDA kernel has
+windows, non-causal masks, sentinels and prefix slots; the multi-LoRA
+kernels with 1 to 8 slots, ranks 1 to 32, and ids all the same, all
+different and repeating, and bit for bit against ``lora_matmul`` per row. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import ops
 
@@ -55,6 +58,97 @@ def test_lora_matmul_kernel(gen, M, K, N, r, with_bias, dtype):
     got = lm.lora_matmul(x, w, a, b, 2.0, bias)
     assert lm.launches == n0 + 1
     close(got, lm.lora_matmul_torch(x, w, a, b, 2.0, bias), dtype)
+
+
+def _ids(gen, n, n_slots, pattern):
+    if pattern == "same":
+        return torch.full((n,), n_slots - 1, dtype=torch.int32,
+                          device="cuda")
+    if pattern == "distinct":                 # all different where possible
+        return (torch.arange(n, device="cuda") % n_slots).to(torch.int32)
+    return torch.randint(0, n_slots, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)  # repeating, in no order
+
+
+def _bgmv_operands(gen, lead, K, N, r, n_slots, dtype, with_bias):
+    x = randn(gen, *lead, K, dtype=dtype)
+    w = randn(gen, K, N, dtype=dtype, s=K ** -0.5)
+    a = randn(gen, n_slots, K, r, dtype=dtype, s=K ** -0.5)
+    b = randn(gen, n_slots, r, N, dtype=dtype, s=0.1)
+    bias = randn(gen, N, dtype=dtype) if with_bias else None
+    return x, w, a, b, bias
+
+
+BGMV_SHAPES = [(1, 7, 5, 1, 1), (8, 130, 97, 8, 4), (65, 67, 200, 32, 8),
+               (8, 3584, 512, 8, 4)]          # (M or B, K, N, r, n_slots)
+
+
+@pytest.mark.parametrize("M,K,N,r,n_slots", BGMV_SHAPES)
+@pytest.mark.parametrize("pattern", ["same", "distinct", "repeat"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lora_bgmv_rows_kernel(gen, M, K, N, r, n_slots, pattern, with_bias,
+                               dtype):
+    x, w, a, b, bias = _bgmv_operands(gen, (M,), K, N, r, n_slots, dtype,
+                                      with_bias)
+    ids = _ids(gen, M, n_slots, pattern)
+    n0 = bg.rows_launches
+    got = bg.lora_bgmv_rows(x, w, a, b, ids, 2.0, bias)
+    assert bg.rows_launches == n0 + 1
+    close(got, bg.lora_bgmv_torch(x, w, a, b, ids, 2.0, bias), dtype)
+
+
+@pytest.mark.parametrize("B,K,N,r,n_slots", BGMV_SHAPES)
+@pytest.mark.parametrize("S", [2, 70])
+@pytest.mark.parametrize("pattern", ["same", "distinct", "repeat"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lora_bgmv_seq_kernel(gen, B, K, N, r, n_slots, S, pattern, dtype):
+    x, w, a, b, bias = _bgmv_operands(gen, (B, S), K, N, r, n_slots, dtype,
+                                      True)
+    ids = _ids(gen, B, n_slots, pattern)
+    n0 = bg.seq_launches
+    got = bg.lora_bgmv_seq(x, w, a, b, ids, 2.0, bias)
+    assert bg.seq_launches == n0 + 1
+    close(got, bg.lora_bgmv_torch(x, w, a, b, ids, 2.0, bias), dtype)
+
+
+@pytest.mark.parametrize("seq", [None, 37])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lora_bgmv_rows_equal_lora_matmul_bit_for_bit(gen, seq, dtype):
+    """Each row (sequence) equals ``lora_matmul`` run alone with its own
+    adapter: the same bits, whatever batch it came in."""
+    n, K, N, r, n_slots = 9, 200, 131, 8, 4
+    lead = (n,) if seq is None else (n, seq)
+    x, w, a, b, bias = _bgmv_operands(gen, lead, K, N, r, n_slots, dtype,
+                                      True)
+    ids = _ids(gen, n, n_slots, "repeat")
+    if seq is None:
+        got = bg.lora_bgmv_rows(x, w, a, b, ids, 2.0, bias)
+    else:
+        got = bg.lora_bgmv_seq(x, w, a, b, ids, 2.0, bias)
+    for i, s in enumerate(ids.tolist()):
+        xi = x[i:i + 1] if seq is None else x[i]
+        want = lm.lora_matmul(xi, w, a[s].contiguous(), b[s].contiguous(),
+                              2.0, bias)
+        gi = got[i:i + 1] if seq is None else got[i]
+        assert torch.equal(gi, want), (i, (gi.float() - want.float()).abs()
+                                       .max().item())
+
+
+def test_ops_lora_bgmv_routes_by_shape(gen):
+    """3-D x with S > 1 takes the seq kernel; (M, K) and (B, 1, K) the rows
+    kernel; ids of another shape raise before any launch."""
+    x, w, a, b, _ = _bgmv_operands(gen, (4, 3), 16, 8, 2, 2, torch.float32,
+                                   False)
+    ids = _ids(gen, 4, 2, "repeat")
+    ops.reset_launch_counts()
+    ops.lora_bgmv(x, w, a, b, ids, 1.0)
+    ops.lora_bgmv(x[:, :1].contiguous(), w, a, b, ids, 1.0)
+    ops.lora_bgmv(x[:, 0].contiguous(), w, a, b, ids, 1.0)
+    with pytest.raises(ValueError, match="one id per sequence"):
+        ops.lora_bgmv(x, w, a, b, ids.repeat(3), 1.0)
+    counts = ops.launch_counts()
+    assert (counts["lora_bgmv_seq"], counts["lora_bgmv_rows"]) == (1, 2)
 
 
 # (B, S, n_prefix, Hq, Hkv, D)
@@ -122,6 +216,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         lm.lora_matmul(x, w, randn(gen, 8, 33, dtype=torch.float32),
                        randn(gen, 33, 6, dtype=torch.float32), 1.0)
     q = randn(gen, 1, 2, 1, 256, dtype=torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        bg.lora_bgmv_rows(x, w, a[None], b[None],
+                          torch.zeros(4, dtype=torch.int64, device="cuda"),
+                          1.0)
+    with pytest.raises(ValueError, match="chain"):
+        bg.lora_bgmv_seq(x[None], w, a[None], b[None],
+                         torch.zeros(2, dtype=torch.int32, device="cuda"), 1.0)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, q_pos=torch.arange(2, device="cuda"),
                            kv_pos=torch.arange(2, device="cuda"))

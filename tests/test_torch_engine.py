@@ -18,6 +18,7 @@ from repro.launch.engine import DecodeEngine as JaxEngine
 from repro.models import model as JM
 from repro_torch.checkpoint.from_jax import from_jax
 from repro_torch.configs.base import get_config
+from repro_torch.core.adapter_bank import AdapterBank
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import model as M
 
@@ -87,7 +88,7 @@ BAD_SUBMITS = [
     dict(tokens=[[1, 2]], max_new_tokens=2),
     dict(tokens=[1, 2], max_new_tokens=0),
     dict(tokens=[1, 2], max_new_tokens=2, deadline_s=-1.0),
-    dict(tokens=[1, 2], max_new_tokens=2, domain="flowers"),
+    dict(tokens=[1, 2], max_new_tokens=2, domain="flowers"),   # no bank
 ]
 
 
@@ -118,8 +119,21 @@ def test_engine_without_cuda_raises(monkeypatch):
         DecodeEngine(get_config("qwen2-7b").reduced(), slots=2)
 
 
-@pytest.mark.parametrize("kw", [dict(bank=object()), dict(spec=object()),
-                                dict(paged=object()), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(spec=object()), dict(paged=object()),
+                                dict(mesh=object())])
 def test_unported_engine_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(get_config("qwen2-7b").reduced(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("make", ["init", "create"])
+def test_slot_sharded_adapter_bank_raises(make):
+    """The bank is ported; its slot sharding over a mesh is not yet."""
+    cfg = get_config("qwen2-7b").reduced()
+    adapters = M.init(cfg, 0, device="cpu")["adapters"]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP: later, multi-GPU sharding"):
+        if make == "init":
+            AdapterBank(["a"], adapters, mesh=object())
+        else:
+            AdapterBank.create({"a": adapters}, mesh=object())

@@ -185,6 +185,106 @@ def test_lora_matmul_matches_jax(M, K, N, r, with_bias, dt):
 
 
 # ---------------------------------------------------------------------------
+# Multi-tenant LoRA (bgmv rows and seq)
+# ---------------------------------------------------------------------------
+
+def _bgmv_operands(M, K, N, r, n_slots, dt, with_bias, seq=None, seed=0):
+    """The same numpy values for both packages (cf. tests/test_kernels.py
+    ``_bgmv_operands``)."""
+    rng = np.random.default_rng(seed + M * K + N + r + n_slots)
+    shape = (M, K) if seq is None else (M, seq, K)
+    x, tx = pair(rng.standard_normal(shape), dt)
+    w, tw = pair(0.05 * rng.standard_normal((K, N)), dt)
+    a, ta = pair(0.05 * rng.standard_normal((n_slots, K, r)), dt)
+    b, tb = pair(0.05 * rng.standard_normal((n_slots, r, N)), dt)
+    bias, tbias = pair(rng.standard_normal(N), dt) if with_bias \
+        else (None, None)
+    ids = rng.integers(0, n_slots, M).astype(np.int32)
+    return (x, w, a, b, bias, jnp.asarray(ids)), \
+        (tx, tw, ta, tb, tbias, torch.from_numpy(ids))
+
+
+@pytest.mark.parametrize("M,K,N,r,n_slots", [
+    (16, 32, 24, 4, 3),
+    (100, 200, 144, 8, 5),           # padding path
+    (8, 64, 48, 4, 1),               # degenerate single tenant
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_lora_bgmv_rows_matches_jax(M, K, N, r, n_slots, dt, with_bias):
+    """Decode shape: one adapter id per row, against the JAX gather oracle
+    and the Pallas rows kernel in interpret mode."""
+    (x, w, a, b, bias, ids), targs = _bgmv_operands(M, K, N, r, n_slots, dt,
+                                                    with_bias)
+    got = ops.lora_bgmv(*targs[:4], targs[5], 2.0, targs[4])
+    want = jref.lora_bgmv(x, w, a, b, ids, 2.0, bias)
+    pallas = jops.lora_bgmv(x, w, a, b, ids, 2.0, bias, backend="interpret")
+    assert got.dtype == targs[0].dtype and got.shape == (M, N)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dt))
+    np.testing.assert_allclose(f32(got), f32(pallas), **tol(dt))
+
+
+@pytest.mark.parametrize("B,S,K,N,r,n_slots", [
+    (4, 12, 32, 24, 4, 3),
+    (3, 9, 96, 80, 8, 4),            # padding path
+    (2, 5, 16, 8, 2, 1),             # degenerate single tenant
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_lora_bgmv_seq_matches_jax(B, S, K, N, r, n_slots, dt, with_bias):
+    """Prefill shape: one adapter id per sequence (the seq kernel)."""
+    (x, w, a, b, bias, ids), targs = _bgmv_operands(B, K, N, r, n_slots, dt,
+                                                    with_bias, seq=S)
+    got = ops.lora_bgmv(*targs[:4], targs[5], 2.0, targs[4])
+    want = jref.lora_bgmv(x, w, a, b, ids, 2.0, bias)
+    pallas = jops.lora_bgmv(x, w, a, b, ids, 2.0, bias, backend="interpret")
+    assert got.dtype == targs[0].dtype and got.shape == (B, S, N)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dt))
+    np.testing.assert_allclose(f32(got), f32(pallas), **tol(dt))
+
+
+@pytest.mark.parametrize("seq", [None, 7])
+def test_lora_bgmv_torch_oracle_matches_jax_oracle(seq):
+    (x, w, a, b, bias, ids), targs = _bgmv_operands(6, 20, 12, 3, 4, "f32",
+                                                    True, seq=seq)
+    got = ref.lora_bgmv(*targs[:4], targs[5], 2.0, targs[4])
+    want = jref.lora_bgmv(x, w, a, b, ids, 2.0, bias)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol("f32"))
+
+
+@pytest.mark.parametrize("seq", [None, 5])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_lora_bgmv_equals_lora_matmul_per_row(seq, dt):
+    """The multi-tenant == single-tenant contract within the port's plain
+    versions: each row (sequence) equals ``lora_matmul`` with its own
+    adapter, bit for bit. CPU BLAS may block a product differently for
+    another row count, so both run on the whole batch here; the kernels
+    meet the claim for any batch (tests/test_torch_cuda.py)."""
+    _, (x, w, a, b, bias, ids) = _bgmv_operands(12, 40, 24, 4, 3, dt, True,
+                                                seq=seq)
+    got = ops.lora_bgmv(x, w, a, b, ids, 2.0, bias).reshape(-1, 24)
+    rid = ids.repeat_interleave(seq) if seq else ids
+    for s in range(3):
+        want = ops.lora_matmul(x.reshape(-1, 40), w, a[s], b[s], 2.0, bias)
+        rows = rid == s
+        assert rows.any() and torch.equal(got[rows], want[rows]), s
+
+
+def test_lora_bgmv_rejects_ids_of_the_wrong_shape():
+    """As the reference: one id per row of 2-D x, per sequence of 3-D x."""
+    _, (x, w, a, b, _, ids) = _bgmv_operands(6, 8, 5, 2, 2, "f32", False,
+                                             seq=3)
+    with pytest.raises(ValueError, match="one id per sequence"):
+        ops.lora_bgmv(x, w, a, b, ids.repeat(3), 1.0)
+    with pytest.raises(ValueError, match="one id per row"):
+        ops.lora_bgmv(x[:, 0], w, a, b, ids[:2], 1.0)
+    (jx, jw, ja, jb, _, jids), _ = _bgmv_operands(6, 8, 5, 2, 2, "f32",
+                                                  False, seq=3)
+    with pytest.raises(ValueError, match="one id per sequence"):
+        jops.lora_bgmv(jx, jw, ja, jb, jnp.repeat(jids, 3), 1.0)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch rules
 # ---------------------------------------------------------------------------
 
@@ -196,11 +296,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q = torch.randn(1, 3, 2, 8)
     ops.flash_attention(q, q, q, q_pos=torch.arange(3),
                         kv_pos=torch.arange(3))
+    a, b = torch.randn(3, 8, 2), torch.randn(3, 2, 6)
+    ops.lora_bgmv(x, torch.randn(8, 6), a, b, torch.tensor([0, 2, 1, 1]),
+                  1.0)
+    ops.lora_bgmv(x[None].expand(2, 4, 8), torch.randn(8, 6), a, b,
+                  torch.tensor([2, 0]), 1.0)
     assert ops.launch_counts() == {"lora_matmul": 0, "flash_attention": 0,
-                                   "flash_decode": 0}
+                                   "flash_decode": 0, "lora_bgmv_rows": 0,
+                                   "lora_bgmv_seq": 0}
 
 
-@pytest.mark.parametrize("op", ["lora_matmul", "flash_attention"])
+@pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",
+                                "lora_bgmv_rows", "lora_bgmv_seq"])
 def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
     """backend='cuda' never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -208,6 +315,12 @@ def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
             ops.lora_matmul(torch.randn(4, 8), torch.randn(8, 6),
                             torch.randn(8, 2), torch.randn(2, 6), 1.0,
                             backend="cuda")
+        elif op.startswith("lora_bgmv"):
+            x = torch.randn(4, 8) if op.endswith("rows") \
+                else torch.randn(4, 3, 8)
+            ops.lora_bgmv(x, torch.randn(8, 6), torch.randn(2, 8, 2),
+                          torch.randn(2, 2, 6), torch.zeros(4, dtype=torch.int32),
+                          1.0, backend="cuda")
         else:
             q = torch.randn(1, 3, 2, 8)
             ops.flash_attention(q, q, q, q_pos=torch.arange(3),
