@@ -11,11 +11,20 @@ way: its ``stack`` leaves ``(L, n_slots, ...)`` become per-layer
 ``(n_slots, ...)`` leaves and its ``head`` stays slot-leading, which is
 the port's bank layout (``core/adapter_bank.py``). :func:`to_numpy` is the
 inverse (bf16 leaves come back as f32 arrays holding the same values).
+
+An HFSL train state crosses with :func:`hfsl_state_from_jax` and
+:func:`hfsl_state_to_numpy`. Its cluster-leading trees (``adapters_c``,
+the optimizer's ``m``/``v``/``mu``) carry ``(n_clusters, L, ...)`` leaves
+under ``stack`` in the reference and per-layer ``(n_clusters, ...)`` leaves
+in the port (``core/hfsl.py``); the per-cluster optimizer ``step``
+``(n_clusters,)`` and the round counter ``step`` cross as they are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.params import tree_map
 
 _STACKED = ("layers", "stack")
 
@@ -75,3 +84,46 @@ def _restack(layers: list):
     if not layers or not isinstance(layers[0], dict):
         return np.stack(layers) if layers else layers
     return {k: _restack([layer[k] for layer in layers]) for k in layers[0]}
+
+
+def _swap_stack(tree, swap):
+    """Swap the two leading dims of every leaf under a ``stack`` key:
+    cluster-leading ``(n, L, ...)`` <-> layer-leading ``(L, n, ...)``."""
+    def conv(t, stacked=False):
+        if isinstance(t, dict):
+            return {k: conv(v, stacked or k == "stack") for k, v in t.items()}
+        return swap(t) if stacked else t
+    return conv(tree)
+
+
+def _clustered_from_jax(tree, device):
+    if tree is None:
+        return None
+    t = from_jax(_swap_stack(tree, lambda a: np.swapaxes(a, 0, 1)), device)
+    return tree_map(lambda x: x.contiguous(), t)
+
+
+def hfsl_state_from_jax(tree: dict, device="cpu") -> dict:
+    """Reference HFSL state (numpy leaves) -> the port's state on
+    ``device``."""
+    opt = {k: (_tensor(v, device) if k == "step"
+               else _clustered_from_jax(v, device))
+           for k, v in tree["opt"].items()}
+    return {"backbone": from_jax({"backbone": tree["backbone"]},
+                                 device)["backbone"],
+            "adapters_c": _clustered_from_jax(tree["adapters_c"], device),
+            "opt": opt,
+            "step": _tensor(tree["step"], device)}
+
+
+def hfsl_state_to_numpy(state: dict) -> dict:
+    """The port's HFSL state -> the reference's layout, numpy leaves."""
+    def clustered(t):
+        if t is None:
+            return None
+        return _swap_stack(to_numpy(t), lambda a: np.swapaxes(a, 0, 1))
+    return {"backbone": to_numpy({"backbone": state["backbone"]})["backbone"],
+            "adapters_c": clustered(state["adapters_c"]),
+            "opt": {k: (to_numpy(v) if k == "step" else clustered(v))
+                    for k, v in state["opt"].items()},
+            "step": to_numpy(state["step"])}

@@ -1,0 +1,422 @@
+"""Hybrid Federated Split Learning trainer (paper §III-C, Fig 4; counterpart
+of ``repro/core/hfsl.py``).
+
+Every fine-tuning client cluster trains its own adapter replica on its own
+data shard against one shared frozen backbone; every ``sync_every`` steps
+the replicas are averaged (FedAvg, the paper's "uploading and aggregation
+of end model"). Optimizer state stays cluster-local, as in standard
+FedAvg. With ``sync_every=1`` this is synchronous data-parallel PEFT; with
+one cluster it is SL.
+
+Layout. The train state is ``{backbone, adapters_c, opt, step}``.
+``adapters_c`` has the adapters' structure with a leading cluster dim on
+every leaf: ``(n_clusters, ...)`` inside the port's per-layer lists (the
+same idea as the AdapterBank's slot-leading leaves; the reference's leaves
+are ``(n_clusters, L, ...)``). ``opt`` is cluster-leading too: an int32
+``step`` of shape ``(n_clusters,)`` and f32 moments shaped like
+``adapters_c``. FedAvg is an f32 mean over dim 0, cast back.
+
+Execution. The reference vmaps one cluster's update over the cluster dim
+and scans the steps in one jitted dispatch. The port loops over clusters
+(sharing the one frozen backbone) and over steps in Python. Batches come
+from a device-resident bank and are gathered on the device by step index;
+the FedAvg boundary is decided on the device from the carried step
+counter; nothing inside a round reads a value back to the host. Metrics
+come back as stacked ``(steps,)`` tensors.
+
+Two entry points share one step body (:func:`_make_step_body`):
+:func:`make_hfsl_step` (one step per call) and :func:`make_hfsl_round`
+(``steps`` steps per call).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import telemetry
+from repro_torch.core.device import unported
+from repro_torch.core.peft import value_and_grad
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          clip_by_global_norm)
+
+_TRAIN_KEYS = ("adapters_c", "opt", "step")    # donated; backbone never is
+_MULTI_GPU = "later, multi-GPU"
+
+
+def _cluster(tree, c: int):
+    """Cluster ``c``'s slice of a cluster-leading tree (views)."""
+    return tree_map(lambda x: x[c], tree)
+
+
+def _stack_clusters(trees: list):
+    """Per-cluster trees -> one cluster-leading tree."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(n,) per-cluster values shaped to broadcast against leaf ``x``."""
+    return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_hfsl_state(seed: int, cfg, n_clusters: int, optimizer: Optimizer,
+                    model_init_fn: Callable, *, device=None) -> dict:
+    """``model_init_fn(cfg, seed, device=)`` params -> the train state; the
+    cluster replicas start identical (edge model delivery, Fig 4 step 1)."""
+    params = model_init_fn(cfg, seed, device=device)
+    adapters_c = tree_map(
+        lambda x: x[None].expand(n_clusters, *x.shape).clone(),
+        params["adapters"])
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(adapters_c)[0].device)
+    return {"backbone": params["backbone"], "adapters_c": adapters_c,
+            "opt": init_opt_state(optimizer, adapters_c), "step": step}
+
+
+def init_opt_state(optimizer: Optimizer, adapters_c):
+    """Cluster-leading optimizer state of ``adapters_c`` (the reference's
+    ``jax.vmap(optimizer.init)``): one ``init`` per cluster, stacked."""
+    n = tree_leaves(adapters_c)[0].shape[0]
+    return _stack_clusters([optimizer.init(_cluster(adapters_c, c))
+                            for c in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def fedavg(adapters_c):
+    """FedAvg over the cluster dim: f32 mean, broadcast back to every
+    cluster in the leaf dtype."""
+    return tree_map(
+        lambda x: x.float().mean(0, keepdim=True).expand_as(x).to(x.dtype)
+        .contiguous(), adapters_c)
+
+
+def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
+                         clip_norm: float, microbatches: int) -> Callable:
+    """Per-cluster local step: grads (optionally accumulated over
+    ``microbatches`` splits of the cluster batch) -> one optimizer update."""
+
+    def one_cluster(backbone, adapters, opt_state, batch):
+        def inner(a, mb):
+            return loss_fn({"backbone": backbone, "adapters": a}, mb, cfg)
+
+        if microbatches <= 1:
+            (loss, aux), grads = value_and_grad(inner, adapters, batch)
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % microbatches:
+                raise ValueError(
+                    f"cluster batch {rows} not divisible by "
+                    f"microbatches={microbatches}")
+            size = rows // microbatches
+            grads = loss = aux = None
+            for i in range(microbatches):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                (l, ax), g = value_and_grad(inner, adapters, mb)
+                if grads is None:               # the reference adds to zeros
+                    grads, loss, aux = g, l, ax
+                else:
+                    grads = tree_map(torch.add, grads, g)
+                    loss = loss + l
+                    aux = tree_map(torch.add, aux, ax)
+            inv = 1.0 / microbatches
+            # mean-of-means == full-batch mean for equal splits
+            grads = tree_map(lambda g: (g * inv).to(g.dtype), grads)
+            loss = loss * inv
+            aux = tree_map(lambda v: v * inv, aux)
+        with torch.no_grad():
+            if clip_norm:
+                grads, _ = clip_by_global_norm(grads, clip_norm)
+            updates, opt_state = optimizer.update(grads, opt_state, adapters)
+            adapters = apply_updates(adapters, updates)
+        return adapters, opt_state, loss, aux
+
+    return one_cluster
+
+
+def fedavg_masked(adapters_c, mask):
+    """Partial-participation FedAvg: mean over the clusters ``mask`` keeps,
+    broadcast back to those clusters ONLY — a masked-out (dropped or
+    straggling) cluster's replica passes through bit-unchanged. With an
+    all-ones mask the plain-mean result is selected, so the full-
+    participation case equals :func:`fedavg` bit for bit."""
+    m = mask.float()
+    cnt = m.sum().clamp_min(1.0)             # 0 survivors -> no-op round
+    full = (m > 0).all()
+
+    def f(x):
+        mm = _bcast(m, x)
+        xf = x.float()
+        plain = xf.mean(0, keepdim=True)
+        masked = (xf * mm).sum(0, keepdim=True) / cnt
+        avg = torch.where(full, plain, masked).expand_as(x).to(x.dtype)
+        return torch.where(mm > 0, avg, x)
+
+    return tree_map(f, adapters_c)
+
+
+def _clusters_finite(tree) -> torch.Tensor:
+    """Per-cluster all-leaves-finite flag (n_clusters,) of a
+    cluster-leading tree."""
+    oks = [torch.isfinite(x.float()).reshape(x.shape[0], -1).all(1)
+           for x in tree_leaves(tree)]
+    return functools.reduce(torch.logical_and, oks)
+
+
+def _sync_at_boundary(adapters_c, new_step, *, sync_every: int,
+                      always_sync: bool, mask=None):
+    """FedAvg at ``sync_every`` multiples of the step counter (a device
+    tensor: the choice is a select, not a host branch). With ``mask``
+    (participation, (n,)) only surviving clusters are averaged."""
+    avg = fedavg if mask is None else functools.partial(fedavg_masked,
+                                                        mask=mask)
+    if always_sync or sync_every == 1:
+        return avg(adapters_c)
+    do_sync = (new_step % sync_every) == 0
+    return tree_map(lambda s, a: torch.where(do_sync, s, a), avg(adapters_c),
+                    adapters_c)
+
+
+def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
+                    sync_every: int, clip_norm: float, always_sync: bool,
+                    microbatches: int, faulted: bool = False) -> Callable:
+    """``step(state, batch) -> (state, metrics)``; batch leaves carry a
+    leading cluster dim.
+
+    ``faulted=True`` returns the fault-tolerant body
+    ``step(state, batch, mask, corrupt)``: a per-cluster participation
+    ``mask`` (float (n,), >0 = present) gates both the local update and the
+    FedAvg, a per-cluster ``corrupt`` flag NaN-poisons that cluster's
+    computed update and loss, and a non-finite guard keeps the pre-step
+    replica of any cluster whose update went NaN/inf (a select on the
+    device, no host sync). The differentiated per-cluster step is the same
+    as the plain body's, and every guard is a select, so with an all-ones
+    mask and no corruption the outputs equal the plain body's bit for
+    bit."""
+    one_cluster = _make_cluster_update(cfg, optimizer, loss_fn, clip_norm,
+                                       microbatches)
+
+    def vstep(state, batch):
+        n = state["opt"]["step"].shape[0]
+        outs = [one_cluster(state["backbone"],
+                            _cluster(state["adapters_c"], c),
+                            _cluster(state["opt"], c), _cluster(batch, c))
+                for c in range(n)]
+        return (_stack_clusters([o[0] for o in outs]),
+                _stack_clusters([o[1] for o in outs]),
+                torch.stack([o[2] for o in outs]),
+                _stack_clusters([o[3] for o in outs]))
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        adapters_c, opt_c, loss_c, aux_c = vstep(state, batch)
+        new_step = state["step"] + 1
+        adapters_c = _sync_at_boundary(adapters_c, new_step,
+                                       sync_every=sync_every,
+                                       always_sync=always_sync)
+        metrics = {"loss": loss_c.mean(), "loss_per_cluster": loss_c}
+        for k in (aux_c or {}):
+            metrics[k] = aux_c[k].mean()
+        return {**state, "adapters_c": adapters_c, "opt": opt_c,
+                "step": new_step}, metrics
+
+    def step_faulted(state: dict, batch: dict, mask, corrupt
+                     ) -> tuple[dict, dict]:
+        new_a, new_opt, loss_c, aux_c = vstep(state, batch)
+        # corruption is injected AFTER the differentiated step, so the
+        # unflagged clusters run the plain body's exact arithmetic while the
+        # guard below sees a genuinely non-finite update
+        new_a = tree_map(
+            lambda x: torch.where(_bcast(corrupt, x),
+                                  torch.full_like(x, float("nan")), x)
+            if x.is_floating_point() else x, new_a)
+        loss_c = torch.where(corrupt, torch.full_like(loss_c, float("nan")),
+                             loss_c)
+        part = mask > 0
+        ok = (_clusters_finite(new_a) & _clusters_finite(new_opt)
+              & torch.isfinite(loss_c))
+        eff = part & ok
+
+        def sel(new, old):
+            return tree_map(lambda n_, o: torch.where(_bcast(eff, n_), n_, o),
+                            new, old)
+
+        adapters_c = sel(new_a, state["adapters_c"])
+        opt_c = sel(new_opt, state["opt"])
+        new_step = state["step"] + 1
+        adapters_c = _sync_at_boundary(adapters_c, new_step,
+                                       sync_every=sync_every,
+                                       always_sync=always_sync,
+                                       mask=part.float())
+        # where-masked means (a guarded cluster's loss is NaN, and NaN * 0
+        # would poison the mean); the all-effective case selects the plain
+        # mean, so fault-free metrics equal the plain body's
+        denom = eff.float().sum().clamp_min(1.0)
+        all_eff = eff.all()
+
+        def mmean(v):
+            return torch.where(all_eff, v.mean(),
+                               torch.where(eff, v, 0.0).sum() / denom)
+
+        n = part.shape[0]
+        npart = part.to(torch.int32).sum()
+        metrics = {"loss": mmean(loss_c),
+                   "loss_per_cluster": loss_c,
+                   "participating": npart,
+                   "skipped": (part & ~ok).to(torch.int32).sum(),
+                   "dropped": n - npart}
+        for k in (aux_c or {}):
+            metrics[k] = mmean(aux_c[k])
+        return {**state, "adapters_c": adapters_c, "opt": opt_c,
+                "step": new_step}, metrics
+
+    return step_faulted if faulted else step
+
+
+def make_hfsl_step(cfg, optimizer: Optimizer, loss_fn: Callable, *,
+                   sync_every: int = 1, clip_norm: float = 0.0,
+                   always_sync: bool = False,
+                   microbatches: int = 1) -> Callable:
+    """One HFSL step per call: ``step(state, batch) -> (state, metrics)``.
+
+    loss_fn(params, batch, cfg) -> (loss, aux). Batch leaves carry a
+    leading cluster dim (see data/pipeline.cluster_batches)."""
+    return _make_step_body(cfg, optimizer, loss_fn, sync_every=sync_every,
+                           clip_norm=clip_norm, always_sync=always_sync,
+                           microbatches=microbatches)
+
+
+def _write_into(dst, src):
+    """Copy ``src``'s leaves into ``dst``'s tensors in place."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+    return dst
+
+
+def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
+                    steps: int, sync_every: int = 1, clip_norm: float = 0.0,
+                    always_sync: bool = False, microbatches: int = 1,
+                    remat: Optional[bool] = None, donate: bool = False,
+                    mesh=None, rules: Optional[dict] = None,
+                    state_spec: Optional[dict] = None) -> Callable:
+    """A fine-tuning round: ``steps`` HFSL steps per call.
+
+    Returned ``round_fn(state, bank, offset=0, *, mask=None, corrupt=None)
+    -> (state, metrics)``:
+
+    - ``state`` — the :func:`init_hfsl_state` dict; the carried
+      ``state['step']`` counter enters and leaves the round, so the FedAvg
+      phase is preserved across rounds.
+    - ``bank`` — device-resident batch bank: every leaf shaped
+      ``(E, n_clusters, batch, ...)`` (data/pipeline.py::BatchBank.arrays).
+      Step ``i`` trains on row ``(offset + i) % E``, gathered on the
+      device.
+    - ``metrics`` — the per-step metrics stacked to leading ``(steps,)``.
+    - ``mask`` / ``corrupt`` — per-cluster participation and corruption
+      flags (host arrays, e.g. a fault plan's schedule). A round where no
+      fault fires runs the plain body; otherwise the faulted body.
+
+    ``microbatches`` accumulates gradients over that many equal splits of
+    each cluster batch before the update. ``remat`` is forwarded to
+    ``loss_fn`` (``model.lm_loss`` re-materialises each layer in the
+    backward); None leaves the loss untouched. Without ``donate`` the
+    caller's state is left as it was; with ``donate=True`` the round's
+    results are written into the input state's adapter, optimizer and step
+    tensors (never the backbone's), which the returned state then holds.
+
+    Numerics equal ``steps`` sequential :func:`make_hfsl_step` calls on the
+    same batches: the two share one step body. ``mesh``, ``rules`` and
+    ``state_spec`` (the reference's mesh-native round) are not ported."""
+    for name, v in (("mesh", mesh), ("rules", rules),
+                    ("state_spec", state_spec)):
+        if v is not None:
+            raise unported(f"make_hfsl_round({name}=...)", _MULTI_GPU)
+    if remat is not None:
+        loss_fn = functools.partial(loss_fn, remat=remat)
+    bodies = {f: _make_step_body(cfg, optimizer, loss_fn,
+                                 sync_every=sync_every, clip_norm=clip_norm,
+                                 always_sync=always_sync,
+                                 microbatches=microbatches, faulted=f)
+              for f in (False, True)}
+
+    def round_core(train: dict, backbone, bank: dict, offset, faulted: bool,
+                   mask=None, corrupt=None) -> tuple[dict, dict]:
+        step = bodies[faulted]
+        lead = next(iter(bank.values()))
+        rows = (torch.as_tensor(offset, device=lead.device)
+                + torch.arange(steps, device=lead.device)) % lead.shape[0]
+        carry, per_step = train, []
+        for i in range(steps):
+            batch = {k: x.index_select(0, rows[i:i + 1])[0]
+                     for k, x in bank.items()}
+            state = {**carry, "backbone": backbone}
+            out, metrics = (step(state, batch, mask, corrupt) if faulted
+                            else step(state, batch))
+            carry = {k: out[k] for k in _TRAIN_KEYS}
+            per_step.append(metrics)
+        return carry, {k: torch.stack([m[k] for m in per_step])
+                       for k in per_step[0]}
+
+    def round_fn(state: dict, bank: dict, offset=0, *, mask=None,
+                 corrupt=None) -> tuple[dict, dict]:
+        # clean-round fast path, decided on the host from the fault plan's
+        # host-side schedule
+        clean = ((mask is None or bool((np.asarray(mask) > 0).all()))
+                 and (corrupt is None or not bool(np.asarray(corrupt).any())))
+        train = {k: state[k] for k in _TRAIN_KEYS}
+        # the span covers the host's enqueue of the round's work (the device
+        # may still be running when it closes); the end-to-end round time
+        # is the caller's clock around a synchronize
+        tel = telemetry.get()
+        with tel.span("hfsl.round_dispatch", steps=steps, clean=clean):
+            if clean:
+                out, metrics = round_core(train, state["backbone"], bank,
+                                          offset, False)
+            else:
+                dev = state["step"].device
+                n = state["opt"]["step"].shape[0]
+                mask = (torch.ones((n,), dtype=torch.float32, device=dev)
+                        if mask is None else torch.as_tensor(
+                            np.asarray(mask), dtype=torch.float32,
+                            device=dev))
+                corrupt = (torch.zeros((n,), dtype=torch.bool, device=dev)
+                           if corrupt is None else torch.as_tensor(
+                               np.asarray(corrupt), dtype=torch.bool,
+                               device=dev))
+                out, metrics = round_core(train, state["backbone"], bank,
+                                          offset, True, mask, corrupt)
+            if donate:
+                out = {k: _write_into(state[k], out[k]) for k in _TRAIN_KEYS}
+        tel.count("hfsl.rounds")
+        tel.count("hfsl.steps", steps)
+        if not clean:
+            tel.count("hfsl.faulted_rounds")
+        return {**out, "backbone": state["backbone"]}, metrics
+
+    return round_fn
+
+
+def consensus_params(state: dict) -> dict:
+    """Aggregated model (edge view after FedAvg): cluster-mean adapters."""
+    return {"backbone": state["backbone"],
+            "adapters": tree_map(lambda x: x.float().mean(0).to(x.dtype),
+                                 state["adapters_c"])}
+
+
+# ---------------------------------------------------------------------------
+# Communication accounting (per §III-C.2)
+# ---------------------------------------------------------------------------
+
+def sync_bytes(adapters_c) -> int:
+    """Bytes moved per FedAvg round: each cluster uploads + downloads its
+    adapter replica (the parameter-efficient flow)."""
+    leaves = tree_leaves(adapters_c)
+    per_replica = sum(x[0].numel() * x.element_size() for x in leaves)
+    return 2 * leaves[0].shape[0] * per_replica

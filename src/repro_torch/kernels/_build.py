@@ -23,8 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-KERNELS = ("lora_matmul", "flash_attention", "flash_decode",
-           "lora_bgmv_rows", "lora_bgmv_seq")
+KERNELS = ("lora_matmul", "lora_matmul_bwd", "flash_attention",
+           "flash_decode", "lora_bgmv_rows", "lora_bgmv_seq")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,6 +14,18 @@ scores and ``l`` clamped at 1e-30. ``flash_attention`` launches the kernel
 for CUDA tensors and takes the plain version only for CPU tensors or when
 the caller passes ``backend="torch"``. ``launches`` counts kernel
 launches, nothing else.
+
+``flash_attention`` is differentiable (:class:`_FlashAttention`). The
+reference has no attention backward kernel: ``flash_attention_pallas`` has
+no VJP, and its training takes this gradient from XLA's autodiff of the
+f32 blocked softmax ``repro/kernels/ops.py::_flash_xla``. The port's
+counterpart is :func:`attention_bwd`, plain torch tensor operations that
+recompute the f32 scores with the same position masks, one query chunk at
+a time (so the f32 score tensors stay under ``SCORE_BUDGET`` elements),
+and form ``dq``, ``dk``, ``dv`` with ``dk``/``dv`` summed over each GQA
+group; prefix slots get their gradient through ``dk``/``dv``. It never
+runs the plain tile loop: on the card the forward is the kernel and the
+backward is cuBLAS products and elementwise passes.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ launches = 0
 KT = 32                    # keys per tile, as in csrc/attn_tile.cuh
 DMAX = 128
 NEG_INF = -1e30
+SCORE_BUDGET = 1 << 25     # f32 elements per score tensor in the backward
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
@@ -114,12 +127,7 @@ def _launch(q, k, v, q_pos, kv_pos, window, causal, scale):
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_pos: torch.Tensor, kv_pos: torch.Tensor,
-                    window: int = 0, causal: bool = True,
-                    scale: Optional[float] = None,
-                    backend: Optional[str] = None) -> torch.Tensor:
-    """Shapes as in :func:`ref.attention`; positions are int32."""
+def _forward(q, k, v, q_pos, kv_pos, window, causal, scale, backend):
     if backend == "torch" or (backend is None and q.device.type == "cpu"):
         return flash_attention_torch(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                      window=window, causal=causal,
@@ -129,3 +137,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, q_pos.to(torch.int32).contiguous(),
                    kv_pos.to(torch.int32).contiguous(), window, causal,
                    scale)
+
+
+def attention_bwd(q, k, v, dout, *, q_pos, kv_pos, window: int = 0,
+                  causal: bool = True, scale: Optional[float] = None):
+    """Gradient of softmax attention (shapes as in :func:`ref.attention`)
+    by recompute: per query chunk the f32 scores, the masked softmax ``p``,
+    ``dp = dout vᵀ`` and ``ds = p (dp - rowsum(p dp))``; then ``dq = s ds
+    k``, ``dk = s dsᵀ q`` and ``dv = pᵀ dout``, dk/dv accumulated in f32
+    over chunks and summed over each GQA group. Returns (dq, dk, dv) in
+    the dtypes of q, k, v."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, S, Hkv, g, D)
+    dof = dout.float().reshape(B, S, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    qp = q_pos.to(torch.int64)[:, None]
+    kp = kv_pos.to(torch.int64)[None, :]
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    rows = max(1, SCORE_BUDGET // max(B * Hq * T, 1))
+    for s0 in range(0, S, rows):
+        s1 = min(s0 + rows, S)
+        qc, doc = qf[:, s0:s1], dof[:, s0:s1]
+        sc = torch.einsum("bsngd,btnd->bngst", qc, kf) * scale
+        sc = torch.where(visible(qp[s0:s1], kp, window, causal), sc,
+                         torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        dp = torch.einsum("bsngd,btnd->bngst", doc, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq[:, s0:s1] = torch.einsum("bngst,btnd->bsngd", ds, kf) * scale
+        dk += torch.einsum("bngst,bsngd->btnd", ds, qc) * scale
+        dv += torch.einsum("bngst,bsngd->btnd", p, doc)
+    return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain tile loop) forward and the
+    recompute backward :func:`attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, causal, scale,
+                backend):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.mask = (window, causal, scale)
+        return _forward(q, k, v, q_pos, kv_pos, window, causal, scale,
+                        backend)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        window, causal, scale = ctx.mask
+        dq, dk, dv = attention_bwd(q, k, v, dout, q_pos=q_pos,
+                                   kv_pos=kv_pos, window=window,
+                                   causal=causal, scale=scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                    window: int = 0, causal: bool = True,
+                    scale: Optional[float] = None,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Shapes as in :func:`ref.attention`; positions are int32.
+    Differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos, window, causal,
+                                 scale, backend)

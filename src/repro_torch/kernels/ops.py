@@ -25,6 +25,7 @@ from repro_torch.kernels import lora_matmul as lm
 _BACKEND: Optional[str] = None          # None: by tensor device
 # kernel name -> (module, attribute holding its launch count)
 _KERNELS = {"lora_matmul": (lm, "launches"),
+            "lora_matmul_bwd": (lm, "bwd_launches"),
             "flash_attention": (fa, "launches"),
             "flash_decode": (fd, "launches"),
             "lora_bgmv_rows": (bg, "rows_launches"),
@@ -69,19 +70,59 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# LoRA-fused matmul (serving forward; the backward comes with the HFSL slice)
+# LoRA-fused matmul (differentiable: the reference's custom VJP)
 # ---------------------------------------------------------------------------
 
 def lora_matmul(x, w, a=None, b=None, scale: float = 1.0, bias=None, *,
                 backend: Optional[str] = None):
     """y = x @ w (+ scale * (x@a)@b) (+ bias). Without an adapter this is a
     plain ``torch.matmul``; with one, x must be 2-D (M, K) and the fused
-    kernel runs."""
+    kernel runs.
+
+    Differentiable (:class:`_LoRAMatmul`, the reference's ``_lora_vjp``):
+    the backward costs ``dx`` (the forward kernel again) and ``dA``/``dB``
+    (the ``lora_matmul_bwd`` kernel); ``dW = xᵀ dy`` and ``dbias`` are
+    formed only when ``w`` / ``bias`` require grad (full fine-tuning),
+    never under PEFT."""
     if a is None:
         y = x @ w
         return (y + bias.to(y.dtype)) if bias is not None else y
-    return lm.lora_matmul(x, w, a, b, float(scale), bias,
-                          backend=_pick(backend))
+    return _LoRAMatmul.apply(x, w, a, b, bias, float(scale),
+                             _pick(backend))
+
+
+class _LoRAMatmul(torch.autograd.Function):
+    """Forward and backward rules of ``repro/kernels/ops.py::_lora_vjp``
+    (``_lora_fwd_rule``, ``_lora_bwd_rule``), with the same cast points."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, bias, scale, impl):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scale, ctx.impl = scale, impl
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return lm.lora_matmul(x, w, a, b, scale, bias, backend=impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a, b = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dw = da = db = dbias = None
+        if need[0]:
+            # dx = dy Wᵀ + s (dy Bᵀ) Aᵀ: the forward kernel with (W, A, B)
+            # -> (Wᵀ, Bᵀ, Aᵀ); Wᵀ is a copy of the frozen weight per call
+            dx = lm.lora_matmul(dy, w.t().contiguous(), b.t().contiguous(),
+                                a.t().contiguous(), ctx.scale,
+                                backend=ctx.impl).to(x.dtype)
+        if need[2] or need[3]:
+            da, db = lm.lora_matmul_bwd(x, dy, a, b, ctx.scale,
+                                        backend=ctx.impl)
+            da, db = da.to(a.dtype), db.to(b.dtype)
+        if need[1]:                       # full fine-tuning only
+            dw = (x.t() @ dy).to(w.dtype)
+        if need[4]:
+            dbias = dy.float().sum(0).to(ctx.bias_dtype)
+        return dx, dw, da, db, dbias, None, None
 
 
 def lora_bgmv(x, w, a, b, adapter_ids, scale: float = 1.0, bias=None, *,

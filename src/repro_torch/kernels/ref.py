@@ -79,6 +79,28 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype)
 
 
+def lora_adapter_grads(x: torch.Tensor, dy: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, scale: float):
+    """The adapter half of :func:`lora_matmul_bwd`: (dA (K, r), dB (r, N))
+    in f32 from x (M, K) and dy (M, N); no w, and no ``dW``."""
+    xf, dyf = x.float(), dy.float()
+    da = scale * xf.T @ (dyf @ b.float().T)
+    db = scale * (xf @ a.float()).T @ dyf
+    return da, db
+
+
+def lora_matmul_bwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, scale: float, dy: torch.Tensor):
+    """Naive VJP of :func:`lora_matmul` wrt (x, a, b), f32 math. The
+    frozen-weight grad ``dW = x^T dy`` is deliberately absent: under the
+    paper's PEFT regime it is never materialised. Returns (dx in x.dtype,
+    dA f32, dB f32)."""
+    dyf = dy.float()
+    dx = dyf @ w.float().T + scale * (dyf @ b.float().T) @ a.float().T
+    da, db = lora_adapter_grads(x, dy, a, b, scale)
+    return dx.to(x.dtype), da, db
+
+
 def lora_bgmv(x: torch.Tensor, w: torch.Tensor, a_stack: torch.Tensor,
               b_stack: torch.Tensor, adapter_ids: torch.Tensor, scale: float,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Common layers (counterpart of ``repro/models/layers.py``): RMS norm,
-rotary embeddings, SwiGLU MLP, token embedding and the f32 LM head.
+rotary embeddings, SwiGLU MLP, token embedding, the f32 LM head and the
+cross-entropy loss.
 
 Each module has ``<mod>_spec(...) -> ParamSpec tree`` and a plain
 ``<mod>(params, x, ...)`` function on tensors. Math accumulates in f32;
 weights stay in the config dtype.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,7 +70,9 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits in f32 against a (vocab, d) table. The table is widened to
     f32 one chunk of ``UNEMBED_CHUNK`` rows at a time, so the f32 product
-    never holds an f32 copy of the whole table (2.18 GB at qwen2-7b)."""
+    never holds an f32 copy of the whole table (2.18 GB at qwen2-7b).
+    Under autograd each chunk's f32 copy is kept for the backward of
+    ``x``, so a training forward does hold the whole f32 table."""
     xf = x.float()
     table = params["table"]
     out = xf.new_empty((*x.shape[:-1], table.shape[0]))
@@ -75,3 +80,16 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
         c1 = min(c0 + UNEMBED_CHUNK, table.shape[0])
         out[..., c0:c1] = xf @ table[c0:c1].float().T
     return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL (``logsumexp - logit[label]``); with ``mask`` the
+    masked mean over at least one token."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -1,6 +1,6 @@
 """Public model API, dense family (counterpart of ``repro/models/model.py``):
-spec, init, forward, classify, prefill, decode and the serving primitives
-the engine drives.
+spec, init, forward, the training losses (``lm_loss``, ``classify_loss``),
+classify, prefill, decode and the serving primitives the engine drives.
 
 Params split at the top level into ``backbone`` (frozen under the paper's
 PEFT regime) and ``adapters`` (prefix-KV prompts, LoRA, classification
@@ -24,8 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device, unported
 from repro_torch.models.attention import param_dtype
-from repro_torch.models.layers import (embed, embed_spec, rmsnorm,
-                                       rmsnorm_spec, unembed)
+from repro_torch.models.layers import (cross_entropy, embed, embed_spec,
+                                       rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec, init_from_spec
 from repro_torch.models.transformer import (adapter_stack_spec,
                                             cache_group_spec, stack_decode,
@@ -87,24 +87,40 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
                            device=tokens.device)
 
 
-def _hidden(params: dict, batch: dict, cfg: ModelConfig, adapter_ids):
+def _hidden(params: dict, batch: dict, cfg: ModelConfig, adapter_ids,
+            remat: bool = False):
     """Final-normed hidden states (B, S, d) and the aux loss."""
     adapters = params.get("adapters", {}).get("stack", {})
     x, positions = _embed_inputs(params, batch, cfg)
     x, _, aux = stack_seq(params["backbone"]["layers"], adapters, x, cfg,
-                          positions=positions, adapter_ids=adapter_ids)
+                          positions=positions, remat=remat,
+                          adapter_ids=adapter_ids)
     return rmsnorm(params["backbone"]["final_norm"], x), aux
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *,
+            mode: str = "train", remat: Optional[bool] = None,
             adapter_ids: Optional[torch.Tensor] = None) -> dict:
     """Full-sequence forward. Returns {'hidden', 'logits', 'aux'}.
 
-    ``adapter_ids`` (B,) enables multi-tenant serving: the adapter leaves
-    carry a leading ``n_slots`` dim (the AdapterBank layout) and each batch
-    row computes with its own domain's adapters."""
-    x, aux = _hidden(params, batch, cfg, adapter_ids)
+    ``remat`` (default: ``mode == "train"``, as in the reference)
+    re-materialises each layer's forward in the backward. ``adapter_ids``
+    (B,) enables multi-tenant serving: the adapter leaves carry a leading
+    ``n_slots`` dim (the AdapterBank layout) and each batch row computes
+    with its own domain's adapters."""
+    remat = (mode == "train") if remat is None else remat
+    x, aux = _hidden(params, batch, cfg, adapter_ids, remat)
     return {"hidden": x, "logits": unembed(_head(params), x), "aux": aux}
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+            remat: Optional[bool] = None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (+ the aux loss); batch {'tokens',
+    'labels'} (B, S)."""
+    out = forward(params, {"tokens": batch["tokens"]}, cfg, mode="train",
+                  remat=remat)
+    loss = cross_entropy(out["logits"], batch["labels"]) + out["aux"]
+    return loss, {"aux": out["aux"]}
 
 
 def classify(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -113,7 +129,7 @@ def classify(params: dict, batch: dict, cfg: ModelConfig, *,
     head logits (B, out). With ``adapter_ids`` the head is the bank's
     slot-leading (n_slots, d, out) stack and each row is scored by its own
     domain's head (mixed-domain accuracy in one call)."""
-    x, _ = _hidden(params, batch, cfg, adapter_ids)
+    x, _ = _hidden(params, {"tokens": batch["tokens"]}, cfg, adapter_ids)
     pooled = x.float().mean(dim=1)
     h = params["adapters"]["head"]
     if adapter_ids is not None:
@@ -122,6 +138,17 @@ def classify(params: dict, batch: dict, cfg: ModelConfig, *,
         b = h["b"].index_select(0, ids)                # (B, out)
         return torch.einsum("bd,bdo->bo", pooled, w) + b
     return pooled @ h["w"] + h["b"]
+
+
+def classify_loss(params: dict, batch: dict, cfg: ModelConfig
+                  ) -> tuple[torch.Tensor, dict]:
+    """Cross entropy of :func:`classify` against batch['label'] (B,), and
+    the batch accuracy."""
+    logits = classify(params, batch, cfg)
+    label = batch["label"].long()
+    loss = cross_entropy(logits, label)
+    acc = (logits.argmax(-1) == label).float().mean()
+    return loss, {"acc": acc}
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig,

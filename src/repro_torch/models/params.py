@@ -31,13 +31,25 @@ class ParamSpec:
                              "'normal', 'zeros', 'ones' or 'scaled'")
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a dict/list tree (``None`` stays)."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a dict/list tree (``None`` stays), and
+    to the matching leaves of ``rest``, trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return None if tree is None else fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list tree in ``tree_map`` order (no ``None``)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def init_leaf(s: ParamSpec, gen: torch.Generator,

@@ -11,6 +11,7 @@ functions, so both packages' caches compare like with like.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import unported
@@ -94,32 +95,41 @@ def _layer_adapters(adapters: dict, name: str, n: int) -> list:
 
 def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
               cfg: ModelConfig, *, positions: torch.Tensor,
-              make_cache: bool = False, cache_len=None, lengths=None,
-              adapter_ids=None):
+              make_cache: bool = False, remat: bool = False, cache_len=None,
+              lengths=None, adapter_ids=None):
     """Run all groups over a full sequence. ``lengths`` (B,) serves ragged
     right-padded rows (per-row sentinel cache positions past each row's
     length). ``adapter_ids`` (B,) serves a multi-tenant wave: each layer's
     adapter leaves carry a leading ``n_slots`` dim (the AdapterBank
     layout, the port's form of the reference's ``(L, n_slots, ...)``) and
-    row b uses slot ``adapter_ids[b]``. Returns (x, caches | None,
-    aux_sum)."""
+    row b uses slot ``adapter_ids[b]``. ``remat`` re-runs each layer's
+    forward in the backward instead of keeping its activations
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    scanned layer body). Returns (x, caches | None, aux_sum)."""
     caches: dict = {}
     for name, kinds, n in groups_for(cfg):
         per_layer = []
         for lp, la in zip(params[name], _layer_adapters(adapters, name, n)):
-            lcache = {}
-            for i, k in enumerate(kinds):
-                key = f"s{i}"
-                p, a = lp[key], la.get(key, {})
-                h, c = attn_mod.attention_seq(
-                    p["attn"], a, rmsnorm(p["ln1"], x), cfg,
-                    positions=positions, window=attn_window(cfg, k),
-                    make_cache=make_cache, cache_len=cache_len,
-                    lengths=lengths, adapter_ids=adapter_ids)
-                x = x + h
-                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
-                if c is not None:
-                    lcache[key] = c
+            def body(x, lp=lp, la=la):
+                lcache = {}
+                for i, k in enumerate(kinds):
+                    key = f"s{i}"
+                    p, a = lp[key], la.get(key, {})
+                    h, c = attn_mod.attention_seq(
+                        p["attn"], a, rmsnorm(p["ln1"], x), cfg,
+                        positions=positions, window=attn_window(cfg, k),
+                        make_cache=make_cache, cache_len=cache_len,
+                        lengths=lengths, adapter_ids=adapter_ids)
+                    x = x + h
+                    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+                    if c is not None:
+                        lcache[key] = c
+                return x, lcache
+
+            if remat:
+                x, lcache = checkpoint(body, x, use_reentrant=False)
+            else:
+                x, lcache = body(x)
             per_layer.append(lcache)
         if make_cache:
             caches[name] = {key: {leaf: torch.stack([c[key][leaf]

@@ -2,7 +2,11 @@
 card: odd shapes (M, N, K not multiples of any tile, g = 7, D = 64),
 windows, non-causal masks, sentinels and prefix slots; the multi-LoRA
 kernels with 1 to 8 slots, ranks 1 to 32, and ids all the same, all
-different and repeating, and bit for bit against ``lora_matmul`` per row. A CUDA kernel has
+different and repeating, and bit for bit against ``lora_matmul`` per row;
+the adapter-gradient kernel, the autograd ``lora_matmul`` and the
+flash-attention backward on the card against autograd through the plain
+versions, and a reduced HFSL round through the kernels against the same
+round through the plain versions. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -226,3 +230,147 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, q_pos=torch.arange(2, device="cuda"),
                            kv_pos=torch.arange(2, device="cuda"))
+
+
+@pytest.mark.parametrize("M,K,N,r", [(1, 7, 5, 1), (65, 130, 97, 8),
+                                     (1024, 3584, 512, 8), (130, 67, 200, 32),
+                                     (0, 16, 8, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lora_matmul_bwd_kernel(gen, M, K, N, r, dtype):
+    x = randn(gen, M, K, dtype=dtype)
+    dy = randn(gen, M, N, dtype=dtype)
+    a = randn(gen, K, r, dtype=dtype, s=K ** -0.5)
+    b = randn(gen, r, N, dtype=dtype, s=0.1)
+    n0 = lm.bwd_launches
+    da, db = lm.lora_matmul_bwd(x, dy, a, b, 2.0)
+    assert lm.bwd_launches == n0 + 1
+    wa, wb = lm.lora_matmul_bwd_torch(x, dy, a, b, 2.0)
+    # f32 outputs summed over M rows: the f32 tolerance, scaled by the
+    # magnitude of the sums
+    for got, want in ((da, wa), (db, wb)):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        t = 1e-4 * max(1.0, want.abs().max().item())
+        assert torch.allclose(got, want, atol=t, rtol=1e-4), \
+            (got - want).abs().max().item()
+    again = lm.lora_matmul_bwd(x, dy, a, b, 2.0)       # no atomics
+    assert torch.equal(again[0], da) and torch.equal(again[1], db)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("train_w", [False, True])
+def test_lora_matmul_autograd_on_the_card(gen, dtype, train_w):
+    """dx (the forward kernel on (Wᵀ, Bᵀ, Aᵀ)), dA/dB (the bwd kernel),
+    dbias and, under full fine-tuning only, dW, against autograd through
+    ``ref.lora_matmul``."""
+    M, K, N, r = 96, 200, 136, 8
+    x = randn(gen, M, K, dtype=dtype)
+    w = randn(gen, K, N, dtype=dtype, s=K ** -0.5)
+    a = randn(gen, K, r, dtype=dtype, s=K ** -0.5)
+    b = randn(gen, r, N, dtype=dtype, s=0.1)             # B != 0
+    bias = randn(gen, N, dtype=dtype, s=0.1)
+    dy = randn(gen, M, N, dtype=dtype)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (x, a, b, bias)]
+        wt = w.clone().requires_grad_(train_w)
+        y = fn(ts[0], wt, ts[1], ts[2], 2.0, ts[3])
+        (y.float() * dy.float()).sum().backward()
+        return [t.grad for t in ts] + [wt.grad]
+
+    ops.reset_launch_counts()
+    got = grads(lambda *t: ops.lora_matmul(*t))
+    n = ops.launch_counts()
+    assert (n["lora_matmul"], n["lora_matmul_bwd"]) == (2, 1)
+    want = grads(lm.lora_matmul_torch)
+    tol = dict(atol=1e-1, rtol=5e-2) if dtype == torch.bfloat16 \
+        else dict(atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got[:4], want[:4]):
+        assert g.dtype == w_.dtype
+        assert torch.allclose(g.float(), w_.float(), **tol), \
+            (g.float() - w_.float()).abs().max().item()
+    if train_w:
+        assert torch.allclose(got[4].float(), (x.float().T @ dy.float()),
+                              **tol)
+    else:
+        assert got[4] is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_backward_on_the_card(gen, dtype, monkeypatch):
+    """Gradients through the kernel forward and the recompute backward
+    against autograd through the plain tile loop; the backward never runs
+    the tile loop."""
+    B, S, n_p, Hq, Hkv, D = 2, 45, 5, 14, 2, 64
+    q = randn(gen, B, S, Hq, D, dtype=dtype)
+    k = randn(gen, B, n_p + S, Hkv, D, dtype=dtype)
+    v = randn(gen, B, n_p + S, Hkv, D, dtype=dtype)
+    do = randn(gen, B, S, Hq, D, dtype=dtype)
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts, q_pos=q_pos, kv_pos=kv_pos)
+        return out, ts
+
+    want_out, want = grads(fa.flash_attention_torch)
+    (want_out.float() * do.float()).sum().backward()
+    n0 = fa.launches
+    out, got = grads(fa.flash_attention)
+    assert fa.launches == n0 + 1
+
+    def no_tile_loop(*a, **k):
+        raise AssertionError("the backward ran the plain tile loop")
+
+    monkeypatch.setattr(fa, "online_softmax", no_tile_loop)
+    (out.float() * do.float()).sum().backward()
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert g.grad.dtype == dtype
+        assert torch.allclose(g.grad.float(), w_.grad.float(), atol=tol,
+                              rtol=tol), \
+            (g.grad.float() - w_.grad.float()).abs().max().item()
+
+
+def test_hfsl_round_kernels_match_plain(gen):
+    """A reduced f32 vit-edge round (2 clusters, 3 steps, nonzero LoRA b)
+    through the kernels and through ``backend="torch"``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import hfsl
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = get_config("vit-edge").reduced().with_(dtype="float32")
+    cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+    state = hfsl.init_hfsl_state(0, cfg, 2, adamw(5e-3), M.init,
+                                 device="cuda")
+    for layer in state["adapters_c"]["stack"]["g0"]:
+        for t in layer["s0"]["lora"].values():
+            t["b"] = randn(gen, *t["b"].shape, dtype=t["b"].dtype, s=0.1)
+    bank = {"tokens": torch.randint(0, cfg.vocab_size, (3, 2, 4, 24),
+                                    generator=gen, device="cuda"),
+            "label": torch.randint(0, 5, (3, 2, 4), generator=gen,
+                                   device="cuda")}
+    rnd = hfsl.make_hfsl_round(cfg, adamw(5e-3), M.classify_loss, steps=3,
+                               sync_every=2)
+    ops.reset_launch_counts()
+    ks, km = rnd(state, bank)
+    n = ops.launch_counts()
+    # 2 LoRA projections x 2 layers x 2 clusters x 3 steps
+    assert n["lora_matmul_bwd"] == 2 * cfg.n_layers * 2 * 3
+    assert n["flash_attention"] == cfg.n_layers * 2 * 3
+    with ops.backend("torch"):
+        ps, pm = rnd(state, bank)
+    torch.cuda.synchronize()
+    assert torch.allclose(km["loss"], pm["loss"], atol=1e-4, rtol=1e-4)
+    for a, b in zip(tree_leaves(ks["adapters_c"]),
+                    tree_leaves(ps["adapters_c"])):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4), \
+            (a - b).abs().max().item()

@@ -1,17 +1,24 @@
 """The port's kernel ops (plain versions, on the CPU) against the JAX
 package: ``repro.kernels.ref`` oracles and the Pallas kernels in interpret
 mode. Inputs are made from a seed with numpy and fed to both packages.
+Gradients: the autograd ``lora_matmul`` against ``jax.grad`` through the
+reference's custom VJP in interpret mode, and the flash-attention backward
+against ``jax.grad`` of the reference oracle.
 
-Tolerances are those of tests/test_kernels.py: f32 2e-5, bf16 2e-2.
+Tolerances are those of tests/test_kernels.py: f32 2e-5, bf16 2e-2, and
+for the bf16 LoRA gradients atol 1e-1 / rtol 5e-2 (sums over M rows).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import lora_matmul as jlm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import ops, ref
 
 SENT = 10 ** 9
@@ -184,6 +191,118 @@ def test_lora_matmul_matches_jax(M, K, N, r, with_bias, dt):
         f32(plain), f32(jops.lora_matmul(x, w, bias=bias)), **tol(dt))
 
 
+def vjp_tol(name):
+    return dict(atol=1e-1, rtol=5e-2) if name == "bf16" else tol("f32")
+
+
+def _lora_operands(M, K, N, r, dt, seed=0):
+    """x, w, a, b, bias, dy as (jax, torch) pairs; b is nonzero so dA is
+    not trivially zero."""
+    rng = np.random.default_rng(seed + M * K + N + r)
+    shapes = [(M, K), (K, N), (K, r), (r, N), (N,), (M, N)]
+    scales = [1.0, 0.05, 0.05, 0.05, 1.0, 1.0]
+    return [pair(s * rng.standard_normal(shp), dt)
+            for s, shp in zip(scales, shapes)]
+
+
+@pytest.mark.parametrize("M,K,N,r", [(32, 64, 48, 4), (100, 200, 144, 8)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_lora_matmul_bwd_matches_jax(M, K, N, r, dt):
+    """The plain adapter-grad version against ``ref.lora_matmul_bwd`` (JAX)
+    and ``lora_matmul_bwd_pallas`` in interpret mode; the port's oracle
+    against the JAX oracle, dx included."""
+    (x, tx), (w, tw), (a, ta), (b, tb), _, (dy, tdy) = _lora_operands(
+        M, K, N, r, dt)
+    da, db = lm.lora_matmul_bwd(tx, tdy, ta, tb, 2.0)
+    assert da.dtype == db.dtype == torch.float32
+    assert da.shape == (K, r) and db.shape == (r, N)
+    rdx, rda, rdb = jref.lora_matmul_bwd(x, w, a, b, 2.0, dy)
+    pda, pdb = jlm.lora_matmul_bwd_pallas(x, dy, a, b, 2.0, interpret=True)
+    for got, want in ((da, rda), (db, rdb), (da, pda), (db, pdb)):
+        np.testing.assert_allclose(f32(got), f32(want), **vjp_tol(dt))
+    odx, oda, odb = ref.lora_matmul_bwd(tx, tw, ta, tb, 2.0, tdy)
+    assert odx.dtype == tx.dtype
+    for got, want in ((odx, rdx), (oda, rda), (odb, rdb)):
+        np.testing.assert_allclose(f32(got), f32(want), **vjp_tol(dt))
+
+
+@pytest.mark.parametrize("M,K,N,r", [(32, 64, 48, 4), (100, 200, 144, 8)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_lora_matmul_autograd_matches_jax_custom_vjp(M, K, N, r, dt):
+    """dx, dA, dB, dbias of the autograd ``lora_matmul`` against
+    ``jax.grad`` through the reference's custom VJP (Pallas interpret)."""
+    (x, tx), (w, tw), (a, ta), (b, tb), (bias, tbias), (dy, tdy) = \
+        _lora_operands(M, K, N, r, dt, seed=1)
+
+    def f(x_, a_, b_, bias_):
+        y = jops.lora_matmul(x_, w, a_, b_, 2.0, bias_, backend="interpret")
+        return jnp.sum(y.astype(jnp.float32) * dy.astype(jnp.float32))
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(x, a, b, bias)
+    leaves = [t.clone().requires_grad_(True) for t in (tx, ta, tb, tbias)]
+    y = ops.lora_matmul(leaves[0], tw, leaves[1], leaves[2], 2.0, leaves[3])
+    (y.float() * tdy.float()).sum().backward()
+    for t, wg in zip(leaves, want):
+        assert t.grad.dtype == t.dtype and t.grad.shape == t.shape
+        np.testing.assert_allclose(f32(t.grad), f32(wg), **vjp_tol(dt))
+    assert tw.grad is None                       # PEFT: dW never formed
+
+
+def test_lora_matmul_autograd_full_ft_dw_matches_jax():
+    """Full fine-tuning (``w`` requires grad) gets the exact dW = xᵀ dy."""
+    (x, tx), (w, tw), (a, ta), (b, tb), _, (dy, tdy) = _lora_operands(
+        24, 32, 40, 4, "f32", seed=2)
+    dw = jax.grad(lambda w_: jnp.vdot(
+        jops.lora_matmul(x, w_, a, b, 2.0, backend="interpret"), dy))(w)
+    tw = tw.clone().requires_grad_(True)
+    (ops.lora_matmul(tx, tw, ta, tb, 2.0) * tdy).sum().backward()
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw), **tol("f32"))
+    np.testing.assert_allclose(tw.grad.numpy(), (tx.T @ tdy).numpy(),
+                               **tol("f32"))
+
+
+# (B, S, n_prefix, Hq, Hkv, D, window)
+ATTN_GRAD_CASES = [
+    (2, 21, 4, 4, 2, 16, 0),         # GQA g = 2, prefix slots
+    (1, 40, 3, 6, 1, 8, 7),          # g = 6, prefix, sliding window
+    (2, 9, 0, 2, 2, 8, 0),           # g = 1, no prefix
+]
+
+
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES)
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_flash_attention_grad_matches_jax(case, chunk, monkeypatch):
+    """dq, dk, dv of the flash-attention Function against ``jax.grad`` of
+    ``ref.attention`` (the gradient the reference's training takes from
+    XLA), prefix slots at position -1 included; ``chunk`` forces the
+    backward to recompute several query chunks."""
+    B, S, n_p, Hq, Hkv, D, window = case
+    if chunk:
+        monkeypatch.setattr(fa, "SCORE_BUDGET", chunk * B * Hq * (n_p + S))
+    rng = np.random.default_rng(sum(case))
+    T = n_p + S
+    q, tq = pair(rng.standard_normal((B, S, Hq, D)), "f32")
+    k, tk = pair(rng.standard_normal((B, T, Hkv, D)), "f32")
+    v, tv = pair(rng.standard_normal((B, T, Hkv, D)), "f32")
+    do = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    kv_pos = np.concatenate([np.full(n_p, -1), np.arange(S)]).astype(np.int32)
+    q_pos = np.arange(S, dtype=np.int32)
+
+    def f(q_, k_, v_):
+        o = jref.attention(q_, k_, v_, q_pos=jnp.asarray(q_pos),
+                           kv_pos=jnp.asarray(kv_pos), window=window)
+        return jnp.sum(o * do)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, q_pos=torch.from_numpy(q_pos),
+                              kv_pos=torch.from_numpy(kv_pos), window=window)
+    (out * torch.from_numpy(do)).sum().backward()
+    for t, wg in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wg),
+                                   **tol("f32"))
+
+
 # ---------------------------------------------------------------------------
 # Multi-tenant LoRA (bgmv rows and seq)
 # ---------------------------------------------------------------------------
@@ -301,17 +420,25 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                   1.0)
     ops.lora_bgmv(x[None].expand(2, 4, 8), torch.randn(8, 6), a, b,
                   torch.tensor([2, 0]), 1.0)
-    assert ops.launch_counts() == {"lora_matmul": 0, "flash_attention": 0,
-                                   "flash_decode": 0, "lora_bgmv_rows": 0,
-                                   "lora_bgmv_seq": 0}
+    x.requires_grad_(True)
+    ops.lora_matmul(x, torch.randn(8, 6), torch.randn(8, 2),
+                    torch.randn(2, 6), 1.0).sum().backward()
+    assert ops.launch_counts() == {"lora_matmul": 0, "lora_matmul_bwd": 0,
+                                   "flash_attention": 0, "flash_decode": 0,
+                                   "lora_bgmv_rows": 0, "lora_bgmv_seq": 0}
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",
-                                "lora_bgmv_rows", "lora_bgmv_seq"])
+                                "lora_bgmv_rows", "lora_bgmv_seq",
+                                "lora_matmul_bwd"])
 def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
     """backend='cuda' never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
-        if op == "lora_matmul":
+        if op == "lora_matmul_bwd":
+            lm.lora_matmul_bwd(torch.randn(4, 8), torch.randn(4, 6),
+                               torch.randn(8, 2), torch.randn(2, 6), 1.0,
+                               backend="cuda")
+        elif op == "lora_matmul":
             ops.lora_matmul(torch.randn(4, 8), torch.randn(8, 6),
                             torch.randn(8, 2), torch.randn(2, 6), 1.0,
                             backend="cuda")
