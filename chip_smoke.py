@@ -53,7 +53,31 @@ Phases, each of which exits nonzero on a failed check:
    clusters, 3 steps, SGD with momentum) through the kernels and through
    ``backend="torch"``: adapters and losses within 1e-4, each leaf's
    update within 1e-3 of its largest; the same round with AdamW is
-   recorded.
+   recorded;
+12. the paged decode kernel against its plain version at the paged
+   drain's shape (B 8, Hq 28 / Hkv 4, D 128, block 16, 64 blocks per row,
+   16 per-row prefix slots, ragged q_pos, bf16 and f32), timed beside
+   phase 3; the same inputs through the dense ``flash_decode`` kernel on
+   ``cat(prefix, pool[table])`` must give the same bits;
+13. paged serving at full size, on phase 5's backbone and bank:
+   ``DecodeEngine(slots=8, bank=..., paged=PagedSpec(512, 16,
+   share_prefix=True))`` drains 16 requests, 4 per domain sharing a
+   256-token system prompt; the paged kernel, the multi-LoRA kernels and
+   flash_attention must launch, the dense flash_decode and lora_matmul
+   must not; prefixes must be shared, the pool must be empty and
+   consistent after the drain, and a second drain of the same prompts
+   must revive blocks off the free list;
+14. paged exactness: the 2-layer f32 qwen2-7b of phase 6 drains a ragged
+   queue with shared prefixes, single-tenant and from the bank, paged with
+   and without prefix sharing, through the kernels and through
+   ``backend="torch"``: the tokens must equal each other, the dense drain
+   and solo generation; a ``serve_trace`` of the queue at staggered
+   arrivals too;
+15. the paper's loop: ``IntegratedRuntime`` on vit-edge at its configured
+   size (2 domains, MLCP over a 10-round demand, paged produce rounds)
+   runs upgrade and produce rounds through the kernels with no plain
+   version; each upgrade publishes, upgraded accuracy holds, and
+   ``save`` / ``restore`` resume the loop.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -85,13 +109,14 @@ REPLACES = {
     "lora_matmul_bwd": "src/repro/kernels/lora_matmul.py:144",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "flash_decode": "src/repro/kernels/flash_decode.py:207",
+    "flash_decode_paged": "src/repro/kernels/flash_decode.py:149",
     "lora_bgmv_rows": "src/repro/kernels/lora_bgmv.py:91",
     "lora_bgmv_seq": "src/repro/kernels/lora_bgmv.py:168",
 }
 N_DOMAINS = 4
 # the path whose launches a kernel's record reports
 PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
-           "lora_matmul_bwd": "train"}
+           "lora_matmul_bwd": "train", "flash_decode_paged": "paged"}
 
 
 class SmokeFailure(Exception):
@@ -349,6 +374,91 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the paged decode kernel
+# ---------------------------------------------------------------------------
+
+def paged_kernel_cases(gen: torch.Generator, timer: Timer,
+                       cases: dict) -> None:
+    """flash_decode_paged at the paged drain's shape against its plain
+    version, and bit for bit against the dense kernel on the gathered
+    keys (into ``cases``)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    B, Hq, Hkv, D, bs, maxb, n_p, nb = 8, 28, 4, 128, 16, 64, 16, 512
+    cases["flash_decode_paged"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q = randn(B, Hq, D)
+        k_pool, v_pool = randn(nb, bs, Hkv, D), randn(nb, bs, Hkv, D)
+        pk, pv = randn(B, n_p, Hkv, D), randn(B, n_p, Hkv, D)
+        # distinct blocks per row; past each row's written blocks the
+        # table holds the n_blocks sentinel, as the engine's tables do
+        perm = torch.randperm(nb, generator=gen, device="cuda")
+        table = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+        qp = torch.randint(32, maxb * bs, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        cols = torch.arange(maxb, device="cuda")[None]
+        table = torch.where(cols <= qp[:, None] // bs, table,
+                            torch.full_like(table, nb))
+        kw = dict(q_pos=qp, prefix_k=pk, prefix_v=pv)
+        got = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw)
+        want = fd.flash_decode_paged(q, k_pool, v_pool, table,
+                                     backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = compare(f"flash_decode_paged {dtype}", got, want, dtype)
+
+        # the dense kernel on the same keys: cat(prefix, pool[table])
+        kg, vg = fd.gather_pool(k_pool, v_pool, table)
+        slots = torch.arange(maxb * bs, dtype=torch.int32,
+                             device="cuda")[None].expand(B, -1)
+        kd, vd, kpd = fd.with_prefix(kg, vg, slots, pk, pv)
+        dense = fd.flash_decode(q, kd.contiguous(), vd.contiguous(), q_pos=qp,
+                                kv_pos=kpd.contiguous())
+        torch.cuda.synchronize()
+        bits = (got.float() - dense.float()).abs().max().item()
+        check(torch.equal(got, dense),
+              f"flash_decode_paged {dtype}: differs from the dense kernel "
+              f"on the gathered keys by {bits}")
+
+        vis = (kpd <= qp[:, None]) | (kpd < 0)               # (B, T)
+        keys = int(vis.sum().item())
+        elt = q.element_size()
+        bms, by = bound(elt * (2 * q.numel() + 2 * keys * Hkv * D)
+                        + 4 * (B + B * maxb), 4 * D * keys * Hq, dtype)
+        qt = q[:, :, None]
+        mask = vis[:, None, None, :]
+
+        def library(gather: bool):
+            kk, vv = (kd, vd)
+            if gather:
+                kk, vv = fd.gather_pool(k_pool, v_pool, table)
+                kk = torch.cat([pk, kk], 1)
+                vv = torch.cat([pv, vv], 1)
+            return F.scaled_dot_product_attention(
+                qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+
+        cases["flash_decode_paged"].append(dict(
+            shape=f"B={B} bs={bs} maxb={maxb} blocks={nb} prefix={n_p} "
+                  f"per-row Hq={Hq} Hkv={Hkv} D={D} per-row q_pos "
+                  f"{str(dtype)[6:]}",
+            max_abs_err=err, tol=TOL[dtype], bits_vs_dense_kernel=bits,
+            visible_keys=keys,
+            ms=timer(lambda: fd.flash_decode_paged(q, k_pool, v_pool, table,
+                                                   **kw)),
+            dense_kernel_ms=timer(lambda: fd.flash_decode(
+                q, kd, vd, q_pos=qp, kv_pos=kpd)),
+            plain_ms=timer(lambda: fd.flash_decode_paged(
+                q, k_pool, v_pool, table, backend="torch", **kw)),
+            library_ms=timer(lambda: library(True)),
+            library_without_gather_ms=timer(lambda: library(False)),
+            bound_ms=bms, bound_by=by))
+        log(f"kernel flash_decode_paged {cases['flash_decode_paged'][-1]}")
+
+
+# ---------------------------------------------------------------------------
 # phases 4 to 7: the serving paths
 # ---------------------------------------------------------------------------
 
@@ -357,9 +467,8 @@ def queue(rng, n, lens, gens, vocab):
              int(rng.integers(*gens))) for _ in range(n)]
 
 
-def drain(cfg, params, reqs, slots, bank=None, domains=None):
-    from repro_torch.launch.engine import DecodeEngine
-    eng = DecodeEngine(cfg, slots=slots, bank=bank, device="cuda")
+def serve_on(eng, params, reqs, domains=None):
+    """Submit ``reqs`` to ``eng`` and drain; completions in request order."""
     uids = [eng.submit(p, g, domain=None if domains is None else domains[i])
             for i, (p, g) in enumerate(reqs)]
     comps, stats = eng.run(params)
@@ -367,6 +476,13 @@ def drain(cfg, params, reqs, slots, bank=None, domains=None):
     by = {c.uid: c for c in comps}
     check(sorted(by) == sorted(uids), "engine lost a request")
     return [by[u] for u in uids], stats
+
+
+def drain(cfg, params, reqs, slots, bank=None, domains=None, paged=None):
+    from repro_torch.launch.engine import DecodeEngine
+    eng = DecodeEngine(cfg, slots=slots, bank=bank, paged=paged,
+                       device="cuda")
+    return serve_on(eng, params, reqs, domains)
 
 
 def domain_adapters(cfg, seed: int) -> dict:
@@ -457,20 +573,21 @@ def main_path(seed: int) -> tuple[dict, dict]:
         f" max_abs_err {(kl - pl).abs().max().item():.4f}, top-1 "
         f"{int(kl.argmax())} vs {int(pl.argmax())}")
     rec["prefill_logits_cosine"] = cos
-    bank_rec = bank_path(cfg, params["backbone"], reqs, seed)
-    del params
+    from repro_torch.core.adapter_bank import AdapterBank
+    bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
+    bank_rec = bank_path(cfg, params["backbone"], bank, reqs, seed)
+    paged_rec = paged_path(cfg, params["backbone"], bank, seed, bank_rec)
+    del params, bank
     torch.cuda.empty_cache()
-    return rec, bank_rec
+    return rec, bank_rec, paged_rec
 
 
-def bank_path(cfg, backbone: dict, reqs: list, seed: int) -> dict:
+def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
     """The multi-tenant path on the main path's backbone, serving the main
     path's queue with a seeded domain per request."""
-    from repro_torch.core.adapter_bank import AdapterBank
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
     sp = bank.serving_params(backbone)
     rng = np.random.default_rng(seed + 10)
     doms = [bank.domains[int(i)]
@@ -533,6 +650,86 @@ def bank_path(cfg, backbone: dict, reqs: list, seed: int) -> dict:
     return rec
 
 
+def paged_queue(rng, bank, n, tail, gens, vocab, system_len):
+    """``n`` requests over the bank's domains in turn; a domain's requests
+    share that domain's ``system_len``-token system prompt, then a tail of
+    ``tail`` tokens (a range) and a budget in ``gens``."""
+    systems = {d: rng.integers(0, vocab, system_len).astype(np.int32)
+               for d in bank.domains}
+    reqs, doms = [], []
+    for i in range(n):
+        d = bank.domains[i % len(bank.domains)]
+        t = rng.integers(0, vocab, int(rng.integers(*tail))).astype(np.int32)
+        reqs.append((np.concatenate([systems[d], t]),
+                     int(rng.integers(*gens))))
+        doms.append(d)
+    return reqs, doms
+
+
+def paged_path(cfg, backbone: dict, bank, seed: int, dense: dict) -> dict:
+    """Phase 13: paged serving of full-size qwen2-7b from the 4-domain bank
+    with prefix sharing, twice on one engine."""
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+
+    rng = np.random.default_rng(seed + 20)
+    reqs, doms = paged_queue(rng, bank, 16, (32, 257), (16, 65),
+                             cfg.vocab_size, 256)
+    spec = PagedSpec(n_blocks=512, block_size=16, share_prefix=True)
+    eng = DecodeEngine(cfg, slots=8, bank=bank, paged=spec, device="cuda")
+    sp = bank.serving_params(backbone)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with plain_calls(serving=True) as plain:
+        comps, stats = serve_on(eng, sp, reqs, doms)
+    launches = ops.launch_counts()
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "paged")
+    check(all(launches[k] > 0 for k in ("flash_decode_paged",
+                                        "lora_bgmv_rows", "lora_bgmv_seq",
+                                        "flash_attention"))
+          and launches["flash_decode"] == 0 and launches["lora_matmul"] == 0,
+          f"paged path: launches {launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"paged path: a plain version ran on the card: {plain}")
+    check(stats.prefix_hits > 0, "paged path: no prefix was shared")
+    check(eng._alloc.used_blocks == 0, "paged path: blocks still held")
+    eng._alloc.check()
+    rec.update(pool_peak_blocks=stats.pool_peak_blocks,
+               pool_blocks_alloc=stats.pool_blocks_alloc,
+               pool_occupancy=stats.pool_occupancy,
+               prefix_hits=stats.prefix_hits,
+               prefix_hit_tokens=stats.prefix_hit_tokens,
+               cache_tokens=stats.cache_tokens)
+    log(f"paged: {N_DOMAINS} domains x 4 requests sharing a 256-token "
+        f"system prompt: {drain_line(rec)}; pool peak "
+        f"{stats.pool_peak_blocks} blocks, {stats.pool_blocks_alloc} "
+        f"allocated, occupancy {stats.pool_occupancy:.4f}, prefix hits "
+        f"{stats.prefix_hits} ({stats.prefix_hit_tokens} tokens)")
+    log(f"paged: bank drain paged {rec['tok_per_s']:.2f} tok/s, ttft p50 "
+        f"{rec['ttft_p50_s']:.4f}s p99 {rec['ttft_p99_s']:.4f}s, peak "
+        f"{rec['peak_mem_gib']:.2f} GiB beside dense (phase 5) "
+        f"{dense['tok_per_s']:.2f} tok/s, ttft p50 "
+        f"{dense['ttft_p50_s']:.4f}s p99 {dense['ttft_p99_s']:.4f}s, peak "
+        f"{dense['peak_mem_gib']:.2f} GiB")
+
+    # a second drain of the same prompts: the freed blocks keep their
+    # hashes on the free list and are revived
+    again, st2 = serve_on(eng, sp, reqs, doms)
+    check(st2.prefix_hits > 0, "paged path: no block revived on redrain")
+    check(eng._alloc.used_blocks == 0, "paged path: blocks held on redrain")
+    eng._alloc.check()
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(comps, again))
+    log(f"paged: second drain of the same prompts: {st2.prefix_hits} prefix "
+        f"hits ({st2.prefix_hit_tokens} tokens), {st2.tok_per_s:.2f} tok/s,"
+        f" {same}/{len(reqs)} requests gave the first drain's tokens")
+    rec.update(redrain_prefix_hits=st2.prefix_hits,
+               redrain_tok_per_s=st2.tok_per_s, redrain_same_tokens=same)
+    return rec
+
+
 def end_to_end(seed: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.core.adapter_bank import AdapterBank
@@ -589,11 +786,82 @@ def end_to_end(seed: int) -> dict:
     log(f"e2e: 2-layer f32 bank of {N_DOMAINS} domains, {len(breqs)} "
         f"requests, {bst.waves} waves: kernel tokens == plain tokens == "
         f"per-domain drains")
+    paged = paged_exactness(cfg, params, bank, seed)
     del params
     torch.cuda.empty_cache()
     return dict(requests=len(reqs), waves=st.waves, tokens_equal=True,
                 bank_requests=len(breqs), bank_waves=bst.waves,
-                bank_tokens_equal=True)
+                bank_tokens_equal=True, paged=paged)
+
+
+def paged_exactness(cfg, params, bank, seed: int) -> dict:
+    """Phase 14: paged drains of a ragged queue with shared prefixes,
+    through the kernels and the plain versions, single-tenant and from the
+    bank, with and without prefix sharing, against the dense drains, solo
+    generation and a staggered serve_trace."""
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(seed + 6)
+    reqs, doms = paged_queue(rng, bank, 8, (8, 257), (4, 17),
+                             cfg.vocab_size, 64)
+    sp = bank.serving_params(params["backbone"])
+    out = {}
+    for tenant in (False, True):
+        pp, dd = (sp, doms) if tenant else (params, None)
+        what = "bank" if tenant else "single-tenant"
+        dense, _ = drain(cfg, pp, reqs, slots=4, bank=bank if tenant
+                         else None, domains=dd)
+        if not tenant:
+            for (p, g), c in zip(reqs, dense):
+                solo = M.generate(params, cfg,
+                                  torch.as_tensor(p[None], device="cuda"),
+                                  gen=g)[0].cpu().numpy()
+                check(np.array_equal(solo, c.tokens),
+                      f"paged e2e: dense drain differs from solo for "
+                      f"request {c.uid}")
+        for share in (False, True):
+            spec = PagedSpec(n_blocks=256, block_size=16, share_prefix=share)
+            ops.reset_launch_counts()
+            kern, st = drain(cfg, pp, reqs, slots=4, bank=bank if tenant
+                             else None, domains=dd, paged=spec)
+            n = ops.launch_counts()
+            check(n["flash_decode_paged"] > 0 and n["flash_decode"] == 0,
+                  f"paged e2e {what}: launches {n}")
+            check(not share or st.prefix_hits > 0,
+                  f"paged e2e {what}: no prefix shared")
+            with ops.backend("torch"):
+                plain, _ = drain(cfg, pp, reqs, slots=4, bank=bank if tenant
+                                 else None, domains=dd, paged=spec)
+            for a, b, c in zip(kern, plain, dense):
+                check(np.array_equal(a.tokens, b.tokens)
+                      and np.array_equal(a.tokens, c.tokens),
+                      f"paged e2e {what} share_prefix={share}: request "
+                      f"{a.uid} kernel {a.tokens} plain {b.tokens} dense "
+                      f"{c.tokens}")
+            out[f"{what} share_prefix={share}"] = dict(
+                waves=st.waves, prefix_hits=st.prefix_hits,
+                pool_peak_blocks=st.pool_peak_blocks)
+        if not tenant:
+            eng = DecodeEngine(cfg, slots=4, device="cuda",
+                               paged=PagedSpec(256, 16, share_prefix=True))
+            comps, st = eng.serve_trace(params, [
+                (0.02 * i, p, g) for i, (p, g) in enumerate(reqs)])
+            torch.cuda.synchronize()
+            by = {c.uid: c.tokens for c in comps}
+            check(sorted(by) == list(range(len(reqs))) and all(
+                np.array_equal(by[i], dense[i].tokens)
+                for i in range(len(reqs))),
+                "paged e2e: serve_trace tokens differ from the dense drain")
+            out["serve_trace"] = dict(waves=st.waves,
+                                      prefix_hits=st.prefix_hits)
+    log(f"paged e2e: 2-layer f32 qwen2-7b, {len(reqs)} requests sharing "
+        f"per-domain 64-token prefixes: paged kernel == paged plain == "
+        f"dense == solo, single-tenant and bank, with and without prefix "
+        f"sharing, and a staggered serve_trace: {out}")
+    return out
 
 
 def classify_phase(seed: int) -> dict:
@@ -800,18 +1068,29 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
 
 
 class plain_calls:
-    """Counts calls of the plain versions on the training path while
-    active (a round on the card must run none of them)."""
+    """Counts calls of the plain versions on the training path (and, with
+    ``serving``, on the serving path) while active: a round or a drain on
+    the card must run none of them."""
+
+    def __init__(self, serving: bool = False):
+        self.serving = serving
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.kernels import lora_bgmv as bg
         from repro_torch.kernels import lora_matmul as lm
         self.counts = {}
         self.patched = []
-        for mod, attr, key in ((lm, "lora_matmul_torch", "lora_matmul"),
-                               (lm, "lora_matmul_bwd_torch",
-                                "lora_matmul_bwd"),
-                               (fa, "online_softmax", "flash_attention")):
+        targets = [(lm, "lora_matmul_torch", "lora_matmul"),
+                   (lm, "lora_matmul_bwd_torch", "lora_matmul_bwd"),
+                   (fa, "online_softmax", "flash_attention")]
+        if self.serving:
+            targets += [(bg, "lora_bgmv_torch", "lora_bgmv"),
+                        (fd, "flash_decode_torch", "flash_decode"),
+                        (fd, "flash_decode_paged_torch",
+                         "flash_decode_paged")]
+        for mod, attr, key in targets:
             fn = getattr(mod, attr)
             self.counts[key] = 0
             self.patched.append((mod, attr, fn))
@@ -1037,6 +1316,138 @@ def train_phases(seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's loop
+# ---------------------------------------------------------------------------
+
+def paper_loop(seed: int) -> dict:
+    """``IntegratedRuntime`` on vit-edge at its configured size, with
+    ``examples/integrated_runtime.py``'s tasks and demand, the default MLCP
+    policy and paged produce rounds."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.integrated import IntegratedRuntime
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.data.synthetic import ClassificationTask
+    from repro_torch.kernels import ops
+
+    cfg = get_config("vit-edge")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.peft.head_dim_out,
+           cfg.dtype) == (12, 768, 1000, 5, "bfloat16"),
+          "vit-edge is not at its configured size")
+    tasks = {"nlp": ClassificationTask(5, 64, 48, class_strength=0.6, seed=0),
+             "cv": ClassificationTask(5, 64, 48, class_strength=0.6, seed=7)}
+    kw = dict(n_clusters=2, steps_per_upgrade=20, batch=16, sync_every=5,
+              serve_batch=64, serve_gen=4, serve_slots=16, seed=seed,
+              paged=PagedSpec(n_blocks=128, block_size=16), device="cuda")
+    t0 = time.perf_counter()
+    rt = IntegratedRuntime(cfg, tasks, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cold = {n: d.accuracy for n, d in rt.domains.items()}
+    demand = ["nlp"] * 2 + ["cv"] + ["nlp"] * 7
+
+    per_round: list[dict] = []
+
+    def counted(fn):
+        def call(*a):
+            before = ops.launch_counts()
+            out = fn(*a)
+            after = ops.launch_counts()
+            per_round.append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    rt.produce, rt.upgrade = counted(rt.produce), counted(rt.upgrade)
+    with plain_calls(serving=True) as plain:
+        t0 = time.perf_counter()
+        recs = rt.run(demand)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(len(recs) == len(demand) and len(per_round) == len(demand),
+          f"loop: {len(recs)} rounds recorded of {len(demand)}")
+    acts = [r.action for r in recs]
+    check("upgrade" in acts and "produce" in acts,
+          f"loop: the policy ran only {set(acts)}")
+    check(all(v == 0 for v in plain.values()),
+          f"loop: a plain version ran on the card: {plain}")
+    rows = []
+    for r, n in zip(recs, per_round):
+        if r.action == "produce":
+            check(all(n[k] > 0 for k in ("flash_decode_paged",
+                                         "lora_bgmv_rows", "lora_bgmv_seq"))
+                  and n["flash_decode"] == 0 and n["lora_matmul"] == 0,
+                  f"loop: produce round {r.round} launches {n}")
+            rate = f"{r.cost.tok_per_s:.2f} tok/s"
+        else:
+            check(n["lora_matmul_bwd"] > 0,
+                  f"loop: upgrade round {r.round} launches {n}")
+            rate = f"{r.cost.ex_per_s:.2f} ex/s"
+        rows.append(dict(round=r.round, action=r.action, domain=r.domain,
+                         profit=r.profit, accuracy=r.accuracy,
+                         latency_s=r.cost.latency_s,
+                         tok_per_s=r.cost.tok_per_s,
+                         ex_per_s=r.cost.ex_per_s, tokens=r.cost.tokens,
+                         examples=r.cost.examples, launches=n))
+        log(f"loop: round {r.round:2d} {r.action:8s} {r.domain:4s} profit "
+            f"{r.profit:+7.2f} accuracy {r.accuracy:.4f} "
+            f"{r.cost.latency_s:.3f}s {rate}")
+    ups = {n: acts_n for n, acts_n in
+           ((n, sum(1 for r in recs if r.action == "upgrade"
+                    and r.domain == n)) for n in rt.domains)}
+    check(rt.publish_rejects == 0
+          and all(rt.versions_of(n) == ups[n] for n in rt.domains),
+          f"loop: bank versions {[rt.versions_of(n) for n in rt.domains]} "
+          f"after upgrades {ups}")
+    for n, u in ups.items():
+        if u:
+            check(rt.domains[n].accuracy >= cold[n] - 0.05,
+                  f"loop: {n} accuracy {rt.domains[n].accuracy} below its "
+                  f"cold start {cold[n]}")
+    log(f"loop: vit-edge 10 rounds in {wall:.3f}s (runtime built in "
+        f"{build_s:.1f}s), total profit {rt.total_profit():.2f}; cold "
+        f"accuracy {cold}, final "
+        f"{ {n: d.accuracy for n, d in rt.domains.items()} }, upgrades "
+        f"{ups}")
+
+    # save, restore into a fresh runtime, and continue both by one round
+    with tempfile.TemporaryDirectory() as tmp:
+        nbytes = rt.save(f"{tmp}/rt.npz")
+        fresh = IntegratedRuntime(cfg, tasks, **kw)
+        fresh.restore(f"{tmp}/rt.npz")
+    for n, d in rt.domains.items():
+        f = fresh.domains[n]
+        check((f.level, int(f.step), fresh.versions_of(n),
+               fresh._banks[n].offset)
+              == (d.level, int(d.step), rt.versions_of(n),
+                  rt._banks[n].offset)
+              and all(torch.equal(a, b) for a, b in zip(
+                  _leaves([f.adapters_c, f.opt_state]),
+                  _leaves([d.adapters_c, d.opt_state]))),
+              f"loop: restored {n} differs from the saved runtime")
+    rt.upgrade("cv")
+    fresh.upgrade("cv")
+    d, f = rt.domains["cv"], fresh.domains["cv"]
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(_leaves(f.adapters_c), _leaves(d.adapters_c)))
+    check(int(f.step) == int(d.step) and f.level == d.level
+          and fresh.versions_of("cv") == rt.versions_of("cv")
+          and diff <= TOL[torch.bfloat16],
+          f"loop: the restored runtime did not continue: step "
+          f"{int(f.step)} vs {int(d.step)}, adapters differ by {diff}")
+    log(f"loop: save ({nbytes} bytes) and restore into a fresh runtime: "
+        f"state equal; one more upgrade each: step {int(d.step)}, version "
+        f"{rt.versions_of('cv')}, adapters differ by {diff:.3e}")
+    del rt, fresh
+    torch.cuda.empty_cache()
+    return dict(config=f"vit-edge {cfg.n_layers} layers d {cfg.d_model} "
+                       f"{cfg.dtype}", wall_s=wall, build_s=build_s,
+                rounds=rows, total_profit=recs[-1].cumulative,
+                cold_accuracy=cold, upgrades=ups, checkpoint_bytes=nbytes,
+                resumed_adapters_max_abs_diff=diff)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1088,12 +1499,14 @@ def main(argv=None) -> int:
     timer = Timer()
     cases = kernel_cases(gen, timer)
     rec["train_kernels"] = train_kernel_cases(gen, timer, cases)
-    rec["main"], rec["bank"] = main_path(args.seed)
+    paged_kernel_cases(gen, timer, cases)
+    rec["main"], rec["bank"], rec["paged"] = main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
         f"beside single-tenant {rec['main']['tok_per_s']:.2f} tok/s")
     rec["e2e"] = end_to_end(args.seed)
     rec["classify"] = classify_phase(args.seed)
     rec.update(train_phases(args.seed))
+    rec["loop"] = paper_loop(args.seed)
 
     kernels = []
     for name, cs in cases.items():

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of one source tree on the GPU.
+
+    PYTHONPATH=<tree>/src python3 scripts/time_attention_kernels.py \\
+        [--label NAME] [--reps 41]
+
+Times ``flash_attention`` and ``flash_decode`` at ``chip_smoke.py``'s
+phase 3 shapes (bf16: prefill of 8 x 512 tokens behind 16 prefix slots;
+decode of 8 rows against 1024 slots behind 16 prefix slots), and
+``flash_decode_paged`` at phase 12's where the tree has it, with
+``chip_smoke.Timer`` (median of CUDA-event timings, L2 flushed before each
+launch) on inputs drawn from a fixed seed, so that runs of two trees see
+the same inputs. ``repro_torch`` comes from ``PYTHONPATH``: run it once
+per tree, alternating trees (parent, change, change, parent) within one
+call to the card. Prints the card's name and power limit, then one JSON
+line. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--reps", type=int, default=41)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_attention_kernels: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = Timer(reps=args.reps)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    B, S, n_p, Hq, Hkv, D, Tc = 8, 512, 16, 28, 4, 128, 1024
+    out = {"label": args.label, "source": fa.__file__}
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+    q, k, v = randn(B, S, Hq, D), randn(B, n_p + S, Hkv, D), \
+        randn(B, n_p + S, Hkv, D)
+    out["flash_attention_ms"] = timer(lambda: fa.flash_attention(
+        q, k, v, q_pos=q_pos, kv_pos=kv_pos))
+
+    q, k, v = randn(B, Hq, D), randn(B, n_p + Tc, Hkv, D), \
+        randn(B, n_p + Tc, Hkv, D)
+    qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
+    kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
+                               device="cuda"),
+                    torch.where(slots <= qp[:, None], slots,
+                                torch.full_like(slots, 10 ** 9))], 1)
+    out["flash_decode_ms"] = timer(lambda: fd.flash_decode(
+        q, k, v, q_pos=qp, kv_pos=kp))
+
+    if hasattr(fd, "flash_decode_paged"):
+        bs, maxb, nb = 16, 64, 512
+        k_pool, v_pool = randn(nb, bs, Hkv, D), randn(nb, bs, Hkv, D)
+        pk, pv = randn(B, n_p, Hkv, D), randn(B, n_p, Hkv, D)
+        perm = torch.randperm(nb, generator=gen, device="cuda")
+        table = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+        cols = torch.arange(maxb, device="cuda")[None]
+        table = torch.where(cols <= qp[:, None] // bs, table,
+                            torch.full_like(table, nb))
+        out["flash_decode_paged_ms"] = timer(lambda: fd.flash_decode_paged(
+            q, k_pool, v_pool, table, q_pos=qp, prefix_k=pk, prefix_v=pv))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

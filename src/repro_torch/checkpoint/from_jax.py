@@ -18,6 +18,9 @@ the optimizer's ``m``/``v``/``mu``) carry ``(n_clusters, L, ...)`` leaves
 under ``stack`` in the reference and per-layer ``(n_clusters, ...)`` leaves
 in the port (``core/hfsl.py``); the per-cluster optimizer ``step``
 ``(n_clusters,)`` and the round counter ``step`` cross as they are.
+
+An ``IntegratedRuntime``'s state crosses with :func:`integrated_from_jax`
+into a port runtime built with the same config, tasks and seed.
 """
 from __future__ import annotations
 
@@ -127,3 +130,33 @@ def hfsl_state_to_numpy(state: dict) -> dict:
             "opt": {k: (to_numpy(v) if k == "step" else clustered(v))
                     for k, v in state["opt"].items()},
             "step": to_numpy(state["step"])}
+
+
+def integrated_from_jax(rt, tree: dict) -> None:
+    """Load a reference ``IntegratedRuntime``'s state (numpy leaves) into
+    the port runtime ``rt``, in place, so that the two can be held against
+    each other round for round.
+
+    ``tree``: ``{"backbone": ..., "domains": {name: {"adapters_c", "opt",
+    "step", "level", "offset"[, "bank_version"]}}}``, the reference's
+    ``rt.backbone`` and per-domain ``DomainState`` fields and batch-bank
+    cursor. Each domain's HFSL state crosses through
+    :func:`hfsl_state_from_jax`; then its consensus is published into the
+    bank (the version is set to ``bank_version`` when given) and its
+    accuracy is measured again on the port."""
+    dev = rt.device
+    rt.backbone = from_jax({"backbone": tree["backbone"]},
+                           dev)["backbone"]
+    for name, dom in tree["domains"].items():
+        st = hfsl_state_from_jax({"backbone": {}, **{
+            k: dom[k] for k in ("adapters_c", "opt", "step")}}, dev)
+        d = rt.domains[name]
+        d.adapters_c, d.opt_state = st["adapters_c"], st["opt"]
+        d.step = st["step"].to(torch.int32)
+        d.level = int(dom["level"])
+        rt._banks[name].offset = int(dom["offset"])
+        rt.bank.publish(name, rt._consensus_adapters(name))
+        if "bank_version" in dom:
+            rt.bank.versions[name] = int(dom["bank_version"])
+    for name in tree["domains"]:
+        rt.domains[name].accuracy = rt._measure(name)

@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("lora_matmul", "lora_matmul_bwd", "flash_attention",
-           "flash_decode", "lora_bgmv_rows", "lora_bgmv_seq")
+           "flash_decode", "flash_decode_paged", "lora_bgmv_rows",
+           "lora_bgmv_seq")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,15 +115,16 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
 def checked_args(name: str, tensors: dict, dtype: torch.dtype) -> int:
     """Validate what a kernel takes before its pointers are passed: every
     tensor on one CUDA device, contiguous, of ``dtype`` (f32 or bf16) —
-    int32 for names ending in ``pos`` or ``ids``. Returns the csrc
-    ``DTypeCode``."""
+    int32 for names ending in ``pos``, ``ids`` or ``table``. Returns the
+    csrc ``DTypeCode``."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or "
                         f"bfloat16, not {dtype}")
     dev = None
     for key, t in tensors.items():
-        want = torch.int32 if key.endswith(("pos", "ids")) else dtype
+        want = torch.int32 if key.endswith(("pos", "ids", "table")) \
+            else dtype
         if not t.is_cuda or t.dtype != want or not t.is_contiguous():
             raise ValueError(
                 f"{name}: {key} must be a contiguous {want} CUDA tensor, got "

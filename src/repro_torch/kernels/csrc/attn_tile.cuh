@@ -1,5 +1,6 @@
 // Online-softmax attention over 32-key tiles, shared by flash_attention.cu
-// (prefill) and flash_decode.cu (one query per row).
+// (prefill), flash_decode.cu (one query per row) and flash_decode_paged.cu
+// (one query per row through a block table).
 //
 // A block holds up to NW * RPW query rows of one (batch, KV head) pair in
 // shared memory (f32). Warp w owns rows w, w + NW, w + 2 NW, ...; lane i of
@@ -24,6 +25,16 @@
 // This keeps the causal upper triangle out of the prefill loop, and the
 // unwritten (sentinel) tail of a decode row's cache out of the decode
 // loop, while the prefix slots at the front are always visited.
+//
+// Addressing: the keys are strided rows at k_base / v_base with positions
+// kpos_base[t], or, when a paged accessor is passed (Paged::on), key t's
+// position, K row and V row come from the accessor (the paged kernel's
+// resolves t through its block table). Only the loads differ: the tiles,
+// the skipped tiles and the order of every sum do not depend on the
+// addressing, so two ways of addressing the same rows give the same bits.
+// The strided form compiles exactly as it did before the accessor existed
+// (if constexpr); an accessor in the strided path too cost the dense decode
+// kernel ~16 % (scripts/time_attention_kernels.py, PR 14).
 //
 // Pipelining: the next needed tile's K/V are loaded into registers while
 // the current tile is folded, so a block waits for memory about once per
@@ -55,19 +66,27 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal,
   return vis || (k < 0);
 }
 
+// No accessor: the strided addressing.
+struct Strided {
+  static constexpr bool on = false;
+};
+
 // Attend rows of Qs (f32, row stride DMAX, `nrows` valid) against the
 // T keys at k_base / v_base (element stride `kv_stride` between keys)
-// with positions kpos_base[0..T). Row r's query position is qpos_s[r].
-// On return, each warp's lanes hold acc / max(l, 1e-30) for its rows in
-// `out_acc[i][*]` (row w + NW * i).
-template <typename T, int NW, int RPW>
+// with positions kpos_base[0..T), or against the T keys of `paged` (a
+// struct with `static constexpr bool on = true` and pos(t), krow(t),
+// vrow(t); the strided arguments are then unused). Row r's query position
+// is qpos_s[r]. On return, each warp's lanes hold acc / max(l, 1e-30) for
+// its rows in `out_acc[i][*]` (row w + NW * i).
+template <typename T, int NW, int RPW, typename Paged = Strided>
 __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
                              const T* __restrict__ k_base,
                              const T* __restrict__ v_base,
                              long long kv_stride,
                              const int* __restrict__ kpos_base, int T_len,
                              int D, float scale, int causal, int window,
-                             AttnSmem& sm, float (&out_acc)[RPW][NI]) {
+                             AttnSmem& sm, float (&out_acc)[RPW][NI],
+                             const Paged paged = Paged()) {
   constexpr int NT = NW * 32;
   constexpr int LPT = KT * DMAX / NT;       // K (and V) elements per thread
   const int tid = threadIdx.x;
@@ -88,7 +107,10 @@ __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
     if (tid < KT) {
       const int t = t0 + tid;
       sm.kexists[buf][tid] = t < T_len;
-      sm.kpos[buf][tid] = t < T_len ? kpos_base[t] : 0;
+      if constexpr (Paged::on)
+        sm.kpos[buf][tid] = t < T_len ? paged.pos(t) : 0;
+      else
+        sm.kpos[buf][tid] = t < T_len ? kpos_base[t] : 0;
     }
     __syncthreads();
     const bool kex = sm.kexists[buf][lane];
@@ -114,9 +136,14 @@ __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
       const int r = e / DMAX, d = e % DMAX;
       const int t = t0 + r;
       const bool ok = d < D && t < T_len;
-      const long long off = (long long)t * kv_stride + d;
-      kr[it] = ok ? k_base[off] : from_f32<T>(0.f);
-      vr[it] = ok ? v_base[off] : from_f32<T>(0.f);
+      if constexpr (Paged::on) {
+        kr[it] = ok ? paged.krow(t)[d] : from_f32<T>(0.f);
+        vr[it] = ok ? paged.vrow(t)[d] : from_f32<T>(0.f);
+      } else {
+        const long long off = (long long)t * kv_stride + d;
+        kr[it] = ok ? k_base[off] : from_f32<T>(0.f);
+        vr[it] = ok ? v_base[off] : from_f32<T>(0.f);
+      }
     }
   };
 

@@ -28,6 +28,7 @@ _KERNELS = {"lora_matmul": (lm, "launches"),
             "lora_matmul_bwd": (lm, "bwd_launches"),
             "flash_attention": (fa, "launches"),
             "flash_decode": (fd, "launches"),
+            "flash_decode_paged": (fd, "paged_launches"),
             "lora_bgmv_rows": (bg, "rows_launches"),
             "lora_bgmv_seq": (bg, "seq_launches")}
 
@@ -184,15 +185,34 @@ def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
     qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).expand(B)
     kp = torch.as_tensor(kv_pos, device=q.device).to(torch.int32) \
         .expand(B, T)
-    if prefix_k is not None:
-        if prefix_k.dim() == 3:
-            prefix_k = prefix_k[None].expand(B, *prefix_k.shape)
-            prefix_v = prefix_v[None].expand(B, *prefix_v.shape)
-        n_p = prefix_k.shape[1]
-        k = torch.cat([prefix_k.to(k.dtype), k], dim=1)
-        v = torch.cat([prefix_v.to(v.dtype), v], dim=1)
-        kp = torch.cat([kp.new_full((B, n_p), -1), kp], dim=1)
+    k, v, kp = fd.with_prefix(k, v, kp, prefix_k, prefix_v)
     return fd.flash_decode(q.contiguous(), k, v, q_pos=qp.contiguous(),
                            kv_pos=kp.contiguous(), window=window,
                            causal=causal, scale=scale,
                            backend=_pick(backend))
+
+
+def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
+                       prefix_v=None, scale: Optional[float] = None,
+                       backend: Optional[str] = None):
+    """One decode token per sequence against a paged block-pool cache.
+
+    q: (B, Hq, D); k_pool, v_pool: (n_blocks, bs, Hkv, D); table:
+    (B, max_blocks) int — row b's logical token ``t`` lives at
+    ``pool[table[b, t // bs], t % bs]``, so positions are implicit and
+    visibility is causal; entries >= n_blocks are the sentinel and clamp
+    into the pool. prefix_k/v: (n_p, Hkv, D) or (B, n_p, Hkv, D)
+    always-visible slots in front. The same function as the reference's
+    ``ops.flash_decode_paged`` with or without a prefix bank; for CUDA
+    tensors it is always the paged kernel (no gather into a dense copy).
+    Returns (B, Hq, D)."""
+    B = q.shape[0]
+    qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).expand(B)
+    if prefix_k is not None:
+        prefix_k = prefix_k.to(k_pool.dtype)
+        prefix_v = prefix_v.to(v_pool.dtype)
+    return fd.flash_decode_paged(q.contiguous(), k_pool, v_pool,
+                                 torch.as_tensor(table, device=q.device),
+                                 q_pos=qp.contiguous(), prefix_k=prefix_k,
+                                 prefix_v=prefix_v, scale=scale,
+                                 backend=_pick(backend))

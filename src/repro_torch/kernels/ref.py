@@ -68,6 +68,36 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for b in range(B)])
 
 
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, table: torch.Tensor, *,
+                           q_pos, prefix_k: Optional[torch.Tensor] = None,
+                           prefix_v: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Naive paged decode attention: gather the block pool, then
+    :func:`decode_attention`. k_pool, v_pool: (n_blocks, bs, Hkv, D);
+    table: (B, max_blocks) — token ``t`` of row ``b`` lives at
+    ``pool[table[b, t // bs], t % bs]``, so positions are the slot indices
+    (causal only); out-of-pool entries clamp into the pool. prefix_k/v:
+    optional (n_p, Hkv, D) or (B, n_p, Hkv, D) slots at position -1.
+    Returns (B, Hq, D) in q.dtype."""
+    nb, bs, Hkv, D = k_pool.shape
+    B, maxb = table.shape
+    tbl = table.long().clamp(0, nb - 1)
+    k = k_pool[tbl].reshape(B, maxb * bs, Hkv, D)
+    v = v_pool[tbl].reshape(B, maxb * bs, Hkv, D)
+    kv_pos = torch.arange(maxb * bs, device=q.device)[None].expand(B, -1)
+    if prefix_k is not None:
+        if prefix_k.dim() == 3:
+            prefix_k = prefix_k[None].expand(B, *prefix_k.shape)
+            prefix_v = prefix_v[None].expand(B, *prefix_v.shape)
+        k = torch.cat([prefix_k.to(k.dtype), k], 1)
+        v = torch.cat([prefix_v.to(v.dtype), v], 1)
+        kv_pos = torch.cat([kv_pos.new_full((B, prefix_k.shape[1]), -1),
+                            kv_pos], 1)
+    return decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                            causal=True, scale=scale)
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scale: float,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:

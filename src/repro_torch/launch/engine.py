@@ -30,7 +30,19 @@ A drain is token for token the same as serving each request alone.
 rides the wave as per-row ``adapter_ids`` into the multi-LoRA kernels.
 ``bank.stacked`` is re-read at every prefill, refill and segment, so a
 publish between drains (or between segments) is served by the very next
-dispatch. The speculative, paged and mesh modes are later slices.
+dispatch.
+
+**Paged serving** (``paged=PagedSpec(...)``): the per-slot dense cache is
+replaced by a device block pool and per-row block tables
+(``models/attention.py``), kept by a host-side refcounted allocator
+(``core/paged.py``). Admission is block-gated FIFO; with
+``share_prefix`` a request whose prompt prefix is cached acquires the
+shared blocks and prefills only its suffix. The pool and allocator persist
+across drains, so a later drain's matching prompt revives freed blocks.
+
+:meth:`DecodeEngine.serve_trace` admits a timed arrival trace as its
+timestamps come due, paged or dense. The speculative and mesh modes are
+later slices.
 """
 from __future__ import annotations
 
@@ -44,9 +56,11 @@ import torch
 
 from repro_torch.core import telemetry
 from repro_torch.core.device import resolve_device, unported
+from repro_torch.core.paged import BlockAllocator, PagedSpec
 from repro_torch.core.telemetry import Histogram, Telemetry
 from repro_torch.models import model as M
-from repro_torch.models.transformer import groups_for
+from repro_torch.models.params import init_from_spec
+from repro_torch.models.transformer import groups_for, paged_subs
 
 
 def _pow2ceil(n: int) -> int:
@@ -111,6 +125,20 @@ class EngineStats:
     queue_hist: Optional[dict] = None      # queue wait (s)
     tok_latency_hist: Optional[dict] = None  # per-token decode latency (s)
     sla_stats: Optional[dict] = None       # per service class
+    # paged serving (DecodeEngine(paged=PagedSpec(...))):
+    pool_block_size: int = 0           # tokens per pool block (0 = dense)
+    pool_peak_blocks: int = 0          # most blocks referenced at once
+    pool_blocks_alloc: int = 0         # private blocks allocated this drain
+    cache_tokens: int = 0              # prompt + budget tokens placed in new
+                                       # blocks (a shared prefix counts once)
+    prefix_hits: int = 0               # admissions that matched a cached prefix
+    prefix_hit_tokens: int = 0         # prompt tokens served from shared blocks
+
+    @property
+    def pool_occupancy(self) -> float:
+        """Paged: useful tokens per allocated pool-block token."""
+        denom = self.pool_blocks_alloc * self.pool_block_size
+        return self.cache_tokens / denom if denom else 0.0
 
     @property
     def tok_per_s(self) -> float:
@@ -128,11 +156,15 @@ class DecodeEngine:
 
     def __init__(self, cfg, *, slots: int = 8, greedy: bool = True,
                  seed: int = 0, bank=None, mesh=None, spec=None,
-                 tel: Optional[Telemetry] = None, paged=None, device=None):
+                 tel: Optional[Telemetry] = None,
+                 paged: Optional[PagedSpec] = None, device=None):
+        if paged is not None and spec is not None:
+            raise ValueError(
+                "paged serving composes with plain decode only "
+                "(speculative verify reads the dense slot layout)")
         for name, val, item in (
-                ("spec=", spec, "slice 6, ssm family and speculative "
+                ("spec=", spec, "slice 5, ssm family and speculative "
                                 "decoding"),
-                ("paged=", paged, "slice 5, paged engine"),
                 ("mesh=", mesh, "later, multi-GPU sharding")):
             if val is not None:
                 raise unported(f"DecodeEngine({name}...)", item)
@@ -143,6 +175,26 @@ class DecodeEngine:
         self.bank = bank                   # Optional[AdapterBank]
         self.tel = tel
         self.device = resolve_device(device)
+        # paged serving: a device block pool + per-row tables, kept by a
+        # host-side allocator; both persist across drains (a freed block
+        # keeps its prefix hash on the LRU free list)
+        self.paged = paged
+        self._pool: Optional[dict] = None
+        self._alloc: Optional[BlockAllocator] = None
+        self._psubs: list[tuple[str, str]] = []
+        self._slot_blocks: list[Optional[dict]] = [None] * slots
+        self._arrivals: deque = deque()    # serve_trace timed admissions
+        self._trace_t0 = 0.0
+        if paged is not None:
+            self._psubs = paged_subs(cfg)
+            if paged.share_prefix:
+                n_subs = sum(len(kinds) for _, kinds, _ in groups_for(cfg))
+                if len(self._psubs) != n_subs or not self._psubs:
+                    raise ValueError(
+                        "share_prefix requires a fully paged stack (every "
+                        "sub-layer full-window attention): suffix-only "
+                        "prefill has no partial-stack path")
+            self._alloc = BlockAllocator(paged.n_blocks, paged.block_size)
         self.slot_table = [Slot() for _ in range(slots)]
         self._queue: deque[Request] = deque()
         self._uid = 0
@@ -172,6 +224,14 @@ class DecodeEngine:
         if deadline_s is not None and deadline_s < 0:
             raise ValueError(
                 f"submit: deadline_s must be >= 0, got {deadline_s}")
+        if self.paged is not None:
+            need = -(-(tokens.size + int(max_new_tokens))
+                     // self.paged.block_size)
+            if need > self.paged.n_blocks:
+                raise ValueError(
+                    f"submit: request needs {need} pool blocks but the "
+                    f"pool only has {self.paged.n_blocks}: it could never "
+                    "be admitted")
         if domain is not None:
             if self.bank is None:
                 raise ValueError("submit(domain=...) requires an engine "
@@ -204,15 +264,75 @@ class DecodeEngine:
 
     def _fill_slots(self) -> list[tuple[int, Request]]:
         """Assign queued requests to free slots FIFO (no length bucketing).
-        Returns [(slot_index, request)] for the rows to (re-)prefill."""
+        Returns [(slot_index, request)] for the rows to (re-)prefill.
+
+        Paged admission is block-gated: the head request's blocks must all
+        be reservable now, else packing stops head-of-line until a
+        retirement frees blocks."""
         packed: list[tuple[int, Request]] = []
         for i, slot in enumerate(self.slot_table):
             if slot.active or not self._queue:
                 continue
+            if self.paged is not None:
+                plan = self._plan_blocks(self._queue[0])
+                if plan is None:
+                    break                     # pool full: wait for a retire
+                self._slot_blocks[i] = plan
             req = self._queue.popleft()
             slot.assign(req)
             packed.append((i, req))
         return packed
+
+    def _plan_blocks(self, req: Request) -> Optional[dict]:
+        """Reserve one request's pool blocks, or None if they do not fit.
+
+        ``shared`` are prefix-cache hits (acquired, never written);
+        ``owned`` are fresh private blocks for the prompt tail and the
+        budget. The match is capped at (len - 1) // bs blocks so that every
+        row keeps a private suffix token to produce its first logits."""
+        ps, alloc = self.paged, self._alloc
+        total = -(-(len(req.tokens) + req.max_new_tokens) // ps.block_size)
+        shared: list[int] = []
+        if ps.share_prefix:
+            ids, _ = alloc.match_prefix(req.tokens)
+            shared = ids[:min(len(ids), (len(req.tokens) - 1)
+                              // ps.block_size)]
+        need = total - len(shared)
+        # reviving a dead (rc 0) shared block takes a free-list slot too
+        revive = sum(1 for b in shared if alloc.refcount[b] == 0)
+        if need + revive > alloc.free_blocks:
+            return None
+        for b in shared:
+            alloc.acquire(b)
+        owned = alloc.alloc(need) if need else []
+        # a full-prefill row publishes its prompt blocks at plan time, so a
+        # same-wave sibling already matches them (the sibling's suffix pass
+        # runs after the prefill that fills them); hit rows stay private
+        if ps.share_prefix and not shared:
+            alloc.register(req.tokens, owned)
+        return {"owned": owned, "shared": shared}
+
+    def _ensure_pool(self) -> None:
+        """Make the persistent device block pool (zeros) on first use: one
+        (L, n_blocks, bs, Hkv, D) k/v pair per eligible sub-layer."""
+        if self._pool is not None:
+            return
+        ps = self.paged
+        spec = M.cache_spec(self.cfg, 1, ps.block_size,
+                            paged=(ps.n_blocks, ps.block_size))
+        gen = torch.Generator(device=self.device)
+        self._pool = {}
+        for g, s in self._psubs:
+            sub = spec[g][s]
+            self._pool.setdefault(g, {})[s] = init_from_spec(
+                gen, {"k": sub["k"], "v": sub["v"]}, self.device)
+
+    def _admit_due(self) -> None:
+        """serve_trace: submit every arrival whose timestamp has passed."""
+        while self._arrivals and \
+                time.perf_counter() - self._trace_t0 >= self._arrivals[0][0]:
+            _, tokens, gen, kw = self._arrivals.popleft()
+            self.submit(tokens, gen, **kw)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -229,22 +349,31 @@ class DecodeEngine:
         Returns (completions, stats)."""
         stats = EngineStats()
         out: list[Completion] = []
-        if not self._queue:
+        if not self._queue and not self._arrivals:
             return out, stats
         tel = self._telemetry()
         h_ttft, h_queue, h_tok = Histogram(), Histogram(), Histogram()
         sla_acc: dict[str, dict] = {}
         t_all = time.perf_counter()
         # one cache capacity per drain keeps every refill shape-stable
-        cap = _pow2ceil(max(len(r.tokens) + r.max_new_tokens
-                            for r in self._queue))
+        # (timed arrivals not yet submitted join this drain too)
+        cap = _pow2ceil(max(
+            [len(r.tokens) + r.max_new_tokens for r in self._queue]
+            + [e[1].size + e[2] for e in self._arrivals]))
+        bs_ = maxb = 0
+        if self.paged is not None:
+            bs_ = self.paged.block_size
+            cap = max(cap, bs_)            # pow2 cap >= pow2 bs divides evenly
+            maxb = cap // bs_
+            self._ensure_pool()
+            stats.pool_block_size = bs_
         B = self.slots
         slot_req: list[Optional[Request]] = [None] * B
         slot_wave = [0] * B
         bufs: list[list[np.ndarray]] = [[] for _ in range(B)]
         remaining = np.zeros(B, np.int64)
         tok = caches = pos = None
-        tenant = self._queue[0].domain is not None
+        tenant = bool(self._queue) and self._queue[0].domain is not None
         ids = None                         # (B,) adapter slot ids of the wave
         cur_dom: list[Optional[str]] = [None] * B
         t_admit = [0.0] * B
@@ -282,6 +411,11 @@ class DecodeEngine:
                 if timed_out:
                     acc["miss"] += 1
                     tel.count(f"engine.deadline_miss.{req.sla}")
+            if self.paged is not None and self._slot_blocks[i] is not None:
+                pb = self._slot_blocks[i]
+                self._alloc.free(pb["owned"] + pb["shared"])
+                self._slot_blocks[i] = None
+                tel.gauge("engine.pool_blocks_used", self._alloc.used_blocks)
             tel.count("engine.retired")
             tel.record_span("engine.request", req.t_submit, now,
                             uid=req.uid, wave=slot_wave[i],
@@ -294,10 +428,22 @@ class DecodeEngine:
 
         drain = tel.span("engine.drain", slots=B, queued=len(self._queue))
         drain.__enter__()
-        while self._queue or remaining.any():
+        while self._queue or remaining.any() or self._arrivals:
+            self._admit_due()
+            if not self._queue and not remaining.any():
+                # arrival-driven drain with nothing live: sleep toward the
+                # next arrival (capped, so a deadline sweep never starves)
+                dt = self._trace_t0 + self._arrivals[0][0] \
+                    - time.perf_counter()
+                if dt > 0:
+                    time.sleep(min(dt, 0.025))
+                continue
             packed = self._fill_slots()
             if packed:
                 stats.waves += 1
+                # a drain admitted from a timed trace learns its tenancy
+                # from its first packed wave
+                tenant = packed[0][1].domain is not None
                 t_adm = time.perf_counter()
                 for i, req in packed:
                     slot_req[i], slot_wave[i] = req, stats.waves - 1
@@ -306,6 +452,25 @@ class DecodeEngine:
                     t_admit[i], t_first[i] = t_adm, None
                     h_queue.record(t_adm - req.t_submit)
                     tel.observe("engine.queue_s", t_adm - req.t_submit)
+                    if self.paged is not None:
+                        nshared = len(self._slot_blocks[i]["shared"])
+                        stats.pool_blocks_alloc += len(
+                            self._slot_blocks[i]["owned"])
+                        stats.cache_tokens += (len(req.tokens)
+                                               + req.max_new_tokens
+                                               - nshared * bs_)
+                        if nshared:
+                            stats.prefix_hits += 1
+                            stats.prefix_hit_tokens += nshared * bs_
+                            tel.count("engine.prefix_hits")
+                if self.paged is not None:
+                    stats.pool_peak_blocks = max(stats.pool_peak_blocks,
+                                                 self._alloc.used_blocks)
+                    tel.gauge("engine.pool_blocks_used",
+                              self._alloc.used_blocks)
+                    tel.gauge("engine.pool_blocks_shared",
+                              sum(1 for rc in self._alloc.refcount
+                                  if rc > 1))
                 if tenant:
                     # full-wave ids for the segments, recomputed at every
                     # packing; a slot that never filled takes the first
@@ -316,7 +481,11 @@ class DecodeEngine:
                          else cur_dom[live[0]] for i in range(B)])
                 wp = self._wave_params(params, tenant)
                 S_pad = _pow2ceil(max(len(req.tokens) for _, req in packed))
-                if caches is None:
+                if self.paged is not None:
+                    tok, caches, pos = self._paged_admit(
+                        wp, packed, tenant, ids, tok, caches, pos, S_pad,
+                        maxb, stats.waves - 1, tel)
+                elif caches is None:
                     # initial wave prefill: all B slots (empty slots carry
                     # 1-token dummies and retire immediately)
                     prompts = np.zeros((B, S_pad), np.int32)
@@ -333,19 +502,8 @@ class DecodeEngine:
                 else:
                     # in-wave refill: prefill only the admitted rows
                     # (pow2-padded row count) into their slots
-                    Br = min(_pow2ceil(len(packed)), _pow2ceil(B))
-                    prompts = np.zeros((Br, S_pad), np.int32)
-                    lens = np.ones(Br, np.int32)
-                    row_idx = np.full(Br, B, np.int32)   # pad rows: dropped
-                    for r, (i, req) in enumerate(packed):
-                        prompts[r, :len(req.tokens)] = req.tokens
-                        lens[r] = len(req.tokens)
-                        row_idx[r] = i
-                    ids_rows = None
-                    if tenant:             # pad rows take the first row's
-                        rdom = [req.domain for _, req in packed]
-                        rdom += [rdom[0]] * (Br - len(packed))
-                        ids_rows = self.bank.adapter_ids(rdom)
+                    prompts, lens, row_idx, ids_rows = self._refill_rows(
+                        packed, S_pad, tenant)
                     with tel.span("engine.refill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
                         tok, caches, pos = M.refill(
@@ -416,6 +574,105 @@ class DecodeEngine:
         drain.__exit__(None, None, None)
         return out, stats
 
+    def _refill_rows(self, rows: list, S_pad: int, tenant: bool):
+        """Host arrays of an in-wave refill batch: prompts, lengths and the
+        wave slot of each row, padded to a power-of-two row count (a pad
+        row's slot index is the wave width and it lands nowhere), and the
+        rows' adapter ids (pad rows take the first row's domain)."""
+        B = self.slots
+        Br = min(_pow2ceil(len(rows)), _pow2ceil(B))
+        prompts = np.zeros((Br, S_pad), np.int32)
+        lens = np.ones(Br, np.int32)
+        row_idx = np.full(Br, B, np.int32)
+        for r, (i, req) in enumerate(rows):
+            prompts[r, :len(req.tokens)] = req.tokens
+            lens[r] = len(req.tokens)
+            row_idx[r] = i
+        ids_rows = None
+        if tenant:
+            rdom = [req.domain for _, req in rows]
+            ids_rows = self.bank.adapter_ids(
+                rdom + [rdom[0]] * (Br - len(rows)))
+        return prompts, lens, row_idx, ids_rows
+
+    def _table_row(self, i: int, maxb: int) -> np.ndarray:
+        """Slot i's block table: shared blocks, then owned ones, then the
+        ``n_blocks`` sentinel."""
+        pb = self._slot_blocks[i]
+        row = np.full(maxb, self.paged.n_blocks, np.int32)
+        ids_b = pb["shared"] + pb["owned"]
+        row[:len(ids_b)] = ids_b
+        return row
+
+    def _paged_admit(self, wp, packed, tenant, ids, tok, caches, pos,
+                     S_pad, maxb, wave, tel):
+        """Admit a packed wave into the paged cache: full-prefill rows go
+        through a dense prefill whose K/V commit into the pool (the initial
+        wave prefill, or an in-wave refill); prefix-hit rows skip it and
+        run only their suffix (:func:`model.paged_suffix`), so shared
+        blocks are never prefilled or written again."""
+        B, bs_, nb_ = self.slots, self.paged.block_size, self.paged.n_blocks
+        full_p = [(i, r) for i, r in packed
+                  if not self._slot_blocks[i]["shared"]]
+        hit_p = [(i, r) for i, r in packed if self._slot_blocks[i]["shared"]]
+        if caches is None:
+            # all B slots; empty and hit slots carry 1-token dummies with
+            # all-sentinel tables (they commit nothing)
+            prompts = np.zeros((B, S_pad), np.int32)
+            lens = np.ones(B, np.int32)
+            tables = np.full((B, maxb), nb_, np.int32)
+            for i, req in full_p:
+                prompts[i, :len(req.tokens)] = req.tokens
+                lens[i] = len(req.tokens)
+                tables[i] = self._table_row(i, maxb)
+            with tel.span("engine.prefill", wave=wave, rows=len(full_p),
+                          seq=S_pad, paged=True):
+                tok, caches, pos = M.paged_wave_prefill(
+                    wp, self.cfg, {"tokens": self._tensor(prompts)},
+                    self._tensor(lens), self._tensor(tables), self._pool,
+                    ids)
+        elif full_p:
+            prompts, lens, row_idx, ids_rows = self._refill_rows(
+                full_p, S_pad, tenant)
+            tables = np.full((len(row_idx), maxb), nb_, np.int32)
+            for r, (i, _) in enumerate(full_p):
+                tables[r] = self._table_row(i, maxb)
+            with tel.span("engine.refill", wave=wave, rows=len(full_p),
+                          seq=S_pad, paged=True):
+                tok, caches, pos = M.paged_refill(
+                    wp, self.cfg, {"tokens": self._tensor(prompts)},
+                    self._tensor(lens), row_idx, self._tensor(tables), tok,
+                    caches, pos, ids_rows)
+        if hit_p:
+            Br = min(_pow2ceil(len(hit_p)), _pow2ceil(B))
+            W = _pow2ceil(max(len(r.tokens)
+                              - len(self._slot_blocks[i]["shared"]) * bs_
+                              for i, r in hit_p))
+            suf = np.zeros((Br, W), np.int32)
+            slens = np.zeros(Br, np.int32)
+            starts = np.zeros(Br, np.int32)
+            row_idx = np.full(Br, B, np.int32)
+            tables = np.full((Br, maxb), nb_, np.int32)
+            for r, (i, req) in enumerate(hit_p):
+                st = len(self._slot_blocks[i]["shared"]) * bs_
+                tail = req.tokens[st:]
+                suf[r, :len(tail)] = tail
+                slens[r], starts[r] = len(tail), st
+                row_idx[r] = i
+                tables[r] = self._table_row(i, maxb)
+            ids_rows = None
+            if tenant:
+                rdom = [req.domain for _, req in hit_p]
+                ids_rows = self.bank.adapter_ids(
+                    rdom + [rdom[0]] * (Br - len(hit_p)))
+            with tel.span("engine.suffix", wave=wave, rows=len(hit_p),
+                          seq=W):
+                tok, caches, pos = M.paged_suffix(
+                    wp, self.cfg, self._tensor(suf), self._tensor(slens),
+                    self._tensor(starts), row_idx, self._tensor(tables),
+                    tok, caches, pos, ids_rows)
+        return tok, caches, pos
+
     def serve(self, params, prompts, *, gen: int,
               domains: Optional[list] = None
               ) -> tuple[np.ndarray, EngineStats]:
@@ -432,3 +689,24 @@ class DecodeEngine:
         comps, stats = self.run(params)
         by_uid = {c.uid: c.tokens for c in comps}
         return np.stack([by_uid[u] for u in uids]), stats
+
+    def serve_trace(self, params, trace
+                    ) -> tuple[list[Completion], EngineStats]:
+        """Serve a timed arrival trace with arrival-driven admission.
+
+        ``trace`` holds ``(t_s, tokens, gen)`` or ``(t_s, tokens, gen,
+        submit_kwargs)`` arrivals, ``t_s`` the offset in seconds from the
+        drain's start. A request is submitted only when its timestamp comes
+        due inside the running drain, so queue wait and TTFT measure the
+        engine under the offered load (and, paged, a burst beyond the
+        pool's capacity queues head-of-line until blocks free). Returns
+        (completions, stats) like :meth:`run`."""
+        ev = sorted(((float(e[0]), np.asarray(e[1], np.int32), int(e[2]),
+                      dict(e[3]) if len(e) > 3 else {}) for e in trace),
+                    key=lambda e: e[0])
+        self._arrivals = deque(ev)
+        self._trace_t0 = time.perf_counter()
+        try:
+            return self.run(params)
+        finally:
+            self._arrivals = deque()

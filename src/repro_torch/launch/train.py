@@ -21,9 +21,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.core import hfsl, telemetry
-from repro_torch.core.device import resolve_device, unported
+from repro_torch.core.device import resolve_device
 from repro_torch.core.peft import trainable_fraction, tree_bytes
 from repro_torch.data.noniid import partition_by_classes
 from repro_torch.data.pipeline import BatchBank, cluster_batches
@@ -74,7 +75,9 @@ def main(argv=None):
                     help="checkpoint the per-layer forward (lm task, scan "
                          "impl): long-sequence activation memory relief")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="write the consensus adapters here at the end "
+                         "(adapter-only npz checkpoint)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
@@ -85,9 +88,6 @@ def main(argv=None):
                     help="enable telemetry and write the counter/histogram "
                          "snapshot as JSON here")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise unported("--ckpt (adapter checkpoints, checkpoint/io.py)",
-                       "slice 4")
     dev = resolve_device(args.device)
 
     if args.trace_out or args.metrics_out:
@@ -172,6 +172,11 @@ def main(argv=None):
             tel.export_metrics(args.metrics_out)
             print(f"[train] wrote metrics snapshot to {args.metrics_out}")
         print(tel.report())
+
+    if args.ckpt:
+        params = hfsl.consensus_params(state)
+        nb = ckpt_io.save_adapters(args.ckpt, params)
+        print(f"[train] adapter-only checkpoint: {nb} bytes -> {args.ckpt}")
     return state
 
 

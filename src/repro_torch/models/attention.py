@@ -1,5 +1,5 @@
 """GQA attention with prefix-KV prompts, LoRA, sliding window and KV
-caching: the dense parts of ``repro/models/attention.py``.
+caching, dense and paged: the decoder parts of ``repro/models/attention.py``.
 
 Each layer owns ``n_p`` learned prefix key/value slots, visible to every
 query and carrying no rotary phase (position < 0 in the masking rules of
@@ -8,12 +8,20 @@ query and carrying no rotary phase (position < 0 in the masking rules of
 - prefill: full-sequence flash attention (``kernels/ops.py``), which also
   builds the layer's KV cache (a rolling buffer for the sliding variant);
 - decode: single-token flash decode against the cache, after writing the
-  token's K/V at slot ``pos`` (``pos % window`` for sliding).
+  token's K/V at slot ``pos`` (``pos % window`` for sliding). A paged
+  cache (``{'k', 'v'}`` block pools (n_blocks, bs, Hkv, D) and a
+  ``'table'`` (B, max_blocks)) is recognised by its ``table`` leaf: the
+  write goes through the table and the attention is the paged kernel,
+  prefix slots included;
+- :func:`attention_chunk_paged`: a prefix-cache hit's suffix chunk against
+  a paged cache (plain torch GQA, as the reference's is plain ``jnp``).
 
-Decode writes the cache IN PLACE (the reference returns a new array):
-a retired row (``active`` false) or a slot past the buffer writes back
-the value already there, which is the port's form of the reference's
-out-of-bounds ``mode="drop"`` scatter.
+Caches are written IN PLACE (the reference returns new arrays). A write
+the reference drops with an out-of-bounds ``mode="drop"`` scatter (a
+retired row, a slot past the buffer, a sentinel table entry, a pad token)
+writes back a value already there instead: the dense cache rewrites the
+row's own slot, and the paged pool repeats another write of the same call
+(:func:`paged_write`), so the pool keeps the reference's shape.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamSpec
@@ -187,12 +196,13 @@ def attention_decode(params: dict, adapters: Optional[dict],
                      pos: torch.Tensor, window: int = 0,
                      active: Optional[torch.Tensor] = None,
                      adapter_ids: Optional[torch.Tensor] = None):
-    """x: (B, 1, d). cache: {'k', 'v', 'pos'} of one layer, updated in
-    place. ``pos`` (B,): each row writes its own slot ``pos[b]``
-    (``pos[b] % window`` for sliding), so one wave mixes rows at different
-    positions. ``active`` (B,) bool retires rows: a retired row's slot is
-    left as it was. ``adapter_ids`` (B,) selects each row's adapters from
-    stacked (n_slots, ...) leaves. Returns (out (B, 1, d), cache)."""
+    """x: (B, 1, d). cache: {'k', 'v', 'pos'} of one layer, or a paged
+    {'k', 'v', 'table'}, updated in place. ``pos`` (B,): each row writes
+    its own slot ``pos[b]`` (``pos[b] % window`` for sliding; through the
+    table when paged), so one wave mixes rows at different positions.
+    ``active`` (B,) bool retires rows: a retired row's slot is left as it
+    was. ``adapter_ids`` (B,) selects each row's adapters from stacked
+    (n_slots, ...) leaves. Returns (out (B, 1, d), cache)."""
     B = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     lora = (adapters or {}).get("lora", {})
@@ -209,18 +219,30 @@ def attention_decode(params: dict, adapters: Optional[dict],
                adapter_ids)
     v1 = v1.reshape(B, 1, nkv, hd)
 
-    T = cache["k"].shape[1]
-    slot = (pos % window) if window and window > 0 else pos
-    keep = slot < T
-    if active is not None:
-        keep = keep & active
-    slot = slot.clamp(max=T - 1)
-    rows = torch.arange(B, device=x.device)
-    for name, new in (("k", k1[:, 0]), ("v", v1[:, 0]), ("pos", pos)):
-        buf = cache[name]
-        old = buf[rows, slot]
-        mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
-        buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
+    if "table" in cache:
+        # row b's token goes to (table[b, pos // bs], pos % bs); retired
+        # rows and sentinel table entries write nothing
+        nb, bs = cache["k"].shape[0], cache["k"].shape[1]
+        blk, off = _table_slots(cache["table"], pos[:, None], bs)
+        blk, off = blk[:, 0], off[:, 0]
+        keep = blk < nb
+        if active is not None:
+            keep = keep & active
+        paged_write(cache["k"], blk, off, k1[:, 0], keep)
+        paged_write(cache["v"], blk, off, v1[:, 0], keep)
+    else:
+        T = cache["k"].shape[1]
+        slot = (pos % window) if window and window > 0 else pos
+        keep = slot < T
+        if active is not None:
+            keep = keep & active
+        slot = slot.clamp(max=T - 1)
+        rows = torch.arange(B, device=x.device)
+        for name, new in (("k", k1[:, 0]), ("v", v1[:, 0]), ("pos", pos)):
+            buf = cache[name]
+            old = buf[rows, slot]
+            mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
+            buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
 
     pfx = (adapters or {}).get("prefix")
     pfx_k = pfx_v = None
@@ -229,24 +251,134 @@ def attention_decode(params: dict, adapters: Optional[dict],
             pfx_k, pfx_v = _prefix_slots(pfx, B, adapter_ids)
         else:
             pfx_k, pfx_v = pfx["k"], pfx["v"]
-    o = kops.flash_decode(
-        q[:, 0], cache["k"], cache["v"], q_pos=pos, kv_pos=cache["pos"],
-        prefix_k=pfx_k, prefix_v=pfx_v, window=window, causal=True)
+    if "table" in cache:
+        o = kops.flash_decode_paged(
+            q[:, 0], cache["k"], cache["v"], cache["table"], q_pos=pos,
+            prefix_k=pfx_k, prefix_v=pfx_v)
+    else:
+        o = kops.flash_decode(
+            q[:, 0], cache["k"], cache["v"], q_pos=pos, kv_pos=cache["pos"],
+            prefix_k=pfx_k, prefix_v=pfx_v, window=window, causal=True)
     o = o.reshape(B, 1, nh * hd).to(x.dtype)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
 
 
+def paged_write(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+                new: torch.Tensor, keep: torch.Tensor) -> None:
+    """``pool[..., blk[i], off[i]] = new[..., i]`` for every i with
+    ``keep[i]``, in place. pool: (..., n_blocks, bs, Hkv, D); new:
+    (..., N, Hkv, D); blk, off, keep: (N,).
+
+    The reference drops the other writes (an out-of-bounds index). Here a
+    dropped write repeats the first kept write, index and value (or, with
+    none kept, rewrites the value already at its own slot), so duplicate
+    indices always carry equal values: the scatter is deterministic, needs
+    no extra block and reads nothing back to the host. Kept writes must
+    hit distinct slots (the allocator never shares a row's tail block)."""
+    nb, bs = pool.shape[-4], pool.shape[-3]
+    d = pool.dim() - 4                             # leading (layer) dims
+    flat = pool.view(*pool.shape[:d], nb * bs, *pool.shape[-2:])
+    slot = blk.long().clamp(0, nb - 1) * bs + off.long()
+    j = keep.to(torch.int32).argmax().reshape(1)   # first kept, else 0
+    slot_j = slot.index_select(0, j)
+    src_j = torch.where(keep.index_select(0, j).reshape(1, 1, 1),
+                        new.index_select(d, j).to(pool.dtype),
+                        flat.index_select(d, slot_j))
+    vals = torch.where(keep.reshape(-1, 1, 1), new.to(pool.dtype), src_j)
+    flat.index_copy_(d, torch.where(keep, slot, slot_j), vals)
+
+
+def _table_slots(table: torch.Tensor, qpos: torch.Tensor, bs: int):
+    """(block, offset) of positions ``qpos`` (B, W) through ``table``
+    (B, maxb); a position past the table reads its last entry."""
+    col = (qpos // bs).clamp(0, table.shape[1] - 1)
+    return table.long().gather(1, col), qpos % bs
+
+
+def attention_chunk_paged(params: dict, adapters: Optional[dict],
+                          x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
+                          start: torch.Tensor, valid: torch.Tensor,
+                          adapter_ids: Optional[torch.Tensor] = None):
+    """Chunked continuation prefill against a paged cache (prefix sharing).
+
+    A prefix-cache hit row runs only its private suffix through the stack:
+    x (B, W, d), row b's chunk at positions ``start[b] .. start[b]+W-1``,
+    ``valid`` (B, W) marking real suffix tokens. The chunk's K/V go into
+    the row's private blocks through the table (pad tokens write nothing),
+    then every chunk query attends the pool gathered through the table:
+    the shared prefix blocks are read here and never written. W is a
+    suffix, so the attention is plain torch GQA in f32, as the reference's
+    is plain ``jnp``. Returns (out (B, W, d), cache)."""
+    B, W = x.shape[:2]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    lora = (adapters or {}).get("lora", {})
+    ls = _lora_scale(cfg)
+    start = torch.as_tensor(start, device=x.device).to(torch.int64) \
+        .expand(B)
+    qpos = start[:, None] + torch.arange(W, device=x.device)[None, :]
+
+    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
+              adapter_ids).reshape(B, W, nh, hd)
+    k1 = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
+               adapter_ids).reshape(B, W, nkv, hd)
+    v1 = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
+               adapter_ids).reshape(B, W, nkv, hd)
+    q = rope(q, qpos, cfg.rope_theta)
+    k1 = rope(k1, qpos, cfg.rope_theta)
+
+    table = cache["table"]
+    nb, bs = cache["k"].shape[0], cache["k"].shape[1]
+    blk, off = _table_slots(table, qpos, bs)
+    keep = (valid & (blk < nb)).reshape(-1)
+    for name, new in (("k", k1), ("v", v1)):
+        paged_write(cache[name], blk.reshape(-1), off.reshape(-1),
+                    new.reshape(B * W, nkv, hd), keep)
+
+    kg, vg = fd.gather_pool(cache["k"], cache["v"], table)
+    kv_pos = torch.arange(kg.shape[1], device=x.device)[None].expand(B, -1)
+    kp, vp, n_p = _with_prefix(kg, vg, adapters, B, adapter_ids)
+    if n_p:
+        kv_pos = torch.cat([kv_pos.new_full((B, n_p), -1), kv_pos], 1)
+    vis = kv_pos[:, None, :] <= qpos[:, :, None]            # causal
+    vis = vis | (kv_pos[:, None, :] < 0)                    # prefix slots
+    g = nh // nkv
+    qf = q.reshape(B, W, nkv, g, hd).float()
+    scores = torch.einsum("btngd,bsnd->bngts", qf, kp.float()) * hd ** -0.5
+    scores = torch.where(vis[:, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bngts,bsnd->btngd", probs, vp.float())
+    o = o.reshape(B, W, nh * hd).to(x.dtype)
+    y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
+    return y, cache
+
+
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
-               window: int = 0, layers: Optional[int] = None) -> dict:
-    """ParamSpec tree of a layer-stacked dense KV cache, batch at dim 1.
+               window: int = 0, layers: Optional[int] = None,
+               paged: Optional[tuple] = None) -> dict:
+    """ParamSpec tree of a layer-stacked KV cache, batch at dim 1.
 
     The sliding-window cache is a rolling buffer of exactly ``window``
-    slots. ``pos`` is per row (B, S): each row tracks its own slots."""
+    slots. ``pos`` is per row (B, S): each row tracks its own slots.
+
+    ``paged=(n_blocks, block_size)`` gives the paged layout instead
+    (full-window layers only): a layer-stacked block pool ``(L, n_blocks,
+    bs, Hkv, D)`` shared by every row, and per-row block tables
+    ``(L, B, ceil(seq_len / bs))``; no ``pos`` plane, since table slot
+    ``j`` holds positions ``[j*bs, (j+1)*bs)``."""
     L = layers if layers is not None else cfg.n_layers
     nkv, hd = cfg.n_kv_heads, cfg.head_dim_
     S = window if window and window > 0 else seq_len
     dt = param_dtype(cfg)
+    if paged is not None and not (window and window > 0):
+        nb, bs = paged
+        maxb = -(-seq_len // bs)
+        return {
+            "k": ParamSpec((L, nb, bs, nkv, hd), dt, init="zeros"),
+            "v": ParamSpec((L, nb, bs, nkv, hd), dt, init="zeros"),
+            "table": ParamSpec((L, batch, maxb), torch.int32, init="zeros"),
+        }
     return {
         "k": ParamSpec((L, batch, S, nkv, hd), dt, init="zeros"),
         "v": ParamSpec((L, batch, S, nkv, hd), dt, init="zeros"),

@@ -9,10 +9,13 @@ Every entry point takes ``adapter_ids`` (B,) for multi-tenant serving from
 AdapterBank params (``core/adapter_bank.py``), whose adapter leaves carry
 a leading ``n_slots`` dim.
 The reference's jitted fused functions (``_wave_prefill_fn``,
-``_refill_fn``, ``_segment_fn``, ``_generate_fn``) are plain functions
-here (:func:`wave_prefill`, :func:`refill`, :func:`segment`,
-:func:`generate`): PyTorch runs eagerly. Decode updates the caches in
-place.
+``_refill_fn``, ``_segment_fn``, ``_generate_fn``, and the paged
+``_paged_prefill_fn``, ``_paged_refill_fn``, ``_paged_suffix_fn``) are
+plain functions here (:func:`wave_prefill`, :func:`refill`,
+:func:`segment`, :func:`generate`, :func:`paged_wave_prefill`,
+:func:`paged_refill`, :func:`paged_suffix`): PyTorch runs eagerly. Decode
+updates the caches in place, and a paged cache's block pool is the
+engine's persistent pool itself.
 """
 from __future__ import annotations
 
@@ -23,12 +26,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device, unported
-from repro_torch.models.attention import param_dtype
+from repro_torch.models.attention import paged_write, param_dtype
 from repro_torch.models.layers import (cross_entropy, embed, embed_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec, init_from_spec
 from repro_torch.models.transformer import (adapter_stack_spec,
-                                            cache_group_spec, stack_decode,
+                                            cache_group_spec, paged_subs,
+                                            stack_chunk, stack_decode,
                                             stack_seq, stack_spec)
 
 
@@ -67,8 +71,11 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     return init_from_spec(gen, model_spec(cfg), dev)
 
 
-def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    return cache_group_spec(cfg, batch, seq_len)
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
+               paged=None) -> dict:
+    """``paged=(n_blocks, block_size)`` gives the paged layout of the
+    eligible sub-layers (transformer.cache_group_spec)."""
+    return cache_group_spec(cfg, batch, seq_len, paged=paged)
 
 
 def _head(params: dict) -> dict:
@@ -226,9 +233,11 @@ def _decode_steps(params: dict, cfg: ModelConfig, steps: int, greedy: bool,
     return torch.cat(out, dim=1), (tok, caches, pos, remaining)
 
 
-def _prefill_state(params: dict, batch: dict, cfg: ModelConfig, cap: int,
+def _prefill_state(params: dict, batch: dict, cfg: ModelConfig, cap,
                    prompt_lens, adapter_ids=None):
-    """Prefill -> (tok0 (B, 1) int32, caches, pos0 (B,) int32)."""
+    """Prefill -> (tok0 (B, 1) int32, caches, pos0 (B,) int32); the dense
+    caches hold ``cap`` positions (the prompt width when ``cap`` is None,
+    as a paged commit needs no more)."""
     tokens = batch["tokens"]
     logits, caches = prefill(params, batch, cfg, max_len=cap,
                              prompt_lens=prompt_lens,
@@ -266,14 +275,138 @@ def refill(params: dict, cfg: ModelConfig, cap: int, batch: dict,
     ``pos`` are updated in place and returned."""
     tok_n, caches_n, pos_n = _prefill_state(params, batch, cfg, cap,
                                             prompt_lens, adapter_ids)
-    B = tok.shape[0]
-    pairs = [(r, int(i)) for r, i in enumerate(np.asarray(row_idx)) if i < B]
-    src = torch.tensor([r for r, _ in pairs], device=tok.device)
-    dst = torch.tensor([i for _, i in pairs], device=tok.device)
+    src, dst = _pairs(row_idx, tok.shape[0], tok.device)
     for g, grp in caches.items():
         for s, sub in grp.items():
             for leaf, old in sub.items():
                 old[:, dst] = caches_n[g][s][leaf][:, src].to(old.dtype)
+    tok[dst] = tok_n[src]
+    pos[dst] = pos_n[src]
+    return tok, caches, pos
+
+
+def _pairs(row_idx, B: int, device):
+    """(src, dst) index tensors of the batch rows that land in a wave slot
+    (``row_idx`` host ints; a pad row carries an index >= B)."""
+    pairs = [(r, int(i)) for r, i in enumerate(np.asarray(row_idx)) if i < B]
+    return (torch.tensor([r for r, _ in pairs], device=device),
+            torch.tensor([i for _, i in pairs], device=device))
+
+
+# -- paged KV cache (block pool + per-row tables) ---------------------------
+
+def _pool_commit(pool_sub: dict, dense_k, dense_v, tables, lens) -> None:
+    """Write dense prefill K/V of B rows into the block pool, in place.
+
+    pool_sub: {'k', 'v'} pools (L, nb, bs, Hkv, D); dense_k/v: (L, B, S,
+    Hkv, D); tables: (B, maxb) int; lens: (B,) valid lengths. Token ``t``
+    of row ``b`` lands at ``pool[:, tables[b, t // bs], t % bs]``; tokens
+    at or past ``lens[b]`` and sentinel table entries write nothing. The
+    values written are exactly the dense prefill's, which keeps paged
+    drains equal to dense ones."""
+    nb, bs = pool_sub["k"].shape[1], pool_sub["k"].shape[2]
+    L, B, S = dense_k.shape[:3]
+    t = torch.arange(S, device=dense_k.device)
+    blk = tables.long()[:, t // bs]                        # (B, S)
+    keep = (t[None, :] < lens.long()[:, None]) & (blk < nb)
+    off = (t % bs)[None, :].expand(B, S)
+    for name, dense in (("k", dense_k), ("v", dense_v)):
+        paged_write(pool_sub[name], blk.reshape(-1), off.reshape(-1),
+                    dense.reshape(L, B * S, *dense.shape[3:]),
+                    keep.reshape(-1))
+
+
+@torch.no_grad()
+def paged_wave_prefill(params: dict, cfg: ModelConfig, batch: dict,
+                       prompt_lens: torch.Tensor, tables: torch.Tensor,
+                       pool: dict, adapter_ids=None):
+    """Paged wave prefill (the reference's ``_paged_prefill_fn``): the
+    exact dense ragged prefill, then each eligible sub-layer's K/V commit
+    into the persistent block ``pool`` ({group: {sub: {'k', 'v'}}})
+    through the host-built ``tables`` (B, maxb); the paged sub-trees
+    become {'k', 'v', 'table'} over that pool. Returns (tok, caches,
+    pos)."""
+    subs = set(paged_subs(cfg))
+    tok0, dense, pos0 = _prefill_state(params, batch, cfg, None,
+                                       prompt_lens, adapter_ids)
+    caches: dict = {}
+    for g, grp in dense.items():
+        caches[g] = {}
+        for s, c in grp.items():
+            if (g, s) not in subs:
+                caches[g][s] = c
+                continue
+            _pool_commit(pool[g][s], c["k"], c["v"], tables, prompt_lens)
+            L = c["k"].shape[0]
+            caches[g][s] = {"k": pool[g][s]["k"], "v": pool[g][s]["v"],
+                            "table": tables.to(torch.int32)[None].expand(
+                                L, *tables.shape).clone()}
+    return tok0, caches, pos0
+
+
+@torch.no_grad()
+def paged_refill(params: dict, cfg: ModelConfig, batch: dict,
+                 prompt_lens: torch.Tensor, row_idx, tables_rows, tok,
+                 caches: dict, pos, adapter_ids=None):
+    """Paged in-wave refill (the reference's ``_paged_refill_fn``): the
+    admitted rows' K/V commit into the live pool through their fresh
+    tables, the table rows land at ``row_idx`` (host ints, pad rows >=
+    the wave width), and the other sub-layers merge rows as
+    :func:`refill` does. Updated in place and returned."""
+    subs = set(paged_subs(cfg))
+    tok_n, dense_n, pos_n = _prefill_state(params, batch, cfg, None,
+                                           prompt_lens, adapter_ids)
+    src, dst = _pairs(row_idx, tok.shape[0], tok.device)
+    for g, grp in caches.items():
+        for s, old in grp.items():
+            new = dense_n[g][s]
+            if (g, s) in subs:
+                _pool_commit(old, new["k"], new["v"], tables_rows,
+                             prompt_lens)
+                old["table"][:, dst] = tables_rows.to(torch.int32)[src]
+            else:
+                for leaf, t in old.items():
+                    t[:, dst] = new[leaf][:, src].to(t.dtype)
+    tok[dst] = tok_n[src]
+    pos[dst] = pos_n[src]
+    return tok, caches, pos
+
+
+@torch.no_grad()
+def paged_suffix(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 suffix_lens: torch.Tensor, start: torch.Tensor, row_idx,
+                 tables_rows: torch.Tensor, tok, caches: dict, pos,
+                 adapter_ids=None):
+    """Prefix-hit admission (the reference's ``_paged_suffix_fn``): a row
+    whose prompt prefix matched cached blocks runs only its private suffix
+    (tokens (Br, W), right-padded to ``suffix_lens``, starting at
+    ``start``) through :func:`stack_chunk`; its table already maps the
+    shared blocks, which are read and never written. Writes the rows'
+    first decode token, position and table at ``row_idx``, in place."""
+    adapters = params.get("adapters", {}).get("stack", {})
+    Br, W = tokens.shape
+    suffix_lens = suffix_lens.long()
+    valid = torch.arange(W, device=tokens.device)[None, :] \
+        < suffix_lens[:, None]
+    sub = {g: {s: {"k": c["k"], "v": c["v"],
+                   "table": tables_rows.to(torch.int32)[None].expand(
+                       c["k"].shape[0], *tables_rows.shape)}
+               for s, c in grp.items()}
+           for g, grp in caches.items()}
+    x = embed(params["backbone"]["embed"], tokens.long())
+    x, _ = stack_chunk(params["backbone"]["layers"], adapters, x, sub, cfg,
+                       start=start, valid=valid, adapter_ids=adapter_ids)
+    rows = torch.arange(Br, device=x.device)
+    xl = x[rows, (suffix_lens - 1).clamp_min(0)][:, None]
+    xl = rmsnorm(params["backbone"]["final_norm"], xl)
+    logits = unembed(_head(params), xl)
+    tok_n = torch.argmax(logits[:, -1], dim=-1, keepdim=True) \
+        .to(torch.int32)
+    pos_n = (start.long() + suffix_lens).to(pos.dtype)
+    src, dst = _pairs(row_idx, tok.shape[0], tok.device)
+    for g, grp in caches.items():
+        for s, c in grp.items():
+            c["table"][:, dst] = tables_rows.to(torch.int32)[src]
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos

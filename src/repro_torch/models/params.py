@@ -52,6 +52,18 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """``[(path, leaf)]`` in ``tree_leaves`` order; a path is the tuple of
+    dict keys and list indices from the root (``None`` leaves skipped)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_paths(v, prefix + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in tree_paths(v, prefix + (i,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
 def init_leaf(s: ParamSpec, gen: torch.Generator,
               device: torch.device) -> torch.Tensor:
     """Materialise one spec (``scaled`` is the fan-in scaled normal)."""

@@ -21,8 +21,8 @@ from repro_torch.models.params import ParamSpec
 
 # ROADMAP items ("Modules to port") that port the other families
 FAMILY_ITEMS = {
-    "ssm": "slice 6, ssm family and speculative decoding",
-    "hybrid": "slice 7, hybrid family",
+    "ssm": "slice 5, ssm family and speculative decoding",
+    "hybrid": "slice 6, hybrid family",
     "moe": "later, remaining families",
     "vlm": "later, remaining families",
     "audio": "later, remaining families",
@@ -80,13 +80,26 @@ def adapter_stack_spec(cfg: ModelConfig) -> dict:
             for name, kinds, n in groups_for(cfg)}
 
 
-def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Decode-cache spec: {group: {sub_i: layer-stacked cache spec}}."""
+def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
+                     paged=None) -> dict:
+    """Decode-cache spec: {group: {sub_i: layer-stacked cache spec}}.
+    ``paged=(n_blocks, block_size)`` switches the eligible sub-layers
+    (full-window attention, :func:`paged_subs`) to the block-pool layout;
+    sliding-window sub-layers keep their dense per-row layout."""
     return {name: {f"s{i}": attn_mod.cache_spec(
                        cfg, batch, seq_len, window=attn_window(cfg, k),
-                       layers=n)
+                       layers=n, paged=paged)
                    for i, k in enumerate(kinds)}
             for name, kinds, n in groups_for(cfg)}
+
+
+def paged_subs(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """[(group, sub_key)] of the sub-layers eligible for the paged KV
+    layout: full-window (window 0) attention. Sliding-window layers keep
+    their W-slot rolling buffer."""
+    return [(name, f"s{i}") for name, kinds, _ in groups_for(cfg)
+            for i, k in enumerate(kinds)
+            if k == "attn" and not attn_window(cfg, k)]
 
 
 def _layer_adapters(adapters: dict, name: str, n: int) -> list:
@@ -159,6 +172,33 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                     p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
                     window=attn_window(cfg, k), active=active,
                     adapter_ids=adapter_ids)
+                x = x + h
+                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    return x, caches
+
+
+def stack_chunk(params: dict, adapters: dict, x: torch.Tensor,
+                caches: dict, cfg: ModelConfig, *, start: torch.Tensor,
+                valid: torch.Tensor, adapter_ids=None):
+    """A length-W suffix chunk through a fully paged stack (prefix
+    sharing): x (B, W, d) embedded suffix, row b at positions
+    ``start[b] .. start[b]+W-1``, ``valid`` (B, W) real tokens. Every
+    sub-layer must hold a paged cache (the engine gates prefix sharing to
+    such configs); the pools are written in place. Returns (x, caches)."""
+    for name, kinds, n in groups_for(cfg):
+        gc = caches[name]
+        for l, (lp, la) in enumerate(zip(params[name],
+                                         _layer_adapters(adapters, name, n))):
+            for i, k in enumerate(kinds):
+                key = f"s{i}"
+                if "table" not in gc[key]:
+                    raise NotImplementedError(
+                        "stack_chunk requires a fully paged attention stack")
+                p, a = lp[key], la.get(key, {})
+                lc = {leaf: t[l] for leaf, t in gc[key].items()}
+                h, _ = attn_mod.attention_chunk_paged(
+                    p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, start=start,
+                    valid=valid, adapter_ids=adapter_ids)
                 x = x + h
                 x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x, caches

@@ -6,7 +6,11 @@ different and repeating, and bit for bit against ``lora_matmul`` per row;
 the adapter-gradient kernel, the autograd ``lora_matmul`` and the
 flash-attention backward on the card against autograd through the plain
 versions, and a reduced HFSL round through the kernels against the same
-round through the plain versions. A CUDA kernel has
+round through the plain versions; the paged decode kernel against its
+plain version (block sizes 4 to 16, sentinel table entries, shared and
+per-row prefix slots) and bit for bit against the dense kernel on the
+gathered layout, and a 2-layer paged drain through the kernels against
+the plain versions and the dense drain. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -374,3 +378,93 @@ def test_hfsl_round_kernels_match_plain(gen):
                     tree_leaves(ps["adapters_c"])):
         assert torch.allclose(a, b, atol=1e-4, rtol=1e-4), \
             (a - b).abs().max().item()
+
+
+def _paged_operands(gen, B, maxb, bs, n_p, Hq, Hkv, D, dtype, per_row):
+    """A random pool with per-row tables of distinct blocks, each row's
+    entries past its q_pos set to the n_blocks sentinel, ragged q_pos."""
+    nb = B * maxb + 3
+    q = randn(gen, B, Hq, D, dtype=dtype)
+    kp = randn(gen, nb, bs, Hkv, D, dtype=dtype)
+    vp = randn(gen, nb, bs, Hkv, D, dtype=dtype)
+    perm = torch.randperm(nb, generator=gen, device="cuda")
+    table = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    qp = torch.randint(0, maxb * bs, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cols = torch.arange(maxb, device="cuda")[None]
+    table = torch.where(cols <= qp[:, None] // bs, table,
+                        torch.full_like(table, nb))
+    pshape = (B, n_p, Hkv, D) if per_row else (n_p, Hkv, D)
+    pk = randn(gen, *pshape, dtype=dtype) if n_p else None
+    pv = randn(gen, *pshape, dtype=dtype) if n_p else None
+    return q, kp, vp, table, qp, pk, pv
+
+
+# (B, maxb, bs, n_prefix, Hq, Hkv, D)
+@pytest.mark.parametrize("case", [(1, 2, 16, 0, 1, 1, 8),
+                                  (2, 4, 8, 4, 4, 2, 32),
+                                  (3, 5, 4, 16, 7, 1, 64),
+                                  (8, 64, 16, 16, 28, 4, 128)])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_paged_kernel(gen, case, per_row, dtype):
+    B, maxb, bs, n_p, Hq, Hkv, D = case
+    q, kp, vp, table, qp, pk, pv = _paged_operands(
+        gen, B, maxb, bs, n_p, Hq, Hkv, D, dtype, per_row)
+    n0 = fd.paged_launches
+    got = ops.flash_decode_paged(q, kp, vp, table, q_pos=qp, prefix_k=pk,
+                                 prefix_v=pv)
+    assert fd.paged_launches == n0 + 1
+    with ops.backend("torch"):
+        want = ops.flash_decode_paged(q, kp, vp, table, q_pos=qp,
+                                      prefix_k=pk, prefix_v=pv)
+    assert fd.paged_launches == n0 + 1
+    close(got, want, dtype)
+    # the same keys through the dense kernel: the same bits
+    k, v = fd.gather_pool(kp, vp, table)
+    slots = torch.arange(k.shape[1], dtype=torch.int32, device="cuda")
+    n1 = fd.launches
+    dense = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=slots, prefix_k=pk,
+                             prefix_v=pv)
+    assert fd.launches == n1 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense), (got.float() - dense.float()).abs().max()
+
+
+def test_paged_drain_on_the_card(gen):
+    """A 2-layer f32 qwen2-7b paged drain with prefix sharing through the
+    kernels equals the same drain through the plain versions and the
+    dense drain, and launches the paged kernel, never the dense one."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2-7b").reduced().with_(dtype="float32")
+    params = M.init(cfg, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 32)
+    reqs = [(np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)]),
+             g) for n, g in ((5, 4), (9, 2), (17, 6), (3, 3), (11, 5))]
+
+    def drain(paged):
+        eng = DecodeEngine(cfg, slots=2, paged=paged, device="cuda")
+        uids = [eng.submit(p, g) for p, g in reqs]
+        comps, stats = eng.run(params)
+        by = {c.uid: c.tokens for c in comps}
+        return [by[u] for u in uids], stats
+
+    spec = PagedSpec(n_blocks=64, block_size=8, share_prefix=True)
+    ops.reset_launch_counts()
+    kern, st = drain(spec)
+    n = ops.launch_counts()
+    assert n["flash_decode_paged"] > 0 and n["flash_decode"] == 0
+    assert st.prefix_hits > 0
+    with ops.backend("torch"):
+        plain, _ = drain(spec)
+    dense, _ = drain(None)
+    for a, b, c in zip(kern, plain, dense):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

@@ -608,13 +608,20 @@ def test_train_cli_runs_on_cpu(impl, capsys):
     assert "fedavg bytes/sync" in capsys.readouterr().out
 
 
-def test_train_cli_scan_equals_loop_and_rejects_ckpt():
+def test_train_cli_scan_equals_loop_and_rejects_ckpt(tmp_path):
+    """Scan and loop give the same adapters; ``--ckpt`` writes the
+    consensus adapters, which load back into the same tree."""
+    from repro_torch.checkpoint import io as ckpt_io
     args = ["--arch", "vit-edge", "--reduced", "--task", "lm", "--clusters",
             "2", "--steps", "2", "--batch", "2", "--seq", "8",
             "--log-every", "2", "--device", "cpu"]
     a = train.main(args + ["--impl", "scan"])
-    b = train.main(args + ["--impl", "loop"])
+    b = train.main(args + ["--impl", "loop",
+                           "--ckpt", str(tmp_path / "ad.npz")])
     for x, y in zip(tree_leaves(a["adapters_c"]), tree_leaves(b["adapters_c"])):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        train.main(args + ["--ckpt", "/dev/null"])
+    params = hfsl.consensus_params(b)
+    back = ckpt_io.load_adapters(str(tmp_path / "ad.npz"), params)
+    for x, y in zip(tree_leaves(back["adapters"]),
+                    tree_leaves(params["adapters"])):
+        assert torch.equal(x, y)

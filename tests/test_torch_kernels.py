@@ -420,17 +420,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                   1.0)
     ops.lora_bgmv(x[None].expand(2, 4, 8), torch.randn(8, 6), a, b,
                   torch.tensor([2, 0]), 1.0)
+    ops.flash_decode_paged(q[0], torch.randn(4, 2, 2, 8),
+                           torch.randn(4, 2, 2, 8),
+                           torch.tensor([[0, 3], [2, 4], [1, 1]]),
+                           q_pos=torch.tensor([3, 1, 0]))
     x.requires_grad_(True)
     ops.lora_matmul(x, torch.randn(8, 6), torch.randn(8, 2),
                     torch.randn(2, 6), 1.0).sum().backward()
     assert ops.launch_counts() == {"lora_matmul": 0, "lora_matmul_bwd": 0,
                                    "flash_attention": 0, "flash_decode": 0,
+                                   "flash_decode_paged": 0,
                                    "lora_bgmv_rows": 0, "lora_bgmv_seq": 0}
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",
                                 "lora_bgmv_rows", "lora_bgmv_seq",
-                                "lora_matmul_bwd"])
+                                "lora_matmul_bwd", "flash_decode_paged"])
 def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
     """backend='cuda' never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -448,6 +453,11 @@ def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
             ops.lora_bgmv(x, torch.randn(8, 6), torch.randn(2, 8, 2),
                           torch.randn(2, 2, 6), torch.zeros(4, dtype=torch.int32),
                           1.0, backend="cuda")
+        elif op == "flash_decode_paged":
+            pool = torch.randn(4, 2, 2, 8)
+            ops.flash_decode_paged(torch.randn(3, 2, 8), pool, pool,
+                                   torch.zeros(3, 2, dtype=torch.int32),
+                                   q_pos=torch.zeros(3), backend="cuda")
         else:
             q = torch.randn(1, 3, 2, 8)
             ops.flash_attention(q, q, q, q_pos=torch.arange(3),
