@@ -77,7 +77,36 @@ Phases, each of which exits nonzero on a failed check:
    size (2 domains, MLCP over a 10-round demand, paged produce rounds)
    runs upgrade and produce rounds through the kernels with no plain
    version; each upgrade publishes, upgraded accuracy holds, and
-   ``save`` / ``restore`` resume the loop.
+   ``save`` / ``restore`` resume the loop;
+16. the selective scan kernel against its plain version at falcon-mamba-7b's
+   prefill shape (B 8, S 512, Di 8192, N 16; bf16 and f32, with and
+   without a per-row initial state, B and C as strided views of the
+   x_proj output), an odd shape (S 37, Di 200), and a ragged case: a
+   right-padded row with dt = 0 must end in the state of the same row run
+   alone at its own length, bit for bit, through the kernel; times beside
+   the plain version and the bound (the exponentials through the
+   special-function units, or the bytes); no library call computes a scan;
+17. falcon-mamba-7b at its published size (64 layers, d 4096, d_inner
+   8192, d_state 16, vocab 65024, untied head, bf16, random weights from
+   the seed) drains phase 4's queue shape through ``DecodeEngine(slots=8)``
+   single-tenant and from a 4-domain ``AdapterBank`` whose domains differ
+   in their state prompts: ``selective_scan`` must launch 64 times per
+   prefill or refill and no attention or LoRA kernel at all; a mixed
+   prefill must agree with per-domain prefills (same top-1) and the
+   domains must give different tokens;
+18. ssm exactness, a 2-layer full-width f32 falcon-mamba-7b: the kernel
+   drain gives the plain drain's tokens and each solo row's, and a mixed
+   bank drain gives the per-domain drains' tokens;
+19. speculative serving of phase 4's qwen2-7b and queue with the default
+   recurrent drafter (d_model 64, 2 layers) and k = 4, inside phase 4:
+   tokens against phase 4's drain (recorded: bf16 verify and decode round
+   differently), drafted, acceptance, tok/s; ``selective_scan`` launches
+   for the drafter, ``flash_decode`` never;
+20. speculative exactness: 2-layer f32 qwen2-7b (inside phase 6) and
+   falcon-mamba-7b (inside phase 18) spec drains, with rows opted out,
+   give the plain drains' tokens; falcon-mamba-7b as its own drafter
+   accepts every draft; the vit-edge ``IntegratedRuntime(spec_k=4)`` runs
+   phase 15's 10 rounds and books drafted and accepted tokens.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -112,11 +141,20 @@ REPLACES = {
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:149",
     "lora_bgmv_rows": "src/repro/kernels/lora_bgmv.py:91",
     "lora_bgmv_seq": "src/repro/kernels/lora_bgmv.py:168",
+    "selective_scan": "src/repro/kernels/selective_scan.py:56",
 }
 N_DOMAINS = 4
 # the path whose launches a kernel's record reports
 PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
-           "lora_matmul_bwd": "train", "flash_decode_paged": "paged"}
+           "lora_matmul_bwd": "train", "flash_decode_paged": "paged",
+           "selective_scan": "mamba"}
+# exponentials per second through the special-function units: 16 per
+# clock per SM (compute capability 9.0) x 132 SMs x 1,980 MHz (H100 SXM
+# boost clock)
+PEAK_EXP = 16 * 132 * 1.98e9
+# kernels of the attention and LoRA paths, none of which an ssm model runs
+NOT_SSM = ("lora_matmul", "flash_attention", "flash_decode",
+           "flash_decode_paged", "lora_bgmv_rows", "lora_bgmv_seq")
 
 
 class SmokeFailure(Exception):
@@ -573,13 +611,14 @@ def main_path(seed: int) -> tuple[dict, dict]:
         f" max_abs_err {(kl - pl).abs().max().item():.4f}, top-1 "
         f"{int(kl.argmax())} vs {int(pl.argmax())}")
     rec["prefill_logits_cosine"] = cos
+    spec_rec = spec_path(cfg, params, reqs, comps, rec, seed)
     from repro_torch.core.adapter_bank import AdapterBank
     bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
     bank_rec = bank_path(cfg, params["backbone"], bank, reqs, seed)
     paged_rec = paged_path(cfg, params["backbone"], bank, seed, bank_rec)
     del params, bank
     torch.cuda.empty_cache()
-    return rec, bank_rec, paged_rec
+    return rec, bank_rec, paged_rec, spec_rec
 
 
 def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
@@ -787,11 +826,12 @@ def end_to_end(seed: int) -> dict:
         f"requests, {bst.waves} waves: kernel tokens == plain tokens == "
         f"per-domain drains")
     paged = paged_exactness(cfg, params, bank, seed)
+    spec = spec_exactness("e2e", cfg, params, seed)
     del params
     torch.cuda.empty_cache()
     return dict(requests=len(reqs), waves=st.waves, tokens_equal=True,
                 bank_requests=len(breqs), bank_waves=bst.waves,
-                bank_tokens_equal=True, paged=paged)
+                bank_tokens_equal=True, paged=paged, spec=spec)
 
 
 def paged_exactness(cfg, params, bank, seed: int) -> dict:
@@ -1080,6 +1120,7 @@ class plain_calls:
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import lora_bgmv as bg
         from repro_torch.kernels import lora_matmul as lm
+        from repro_torch.kernels import selective_scan as ss
         self.counts = {}
         self.patched = []
         targets = [(lm, "lora_matmul_torch", "lora_matmul"),
@@ -1089,7 +1130,8 @@ class plain_calls:
             targets += [(bg, "lora_bgmv_torch", "lora_bgmv"),
                         (fd, "flash_decode_torch", "flash_decode"),
                         (fd, "flash_decode_paged_torch",
-                         "flash_decode_paged")]
+                         "flash_decode_paged"),
+                        (ss, "selective_scan_torch", "selective_scan")]
         for mod, attr, key in targets:
             fn = getattr(mod, attr)
             self.counts[key] = 0
@@ -1448,6 +1490,449 @@ def paper_loop(seed: int) -> dict:
                 resumed_adapters_max_abs_diff=diff)
 
 
+# ---------------------------------------------------------------------------
+# phases 16 to 20: the ssm family and speculative decoding
+# ---------------------------------------------------------------------------
+
+def scan_kernel_cases(gen: torch.Generator, timer: Timer,
+                      cases: dict) -> None:
+    """Phase 16: selective_scan at falcon-mamba-7b's prefill shape against
+    its plain version, an odd shape, and the ragged bit-for-bit case (into
+    ``cases``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import selective_scan as ss
+
+    cfg = get_config("falcon-mamba-7b")
+    dr, N = cfg.dt_rank, cfg.ssm.d_state
+    cases["selective_scan"] = []
+
+    def operands(B, S, Di, dtype, with_h0):
+        def rn(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * s
+        x = rn(B, S, Di, s=0.5).to(dtype)
+        dt = (F.softplus(rn(B, S, Di)) * 0.1).to(dtype)
+        A = -torch.exp(rn(Di, N, s=0.3))
+        xdbc = rn(B, S, dr + 2 * N, s=0.5).to(dtype)  # the x_proj output
+        D = rn(Di)
+        h0 = rn(B, Di, N, s=0.1) if with_h0 else None
+        return [x, dt, A, xdbc[..., dr:dr + N], xdbc[..., dr + N:], D, h0]
+
+    def one(B, S, Di, dtype, with_h0, timed):
+        args = operands(B, S, Di, dtype, with_h0)
+        label = (f"B={B} S={S} Di={Di} N={N} "
+                 f"{'h0 per row' if with_h0 else 'no h0'} "
+                 f"{str(dtype)[6:]}")
+        y, h = ss.selective_scan(*args)
+        yw, hw = ss.selective_scan(*args, backend="torch")
+        torch.cuda.synchronize()
+        err = compare(f"selective_scan {label}", y, yw, dtype)
+        herr = (h - hw).abs().max().item()
+        check(bool(torch.allclose(h, hw, atol=1e-3, rtol=1e-3)),
+              f"selective_scan {label}: h_final max_abs_err {herr} beyond "
+              f"the scan tolerance 1e-3")
+        c = dict(shape=label + ", B and C strided views", max_abs_err=err,
+                 tol=TOL[dtype], h_final_max_abs_err=herr, h_final_tol=1e-3)
+        if timed:
+            elt = args[0].element_size()
+            n_h = B * Di * N
+            nbytes = elt * (3 * B * S * Di + 2 * B * S * N) \
+                + 4 * (Di * N + Di + n_h * (2 if with_h0 else 1))
+            exps = B * S * Di * N
+            # per (b, t, c, n): dt*A, h*dA + (dt x)*B, acc += h*C
+            flops = 6 * exps + 3 * B * S * Di
+            t_b, t_f, t_e = (nbytes / PEAK_BYTES,
+                             flops / PEAK_FLOPS[torch.float32],
+                             exps / PEAK_EXP)
+            c.update(
+                ms=timer(lambda: ss.selective_scan(*args)),
+                plain_ms=timer(lambda: ss.selective_scan(
+                    *args, backend="torch")),
+                library_ms=None,
+                library="none: no single PyTorch call computes a "
+                        "selective scan",
+                bound_ms=max(t_b, t_f, t_e) * 1e3,
+                bound_by="bytes" if t_b >= max(t_f, t_e) else "operations",
+                bytes_ms=t_b * 1e3, exp_ms=t_e * 1e3, flops_ms=t_f * 1e3)
+        cases["selective_scan"].append(c)
+        log(f"kernel selective_scan {c}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for with_h0 in (True, False):
+            one(8, 512, cfg.d_inner, dtype, with_h0, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        one(3, 37, 200, dtype, True, False)
+
+    # ragged: right-padded rows with dt = 0 end in their solo state
+    x, dt, A, Bm, C, D, h0 = operands(8, 512, cfg.d_inner, torch.bfloat16,
+                                      True)
+    lens = [512, 37, 200, 511, 1, 256, 300, 129]
+    dtp = dt.clone()
+    for b, n in enumerate(lens):
+        dtp[b, n:] = 0
+    _, h = ss.selective_scan(x, dtp, A, Bm, C, D, h0)
+    same = []
+    for b, n in enumerate(lens):
+        _, hb = ss.selective_scan(x[b:b + 1, :n].contiguous(),
+                                  dt[b:b + 1, :n].contiguous(), A,
+                                  Bm[b:b + 1, :n], C[b:b + 1, :n], D,
+                                  h0[b:b + 1])
+        same.append(bool(torch.equal(h[b], hb[0])))
+    check(all(same), f"selective_scan ragged: padded rows' final state "
+                     f"bit-equal to the solo rows' {same}")
+    cases["selective_scan"][0]["ragged_rows_bit_equal"] = same
+    log(f"kernel selective_scan ragged B=8 lens {lens}: h_final of each "
+        f"padded row == its solo run, bit for bit")
+
+
+def mamba_domains(cfg, seed: int) -> dict:
+    """N_DOMAINS ssm adapter sets that differ in their state prompts alone
+    (seeded, drawn large: with random weights a step scales the state by
+    about exp(dt A) ~ 0.03, so a prompt acts on a sequence's first
+    tokens)."""
+    from repro_torch.models.model import adapter_spec
+    from repro_torch.models.params import init_from_spec
+    out = {}
+    for i in range(N_DOMAINS):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + i)
+        ad = init_from_spec(g, adapter_spec(cfg), torch.device("cuda"))
+        for layer in ad["stack"]["g0"]:
+            s0 = layer["s0"]["state0"]
+            layer["s0"]["state0"] = torch.randn(
+                s0.shape, generator=g, device="cuda") * 5.0
+        out[f"domain{i}"] = ad
+    return out
+
+
+def ssm_launches_ok(cfg, launches, stats, what) -> None:
+    check(launches["selective_scan"] == cfg.n_layers * stats.waves
+          and all(launches[k] == 0 for k in NOT_SSM),
+          f"{what}: selective_scan must launch {cfg.n_layers} times per "
+          f"prefill or refill ({stats.waves}) and no attention or LoRA "
+          f"kernel: {launches}")
+
+
+def mamba_path(seed: int) -> tuple[dict, dict]:
+    """Phase 17: falcon-mamba-7b at its published size, single-tenant and
+    from a 4-domain bank of state prompts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("falcon-mamba-7b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm.d_state,
+           cfg.ssm.d_conv, cfg.dt_rank, cfg.vocab_size, cfg.tie_embeddings,
+           cfg.dtype) == (64, 4096, 8192, 16, 4, 256, 65024, False,
+                          "bfloat16"),
+          "falcon-mamba-7b is not at its published size")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params["backbone"]))
+    check(n_params == cfg.param_count() + cfg.n_layers * cfg.d_inner,
+          f"falcon-mamba-7b: {n_params} backbone params, param_count "
+          f"{cfg.param_count()} + conv biases")
+    log(f"mamba: falcon-mamba-7b init {n_params / 1e9:.3f} B params "
+        f"(param_count {cfg.param_count()} + {cfg.n_layers * cfg.d_inner} "
+        f"conv biases) in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed)
+    reqs = queue(rng, 16, (32, 513), (16, 65), cfg.vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with plain_calls(serving=True) as plain:
+        comps, stats = drain(cfg, params, reqs, slots=8)
+    launches = ops.launch_counts()
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "mamba")
+    ssm_launches_ok(cfg, launches, stats, "mamba")
+    check(all(v == 0 for v in plain.values()),
+          f"mamba: a plain version ran on the card: {plain}")
+    check(stats.waves > 1, "mamba: no in-wave refill happened")
+    log(f"mamba: {drain_line(rec)}")
+
+    # one prompt's prefill logits through the kernel against the plain
+    # scan, recorded: in bf16 this random 64-layer stack amplifies a
+    # one-ulp difference (two plain scans that differ only in rounding
+    # order drift as far, scripts/ssm_divergence.py); the check is made
+    # in f32 at full depth below
+    toks = torch.as_tensor(reqs[0][0][None, :128], device="cuda")
+    kl, _ = M.prefill(params, {"tokens": toks}, cfg)
+    with ops.backend("torch"):
+        pl, _ = M.prefill(params, {"tokens": toks}, cfg)
+    cos = F.cosine_similarity(kl.flatten(), pl.flatten(), dim=0).item()
+    check(bool(torch.isfinite(kl).all()),
+          "mamba: full-size prefill logits not finite")
+    log(f"mamba: full-size bf16 prefill logits (128 tokens) kernel vs "
+        f"plain, recorded: cosine {cos:.6f}, top-1 {int(kl.argmax())} vs "
+        f"{int(pl.argmax())}")
+    rec["bf16_prefill_logits_cosine"] = cos
+
+    bank = AdapterBank.create(mamba_domains(cfg, seed + 1))
+    sp = bank.serving_params(params["backbone"])
+    doms = [bank.domains[int(i)]
+            for i in np.random.default_rng(seed + 10).integers(
+                0, N_DOMAINS, len(reqs))]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    bcomps, bstats = drain(cfg, sp, reqs, slots=8, bank=bank, domains=doms)
+    bl = ops.launch_counts()
+    brec = drain_record(bstats, bl, torch.cuda.max_memory_allocated())
+    served_ok(cfg, bcomps, reqs, "mamba bank")
+    ssm_launches_ok(cfg, bl, bstats, "mamba bank")
+    log(f"mamba bank: {N_DOMAINS} domains of state prompts, mix "
+        f"{[doms.count(d) for d in bank.domains]}: {drain_line(brec)}")
+
+    # one short prompt per domain in one mixed prefill (the state prompt
+    # acts on the first tokens) against each domain's own single-tenant
+    # prefill of the same batch (the same shapes, so bf16 rounds alike)
+    ptoks = torch.as_tensor(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (N_DOMAINS, 4)), device="cuda")
+    ids = bank.adapter_ids(bank.domains)
+    mixed, _ = M.prefill(sp, {"tokens": ptoks}, cfg, adapter_ids=ids)
+    coss, tops = [], []
+    for i, d in enumerate(bank.domains):
+        one, _ = M.prefill({"backbone": params["backbone"],
+                            "adapters": bank.snapshot(d)},
+                           {"tokens": ptoks}, cfg)
+        coss.append(F.cosine_similarity(mixed[i].flatten(),
+                                        one[i].flatten(), dim=0).item())
+        tops.append((int(mixed[i].argmax()), int(one[i].argmax())))
+        check(bool(torch.isfinite(mixed[i]).all()) and coss[-1] > 0.999
+              and tops[-1][0] == tops[-1][1],
+              f"mamba bank: mixed vs {d} prefill cosine {coss[-1]}, top-1 "
+              f"{tops[-1]}")
+    out = M.generate(sp, cfg, ptoks[:1, :1].expand(N_DOMAINS, 1), gen=8,
+                     adapter_ids=ids).cpu().numpy()
+    distinct = len({tuple(r) for r in out})
+    check(distinct >= 2, f"mamba bank: all {N_DOMAINS} domains gave the "
+                         f"same tokens {out[0]}")
+    log(f"mamba bank: mixed vs per-domain prefill cosine "
+        f"{['%.6f' % c for c in coss]}, top-1 {tops}; one 1-token prompt "
+        f"through {N_DOMAINS} domains: {distinct} distinct token rows")
+    brec.update(mixed_prefill_cosine=coss, distinct_domain_rows=distinct)
+    rec["config"] = (f"falcon-mamba-7b {cfg.n_layers} layers d "
+                     f"{cfg.d_model} d_inner {cfg.d_inner} {cfg.dtype}, "
+                     f"{n_params} params")
+    del params, bank, sp
+    torch.cuda.empty_cache()
+
+    # full depth in f32: the same prompt's logits through the kernel and
+    # through the plain scan
+    cfg32 = cfg.with_(dtype="float32")
+    params = M.init(cfg32, seed, device="cuda")
+    kl, _ = M.prefill(params, {"tokens": toks}, cfg32)
+    with ops.backend("torch"):
+        pl, _ = M.prefill(params, {"tokens": toks}, cfg32)
+    cos = F.cosine_similarity(kl.flatten(), pl.flatten(), dim=0).item()
+    err = (kl - pl).abs().max().item()
+    check(bool(torch.isfinite(kl).all()) and cos > 0.9999
+          and int(kl.argmax()) == int(pl.argmax()),
+          f"mamba: f32 full-depth prefill logits kernel vs plain cosine {cos}"
+          f", top-1 {int(kl.argmax())} vs {int(pl.argmax())}")
+    log(f"mamba: f32 {cfg32.n_layers}-layer prefill logits (128 tokens) "
+        f"kernel vs plain: "
+        f"cosine {cos:.8f}, max_abs_err {err:.4e}, top-1 {int(kl.argmax())}"
+        f" == {int(pl.argmax())}")
+    rec.update(f32_prefill_logits_cosine=cos, f32_prefill_max_abs_err=err)
+    del params
+    torch.cuda.empty_cache()
+    return rec, brec
+
+
+def mamba_exactness(seed: int) -> dict:
+    """Phase 18 (and the ssm half of phase 20): a 2-layer full-width f32
+    falcon-mamba-7b."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("falcon-mamba-7b").with_(n_layers=2, dtype="float32")
+    params = M.init(cfg, seed, device="cuda")
+    reqs = queue(np.random.default_rng(seed + 1), 8, (32, 513), (4, 17),
+                 cfg.vocab_size)
+    ops.reset_launch_counts()
+    kern, st = drain(cfg, params, reqs, slots=4)
+    ssm_launches_ok(cfg, ops.launch_counts(), st, "mamba e2e")
+    with ops.backend("torch"):
+        plain, _ = drain(cfg, params, reqs, slots=4)
+    for a, b in zip(kern, plain):
+        check(np.array_equal(a.tokens, b.tokens),
+              f"mamba e2e f32: request {a.uid} kernel {a.tokens} vs plain "
+              f"{b.tokens}")
+    for (p, g), c in zip(reqs, kern):
+        solo = M.generate(params, cfg, torch.as_tensor(p[None],
+                                                       device="cuda"),
+                          gen=g)[0].cpu().numpy()
+        check(np.array_equal(solo, c.tokens),
+              f"mamba e2e f32: request {c.uid} drain {c.tokens} vs solo "
+              f"{solo}")
+    log(f"mamba e2e: 2-layer f32 falcon-mamba-7b, {len(reqs)} requests, "
+        f"{st.waves} waves: kernel tokens == plain tokens == solo rows")
+
+    bank = AdapterBank.create(mamba_domains(cfg, seed + 2))
+    sp = bank.serving_params(params["backbone"])
+    rng = np.random.default_rng(seed + 3)
+    breqs = queue(rng, 8, (2, 40), (4, 17), cfg.vocab_size)
+    doms = [bank.domains[int(i)] for i in rng.integers(0, N_DOMAINS, 8)]
+    bk, bst = drain(cfg, sp, breqs, slots=4, bank=bank, domains=doms)
+    for d in sorted(set(doms)):
+        idx = [i for i, x in enumerate(doms) if x == d]
+        one, _ = drain(cfg, {"backbone": params["backbone"],
+                             "adapters": bank.snapshot(d)},
+                       [breqs[i] for i in idx], slots=4)
+        for i, c in zip(idx, one):
+            check(np.array_equal(bk[i].tokens, c.tokens),
+                  f"mamba e2e bank: request {i} ({d}) mixed {bk[i].tokens} "
+                  f"vs per-domain {c.tokens}")
+    log(f"mamba e2e: 2-layer f32 bank of {N_DOMAINS} state-prompt domains, "
+        f"{len(breqs)} requests, {bst.waves} waves: mixed tokens == "
+        f"per-domain drains")
+    spec = spec_exactness("mamba e2e", cfg, params, seed)
+
+    # the target as its own drafter accepts every draft (budgets a whole
+    # number of k+1 chunks)
+    from repro_torch.core.spec_decode import SpecDecoder, spec_generate
+    k = 4
+    toks = torch.as_tensor(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab_size, (4, 64)), device="cuda")
+    lens = torch.tensor([64, 17, 40, 3], device="cuda")
+    out, sstats = spec_generate(params, cfg, SpecDecoder(cfg, params, k=k),
+                                toks, gen=2 * (k + 1), prompt_lens=lens)
+    want = M.generate(params, cfg, toks, gen=2 * (k + 1), prompt_lens=lens)
+    check(torch.equal(out, want.to(out.dtype)),
+          "mamba e2e: self-drafted tokens differ from generate")
+    check(sstats.drafted > 0 and sstats.acceptance_rate == 1.0,
+          f"mamba e2e: the target as its own drafter accepted "
+          f"{sstats.accepted} of {sstats.drafted}")
+    log(f"mamba e2e: falcon-mamba-7b as its own drafter (k {k}): "
+        f"{sstats.accepted}/{sstats.drafted} accepted, tokens == generate")
+    del params, bank, sp
+    torch.cuda.empty_cache()
+    return dict(requests=len(reqs), waves=st.waves, tokens_equal=True,
+                bank_requests=len(breqs), bank_waves=bst.waves, spec=spec,
+                self_draft=dict(drafted=sstats.drafted,
+                                accepted=sstats.accepted,
+                                acceptance_rate=sstats.acceptance_rate))
+
+
+def spec_exactness(what: str, cfg, params, seed: int) -> dict:
+    """Phase 20: a spec drain of a ragged queue, every third request opted
+    out of drafting, against the plain drain, token for token."""
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+
+    reqs = queue(np.random.default_rng(seed + 5), 8, (32, 513), (4, 17),
+                 cfg.vocab_size)
+    spec = SpecDecoder.init(cfg, seed + 997, device="cuda", k=4)
+    eng = DecodeEngine(cfg, slots=4, spec=spec, device="cuda")
+    flags = [i % 3 != 1 for i in range(len(reqs))]
+    uids = [eng.submit(p, g, speculative=f)
+            for (p, g), f in zip(reqs, flags)]
+    ops.reset_launch_counts()
+    comps, st = eng.run(params)
+    n = ops.launch_counts()
+    by = {c.uid: c.tokens for c in comps}
+    plain, _ = drain(cfg, params, reqs, slots=4)
+    for u, c in zip(uids, plain):
+        check(np.array_equal(by[u], c.tokens),
+              f"{what} spec: request {u} spec {by[u]} vs plain {c.tokens}")
+    check(st.drafted > 0 and n["selective_scan"] > 0
+          and n["flash_decode"] == 0,
+          f"{what} spec: drafted {st.drafted}, launches {n}")
+    log(f"{what} spec: {cfg.name} {cfg.n_layers} layers f32, {len(reqs)} "
+        f"requests ({flags.count(False)} opted out), k 4: spec tokens == "
+        f"plain tokens; drafted {st.drafted}, accepted {st.accepted}")
+    return dict(requests=len(reqs), drafted=st.drafted,
+                accepted=st.accepted, tokens_equal=True)
+
+
+def spec_path(cfg, params, reqs, plain_comps, plain_rec, seed: int) -> dict:
+    """Phase 19: phase 4's qwen2-7b and queue served speculatively with the
+    default recurrent drafter, k = 4."""
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+
+    spec = SpecDecoder.init(cfg, seed + 997, device="cuda", k=4)
+    dcfg = spec.cfg
+    check((dcfg.family, dcfg.d_model, dcfg.n_layers, dcfg.vocab_size) ==
+          ("ssm", 64, 2, cfg.vocab_size), f"spec: drafter {dcfg}")
+    eng = DecodeEngine(cfg, slots=8, spec=spec, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with plain_calls(serving=True) as plain:
+        comps, stats = serve_on(eng, params, reqs)
+    launches = ops.launch_counts()
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "spec")
+    check(launches["selective_scan"] > 0 and launches["flash_decode"] == 0
+          and launches["lora_matmul"] > 0
+          and launches["flash_attention"] > 0,
+          f"spec: launches {launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"spec: a plain version ran on the card: {plain}")
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(comps, plain_comps))
+    rec.update(drafted=stats.drafted, accepted=stats.accepted,
+               acceptance_rate=stats.acceptance_rate,
+               same_tokens_as_plain=same)
+    log(f"spec: qwen2-7b + drafter ssm d 64 x 2 layers, k 4: "
+        f"{drain_line(rec)}; drafted {stats.drafted}, accepted "
+        f"{stats.accepted} (rate {stats.acceptance_rate:.4f}); {same}/"
+        f"{len(reqs)} requests gave phase 4's tokens; plain drain "
+        f"{plain_rec['tok_per_s']:.2f} tok/s")
+    return rec
+
+
+def spec_loop(seed: int) -> dict:
+    """Phase 20: the vit-edge loop of phase 15 with speculative produce
+    rounds (``spec_k=4``; dense caches, as spec excludes paged)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.integrated import IntegratedRuntime
+    from repro_torch.data.synthetic import ClassificationTask
+    from repro_torch.kernels import ops
+
+    cfg = get_config("vit-edge")
+    tasks = {"nlp": ClassificationTask(5, 64, 48, class_strength=0.6, seed=0),
+             "cv": ClassificationTask(5, 64, 48, class_strength=0.6, seed=7)}
+    rt = IntegratedRuntime(cfg, tasks, n_clusters=2, steps_per_upgrade=20,
+                           batch=16, sync_every=5, serve_batch=64,
+                           serve_gen=4, serve_slots=16, seed=seed, spec_k=4,
+                           device="cuda")
+    demand = ["nlp"] * 2 + ["cv"] + ["nlp"] * 7
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = rt.run(demand)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launch_counts()
+    acts = [(r.action, r.domain) for r in recs]
+    prod = [r for r in recs if r.action == "produce"]
+    check(len(recs) == len(demand) and prod
+          and all(r.cost.drafted_tokens > 0 for r in prod)
+          and n["selective_scan"] > 0 and n["flash_decode"] == 0,
+          f"spec loop: rounds {acts}, launches {n}")
+    drafted = sum(r.cost.drafted_tokens for r in prod)
+    accepted = sum(r.cost.accepted_tokens for r in prod)
+    log(f"spec loop: vit-edge, spec_k 4, 10 rounds in {wall:.3f}s: "
+        f"{acts}; drafted {drafted}, accepted {accepted}, total profit "
+        f"{rt.total_profit():.2f}")
+    del rt
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, actions=acts, drafted=drafted,
+                accepted=accepted, total_profit=recs[-1].cumulative,
+                rounds=[dict(round=r.round, action=r.action,
+                             domain=r.domain, profit=r.profit,
+                             latency_s=r.cost.latency_s,
+                             tok_per_s=r.cost.tok_per_s,
+                             drafted=r.cost.drafted_tokens,
+                             accepted=r.cost.accepted_tokens)
+                        for r in recs])
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1500,13 +1985,18 @@ def main(argv=None) -> int:
     cases = kernel_cases(gen, timer)
     rec["train_kernels"] = train_kernel_cases(gen, timer, cases)
     paged_kernel_cases(gen, timer, cases)
-    rec["main"], rec["bank"], rec["paged"] = main_path(args.seed)
+    scan_kernel_cases(gen, timer, cases)
+    rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
+        main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
         f"beside single-tenant {rec['main']['tok_per_s']:.2f} tok/s")
     rec["e2e"] = end_to_end(args.seed)
     rec["classify"] = classify_phase(args.seed)
     rec.update(train_phases(args.seed))
     rec["loop"] = paper_loop(args.seed)
+    rec["mamba"], rec["mamba_bank"] = mamba_path(args.seed)
+    rec["mamba_e2e"] = mamba_exactness(args.seed)
+    rec["spec_loop"] = spec_loop(args.seed)
 
     kernels = []
     for name, cs in cases.items():

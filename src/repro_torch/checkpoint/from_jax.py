@@ -20,7 +20,14 @@ in the port (``core/hfsl.py``); the per-cluster optimizer ``step``
 ``(n_clusters,)`` and the round counter ``step`` cross as they are.
 
 An ``IntegratedRuntime``'s state crosses with :func:`integrated_from_jax`
-into a port runtime built with the same config, tasks and seed.
+into a port runtime built with the same config, tasks and seed, its
+speculative drafter's parameters included.
+
+ssm layers cross like the others: their f32 leaves (``A_log``, ``D``,
+``dt_proj_b``, the ``state0`` prompts) stay f32, since every leaf keeps
+its dtype. Decode caches share the reference's ``(L, B, ...)`` layout, so
+an ssm cache (``h`` f32, ``conv`` in the config dtype) crosses leaf by
+leaf with :func:`caches_from_jax`.
 """
 from __future__ import annotations
 
@@ -38,6 +45,14 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def caches_from_jax(tree: dict, device="cpu") -> dict:
+    """Reference decode caches (numpy leaves, layer-stacked) -> the port's
+    caches, which keep the same layout."""
+    if isinstance(tree, dict):
+        return {k: caches_from_jax(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
 
 
 def _unstack(tree):
@@ -138,13 +153,16 @@ def integrated_from_jax(rt, tree: dict) -> None:
     each other round for round.
 
     ``tree``: ``{"backbone": ..., "domains": {name: {"adapters_c", "opt",
-    "step", "level", "offset"[, "bank_version"]}}}``, the reference's
-    ``rt.backbone`` and per-domain ``DomainState`` fields and batch-bank
-    cursor. Each domain's HFSL state crosses through
+    "step", "level", "offset"[, "bank_version"]}}[, "drafter": ...]}``,
+    the reference's ``rt.backbone``, per-domain ``DomainState`` fields and
+    batch-bank cursor, and its speculative drafter's params
+    (``rt.spec.params``). Each domain's HFSL state crosses through
     :func:`hfsl_state_from_jax`; then its consensus is published into the
     bank (the version is set to ``bank_version`` when given) and its
     accuracy is measured again on the port."""
     dev = rt.device
+    if "drafter" in tree:
+        rt.spec.params = from_jax(tree["drafter"], dev)
     rt.backbone = from_jax({"backbone": tree["backbone"]},
                            dev)["backbone"]
     for name, dom in tree["domains"].items():

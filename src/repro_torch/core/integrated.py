@@ -19,9 +19,14 @@ edge model) and inference rounds (serving requests) under a profit policy
 - keeps the paper's metric ledger (latency, compute, comm, energy) in
   :class:`~repro_torch.core.comm.RoundCost`.
 
+With ``spec_k`` the produce rounds serve speculatively: a tiny recurrent
+drafter (``core/spec_decode.py``, seeded from ``seed + 997``) proposes
+``spec_k`` tokens per verify pass, and each produce round books the
+drafted and accepted tokens in its RoundCost. It excludes ``paged``, as in
+the reference.
+
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed. The
-reference's mesh-native runtime (``mesh=``) and speculative serving
-(``spec_k=``) are not ported (ROADMAP).
+reference's mesh-native runtime (``mesh=``) is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.comm import CostModel, RoundCost
 from repro_torch.core.device import resolve_device, unported
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.scheduler import SchedulerEnv, mlcp_policy
+from repro_torch.core.spec_decode import SpecDecoder
 from repro_torch.data.noniid import partition_by_classes
 from repro_torch.data.pipeline import BatchBank
 from repro_torch.launch.engine import DecodeEngine
@@ -87,9 +93,6 @@ class IntegratedRuntime:
         if mesh is not None:
             raise unported("IntegratedRuntime(mesh=...)",
                            "later, multi-GPU sharding")
-        if spec_k is not None:
-            raise unported("IntegratedRuntime(spec_k=...)",
-                           "slice 5, ssm family and speculative decoding")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tasks = tasks                       # domain -> ClassificationTask
@@ -140,9 +143,18 @@ class IntegratedRuntime:
         # one multi-tenant bank for every domain's serving adapters
         self.bank = AdapterBank.create(
             {n: self._consensus_adapters(n) for n in self.domains})
+        # speculative produce rounds: a tiny recurrent drafter proposes
+        # spec_k tokens per verify pass (the paper's small edge model
+        # assisting the large one); DecodeEngine refuses it with paged
+        self.spec = None
+        if spec_k is not None:
+            self.spec = SpecDecoder.init(
+                cfg, seed + 997, device=self.device, k=spec_k,
+                d_model=spec_d_model, n_layers=spec_layers)
         self.engine = DecodeEngine(cfg, slots=min(serve_slots, serve_batch),
                                    seed=seed, bank=self.bank, tel=tel,
-                                   paged=paged, device=self.device)
+                                   paged=paged, spec=self.spec,
+                                   device=self.device)
         self.records: list[RoundRecord] = []
         self._eval_cache: dict[str, dict] = {
             n: tasks[n].dataset(150, seed=seed + 91 + i)
@@ -301,7 +313,9 @@ class IntegratedRuntime:
                              self.cm.d2d.energy(nbytes),
                              nbytes, 0, tokens=stats.tokens,
                              padded_tokens=stats.padded_tokens,
-                             timed_out=stats.timed_out)
+                             timed_out=stats.timed_out,
+                             drafted_tokens=stats.drafted,
+                             accepted_tokens=stats.accepted)
             psp.set(latency_s=cost.latency_s, tokens=cost.tokens,
                     padded_tokens=cost.padded_tokens,
                     tok_per_s=cost.tok_per_s, utilization=cost.utilization,

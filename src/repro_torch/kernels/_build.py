@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("lora_matmul", "lora_matmul_bwd", "flash_attention",
            "flash_decode", "flash_decode_paged", "lora_bgmv_rows",
-           "lora_bgmv_seq")
+           "lora_bgmv_seq", "selective_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,11 +112,14 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
-def checked_args(name: str, tensors: dict, dtype: torch.dtype) -> int:
+def checked_args(name: str, tensors: dict, dtype: torch.dtype, *,
+                 f32: tuple = (), strided: tuple = ()) -> int:
     """Validate what a kernel takes before its pointers are passed: every
     tensor on one CUDA device, contiguous, of ``dtype`` (f32 or bf16) —
-    int32 for names ending in ``pos``, ``ids`` or ``table``. Returns the
-    csrc ``DTypeCode``."""
+    int32 for names ending in ``pos``, ``ids`` or ``table``. A kernel that
+    mixes dtypes names its always-f32 tensors in ``f32``; a tensor named
+    in ``strided`` needs only a unit stride in its last dim (the kernel
+    takes its other strides). Returns the csrc ``DTypeCode``."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or "
@@ -124,11 +127,14 @@ def checked_args(name: str, tensors: dict, dtype: torch.dtype) -> int:
     dev = None
     for key, t in tensors.items():
         want = torch.int32 if key.endswith(("pos", "ids", "table")) \
-            else dtype
-        if not t.is_cuda or t.dtype != want or not t.is_contiguous():
+            else torch.float32 if key in f32 else dtype
+        dense = t.stride(-1) == 1 if key in strided else t.is_contiguous()
+        if not t.is_cuda or t.dtype != want or not dense:
             raise ValueError(
-                f"{name}: {key} must be a contiguous {want} CUDA tensor, got "
-                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+                f"{name}: {key} must be a "
+                f"{'row-strided' if key in strided else 'contiguous'} "
+                f"{want} CUDA tensor, got {t.dtype} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
         dev = t.device

@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
+from repro_torch.kernels import selective_scan as ss
 
 _BACKEND: Optional[str] = None          # None: by tensor device
 # kernel name -> (module, attribute holding its launch count)
@@ -30,7 +31,8 @@ _KERNELS = {"lora_matmul": (lm, "launches"),
             "flash_decode": (fd, "launches"),
             "flash_decode_paged": (fd, "paged_launches"),
             "lora_bgmv_rows": (bg, "rows_launches"),
-            "lora_bgmv_seq": (bg, "seq_launches")}
+            "lora_bgmv_seq": (bg, "seq_launches"),
+            "selective_scan": (ss, "launches")}
 
 
 def set_backend(name: Optional[str]) -> None:
@@ -216,3 +218,28 @@ def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
                                  q_pos=qp.contiguous(), prefix_k=prefix_k,
                                  prefix_v=prefix_v, scale=scale,
                                  backend=_pick(backend))
+
+
+# ---------------------------------------------------------------------------
+# Selective scan (Mamba-1)
+# ---------------------------------------------------------------------------
+
+def selective_scan(x, dt, A, Bm, C, D, h0=None, *,
+                   backend: Optional[str] = None):
+    """The Mamba-1 scan over a sequence (shapes as
+    :func:`ref.selective_scan`). The reference's XLA-only algorithms
+    (``_selective_scan_assoc``, ``set_ssm_xla_impl``) compute the same
+    function and are covered by the plain version."""
+    return ss.selective_scan(x, dt, A, Bm, C, D, h0, backend=_pick(backend))
+
+
+def selective_scan_step(x, dt, A, Bm, C, D, h):
+    """One decode step, torch operations (the reference has no kernel for
+    it). x, dt: (B, Di); Bm, C: (B, N); h: (B, Di, N). Returns (y (B, Di)
+    in x.dtype, h f32)."""
+    dtf, xf = dt.float(), x.float()
+    dA = torch.exp(dtf[..., None] * A.float())
+    dBx = dtf[..., None] * Bm.float()[:, None, :] * xf[..., None]
+    h = h.float() * dA + dBx
+    y = torch.einsum("bdn,bn->bd", h, C.float()) + D.float() * xf
+    return y.to(x.dtype), h

@@ -153,3 +153,28 @@ def lora_bgmv(x: torch.Tensor, w: torch.Tensor, a_stack: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype).reshape(*shp[:-1], w.shape[-1])
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """Mamba-1 selective scan, a naive loop over time in f32.
+
+    x, dt: (B, S, Di); A: (Di, N); Bm, C: (B, S, N); D: (Di,); h0:
+    optional (B, Di, N) initial state (the PEFT state prompt). Each step
+    ``h = exp(dt A) h + (dt B) x`` and ``y = h·C + D x``. Returns
+    (y (B, S, Di) in x.dtype, h_final (B, Di, N) f32)."""
+    Bb, S, Di = x.shape
+    N = A.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    Af, Bf, Cf, Df = A.float(), Bm.float(), C.float(), D.float()
+    h = torch.zeros((Bb, Di, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t in range(S):
+        xt, dtt = xf[:, t], dtf[:, t]
+        dA = torch.exp(dtt[..., None] * Af)
+        dBx = dtt[..., None] * Bf[:, t][:, None, :] * xt[..., None]
+        h = h * dA + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + Df * xt)
+    return torch.stack(ys, 1).to(x.dtype), h

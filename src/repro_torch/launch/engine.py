@@ -1,5 +1,5 @@
-"""Ragged continuous-batching decode engine, dense mode, single- and
-multi-tenant (counterpart of ``repro/launch/engine.py``).
+"""Ragged continuous-batching decode engine, single- and multi-tenant,
+plain or speculative (counterpart of ``repro/launch/engine.py``).
 
 One ``run()`` drain:
 
@@ -41,8 +41,17 @@ shared blocks and prefills only its suffix. The pool and allocator persist
 across drains, so a later drain's matching prompt revives freed blocks.
 
 :meth:`DecodeEngine.serve_trace` admits a timed arrival trace as its
-timestamps come due, paged or dense. The speculative and mesh modes are
-later slices.
+timestamps come due, paged or dense.
+
+**Speculative serving** (``spec=SpecDecoder``, ``core/spec_decode.py``):
+the drafter rides the same waves (its own prefill and refill beside the
+target's), and each decode segment is a number of draft-verify chunks
+(k proposals and one verify pass each), pow2-bucketed like plain segments.
+Greedy only: exact-match acceptance is what keeps a speculative drain
+token for token the plain one. A request submitted with
+``speculative=False`` decodes plainly through the verify pass, so one
+wave mixes both. Paged serving composes with plain decode only. The mesh
+mode is a later item.
 """
 from __future__ import annotations
 
@@ -80,6 +89,7 @@ class Request:
     deadline_s: Optional[float] = None  # monotonic budget from submit time
     t_submit: float = 0.0              # time.perf_counter() at submit
     sla: Optional[str] = None          # service class label
+    speculative: bool = True           # spec engine: draft for this row
 
 
 @dataclasses.dataclass
@@ -121,6 +131,8 @@ class EngineStats:
     padded_tokens: int = 0             # wasted slot-steps
     timed_out: int = 0                 # requests retired at their deadline
     wall_s: float = 0.0
+    drafted: int = 0                   # drafter proposals (spec serving)
+    accepted: int = 0                  # proposals the verify pass committed
     ttft_hist: Optional[dict] = None       # time-to-first-token (s)
     queue_hist: Optional[dict] = None      # queue wait (s)
     tok_latency_hist: Optional[dict] = None  # per-token decode latency (s)
@@ -145,6 +157,11 @@ class EngineStats:
         return self.tokens / self.wall_s if self.wall_s > 0 else 0.0
 
     @property
+    def acceptance_rate(self) -> float:
+        """Committed fraction of drafted tokens (speculative serving)."""
+        return self.accepted / self.drafted if self.drafted else 0.0
+
+    @property
     def utilization(self) -> float:
         """Served fraction of executed decode slot-steps."""
         total = self.tokens + self.padded_tokens
@@ -162,13 +179,19 @@ class DecodeEngine:
             raise ValueError(
                 "paged serving composes with plain decode only "
                 "(speculative verify reads the dense slot layout)")
-        for name, val, item in (
-                ("spec=", spec, "slice 5, ssm family and speculative "
-                                "decoding"),
-                ("mesh=", mesh, "later, multi-GPU sharding")):
-            if val is not None:
-                raise unported(f"DecodeEngine({name}...)", item)
+        if mesh is not None:
+            raise unported("DecodeEngine(mesh=...)",
+                           "later, multi-GPU sharding")
         groups_for(cfg)                    # raises for unported families
+        # speculative serving: greedy only (exact-match acceptance is what
+        # keeps spec drains token for token the plain ones)
+        if spec is not None:
+            if not greedy:
+                raise ValueError(
+                    "speculative serving is greedy-only (sampled residual "
+                    "acceptance is a recorded follow-up)")
+            spec.validate_target(cfg)
+        self.spec = spec
         self.cfg = cfg
         self.slots = slots
         self.greedy = greedy
@@ -205,14 +228,17 @@ class DecodeEngine:
                extras: Optional[dict] = None,
                domain: Optional[str] = None,
                deadline_s: Optional[float] = None,
+               speculative: bool = True,
                sla: Optional[str] = None) -> int:
         """Enqueue one request; returns its uid. ``deadline_s`` is a budget
         from now: a row still live past it retires mid-wave as a
         ``timed_out`` completion with its partial tokens. ``sla`` labels
         the request's service class (per-class histograms and misses in
         ``EngineStats.sla_stats``). ``domain`` names the request's adapter
-        slot in the engine's AdapterBank. Malformed requests fail here with
-        ``ValueError``, as in the reference."""
+        slot in the engine's AdapterBank. ``speculative=False`` opts the
+        row out of drafting on a spec engine (it decodes plainly through
+        the verify pass; ignored on plain engines). Malformed requests fail
+        here with ``ValueError``, as in the reference."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or tokens.size == 0:
             raise ValueError(
@@ -252,7 +278,8 @@ class DecodeEngine:
         uid = self._uid
         self._uid += 1
         self._queue.append(Request(uid, tokens, int(max_new_tokens), domain,
-                                   deadline_s, time.perf_counter(), sla))
+                                   deadline_s, time.perf_counter(), sla,
+                                   bool(speculative)))
         self._telemetry().count("engine.submitted")
         return uid
 
@@ -373,6 +400,8 @@ class DecodeEngine:
         bufs: list[list[np.ndarray]] = [[] for _ in range(B)]
         remaining = np.zeros(B, np.int64)
         tok = caches = pos = None
+        dtok = dcaches = dpos = None       # the drafter's wave state
+        spec_rows = np.ones(B, bool)       # per-slot speculative opt-in
         tenant = bool(self._queue) and self._queue[0].domain is not None
         ids = None                         # (B,) adapter slot ids of the wave
         cur_dom: list[Optional[str]] = [None] * B
@@ -449,6 +478,7 @@ class DecodeEngine:
                     slot_req[i], slot_wave[i] = req, stats.waves - 1
                     remaining[i] = req.max_new_tokens
                     cur_dom[i] = req.domain
+                    spec_rows[i] = req.speculative
                     t_admit[i], t_first[i] = t_adm, None
                     h_queue.record(t_adm - req.t_submit)
                     tel.observe("engine.queue_s", t_adm - req.t_submit)
@@ -495,10 +525,18 @@ class DecodeEngine:
                         lens[i] = len(req.tokens)
                     with tel.span("engine.prefill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
+                        batch = {"tokens": self._tensor(prompts)}
                         tok, caches, pos = M.wave_prefill(
-                            wp, self.cfg, cap,
-                            {"tokens": self._tensor(prompts)},
-                            self._tensor(lens), ids)
+                            wp, self.cfg, cap, batch, self._tensor(lens),
+                            ids)
+                        if self.spec is not None:
+                            # the drafter rides the same wave: its own
+                            # prefill builds its state per row (its next
+                            # token is discarded: a chunk's carry is always
+                            # the target's committed token)
+                            dtok, dcaches, dpos = M.wave_prefill(
+                                self.spec.params, self.spec.cfg, cap, batch,
+                                self._tensor(lens))
                 else:
                     # in-wave refill: prefill only the admitted rows
                     # (pow2-padded row count) into their slots
@@ -506,11 +544,15 @@ class DecodeEngine:
                         packed, S_pad, tenant)
                     with tel.span("engine.refill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
+                        batch = {"tokens": self._tensor(prompts)}
                         tok, caches, pos = M.refill(
-                            wp, self.cfg, cap,
-                            {"tokens": self._tensor(prompts)},
-                            self._tensor(lens), row_idx, tok, caches, pos,
-                            ids_rows)
+                            wp, self.cfg, cap, batch, self._tensor(lens),
+                            row_idx, tok, caches, pos, ids_rows)
+                        if self.spec is not None:
+                            dtok, dcaches, dpos = M.refill(
+                                self.spec.params, self.spec.cfg, cap, batch,
+                                self._tensor(lens), row_idx, dtok, dcaches,
+                                dpos)
             # deadline sweep: a live row past its budget retires here with
             # the tokens it has so far
             now = time.perf_counter()
@@ -525,16 +567,45 @@ class DecodeEngine:
             live_rem = remaining[remaining > 0]
             live_n = int((remaining > 0).sum())
             t_seg0 = time.perf_counter()
-            seg = _pow2floor(int(live_rem.min() if self._queue
-                                 else live_rem.max()))
-            with tel.span("engine.segment", seg=seg, live=live_n):
-                toks, tok, caches, pos, _ = M.segment(
-                    self._wave_params(params, tenant), self.cfg, seg,
-                    self.greedy, tok, caches, pos,
-                    self._tensor(remaining.astype(np.int32)), self._gen, ids)
-                toks = toks.cpu().numpy()      # the one sync: segment done
-            counts = np.minimum(seg, remaining)
-            executed = seg * B
+            if self.spec is not None:
+                # speculative segment: `chunks` draft-verify chunks, each
+                # committing 1..k+1 tokens per row; the chunk count is the
+                # pow2 floor of the budget in chunk units (one committed
+                # token per chunk at worst keeps every chunk useful)
+                Tc = self.spec.k + 1
+                budget = int(live_rem.min() if self._queue
+                             else live_rem.max())
+                chunks = max(1, _pow2floor(max(1, budget // Tc)))
+                with tel.span("engine.segment", chunks=chunks,
+                              k=self.spec.k, live=live_n,
+                              speculative=True) as ssp:
+                    (toks, counts, dr, ac, tok, caches, dcaches, pos,
+                     _) = M.spec_segment(
+                        self._wave_params(params, tenant), self.spec.params,
+                        self.cfg, self.spec.cfg, chunks, self.spec.k, tok,
+                        caches, dcaches, pos,
+                        self._tensor(remaining.astype(np.int32)),
+                        self._tensor(spec_rows), ids)
+                    toks = toks.cpu().numpy()  # the one sync: segment done
+                    counts = counts.cpu().numpy()
+                    dr, ac = int(dr), int(ac)
+                    ssp.set(drafted=dr, accepted=ac)
+                stats.drafted += dr
+                stats.accepted += ac
+                executed = chunks * Tc * B     # verify slot-steps run
+            else:
+                seg = _pow2floor(int(live_rem.min() if self._queue
+                                     else live_rem.max()))
+                with tel.span("engine.segment", seg=seg, live=live_n,
+                              speculative=False):
+                    toks, tok, caches, pos, _ = M.segment(
+                        self._wave_params(params, tenant), self.cfg, seg,
+                        self.greedy, tok, caches, pos,
+                        self._tensor(remaining.astype(np.int32)), self._gen,
+                        ids)
+                    toks = toks.cpu().numpy()  # the one sync: segment done
+                counts = np.minimum(seg, remaining)
+                executed = seg * B
             t_seg1 = time.perf_counter()
             seg_wall = t_seg1 - t_seg0
             stats.segments += 1

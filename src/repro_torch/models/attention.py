@@ -14,7 +14,9 @@ query and carrying no rotary phase (position < 0 in the masking rules of
   write goes through the table and the attention is the paged kernel,
   prefix slots included;
 - :func:`attention_chunk_paged`: a prefix-cache hit's suffix chunk against
-  a paged cache (plain torch GQA, as the reference's is plain ``jnp``).
+  a paged cache (plain torch GQA, as the reference's is plain ``jnp``);
+- :func:`attention_verify`: a speculative chunk of T tokens per row against
+  the dense cache (plain torch GQA in f32, as the reference's).
 
 Caches are written IN PLACE (the reference returns new arrays). A write
 the reference drops with an out-of-bounds ``mode="drop"`` scatter (a
@@ -350,6 +352,102 @@ def attention_chunk_paged(params: dict, adapters: Optional[dict],
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bngts,bsnd->btngd", probs, vp.float())
     o = o.reshape(B, W, nh * hd).to(x.dtype)
+    y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
+    return y, cache
+
+
+def chunk_slots(qpos: torch.Tensor, window: int, S: int,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row cache slots a verify chunk writes (and rollback restores).
+
+    qpos: (B, T) absolute positions. Sliding-window caches write slot
+    ``pos % window``, full caches slot ``pos``; inactive rows get ``S``
+    (out of the cache, written nowhere)."""
+    slot = (qpos % window) if window and window > 0 else qpos
+    if active is not None:
+        slot = torch.where(active[:, None], slot, torch.full_like(slot, S))
+    return slot
+
+
+def write_slots(cache: dict, slot: torch.Tensor, values: dict) -> None:
+    """``cache[leaf][..., b, slot[b, t]] = values[leaf][..., b, t]`` for
+    every in-cache slot (``slot < S``), in place; a slot at or past ``S``
+    writes nothing. cache leaves: (..., B, S, ...); values: (..., B, T,
+    ...); slot: (B, T). The T offsets are written one after another, as T
+    decode steps would, so a clamped out-of-cache slot rewrites the value
+    already there and never races an in-cache write."""
+    S = cache["pos"].shape[-1]
+    B, T = slot.shape
+    lead = (slice(None),) * (cache["pos"].dim() - 2)   # layer dims, if any
+    rows = torch.arange(B, device=slot.device)
+    keep = slot < S
+    sl = slot.clamp(max=S - 1)
+    for name, val in values.items():
+        buf = cache[name]
+        for t in range(T):
+            idx = lead + (rows, sl[:, t])
+            old = buf[idx]
+            m = keep[:, t].reshape((1,) * len(lead) + (B,)
+                                   + (1,) * (old.dim() - len(lead) - 1))
+            buf[idx] = torch.where(m, val[lead + (slice(None), t)]
+                                   .to(buf.dtype), old)
+
+
+def attention_verify(params: dict, adapters: Optional[dict],
+                     x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
+                     pos: torch.Tensor, window: int = 0,
+                     adapter_ids: Optional[torch.Tensor] = None,
+                     active: Optional[torch.Tensor] = None):
+    """Speculative verify: a length-T token chunk per row against the live
+    dense cache. x: (B, T, d), row b's chunk at positions ``pos[b] ..
+    pos[b]+T-1``. Returns (out (B, T, d), cache).
+
+    The chunk's K/V are written into the cache first, in place (the
+    footprint of T consecutive :func:`attention_decode` writes; inactive
+    rows and slots past the cache write nothing), then every chunk query
+    attends the updated cache under the masking rules of
+    ``kernels/ref.py``: prefix slots always visible, sentinel slots never,
+    the sliding window per query. T is draft_k + 1, so the attention is
+    plain torch GQA in f32, as the reference's is plain ``jnp`` (a verify
+    kernel is later work, ROADMAP). Rejected draft positions leave their
+    K/V behind: ``core/spec_decode.py::rollback_caches`` restores them."""
+    B, T = x.shape[:2]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    lora = (adapters or {}).get("lora", {})
+    ls = _lora_scale(cfg)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64).expand(B)
+    qpos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+
+    q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
+              adapter_ids).reshape(B, T, nh, hd)
+    k1 = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
+               adapter_ids).reshape(B, T, nkv, hd)
+    v1 = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
+               adapter_ids).reshape(B, T, nkv, hd)
+    q = rope(q, qpos, cfg.rope_theta)
+    k1 = rope(k1, qpos, cfg.rope_theta)
+
+    S = cache["k"].shape[1]
+    write_slots(cache, chunk_slots(qpos, window, S, active),
+                {"k": k1, "v": v1, "pos": qpos})
+
+    kv_pos = cache["pos"].long()
+    kp, vp, n_p = _with_prefix(cache["k"], cache["v"], adapters, B,
+                               adapter_ids)
+    if n_p:
+        kv_pos = torch.cat([kv_pos.new_full((B, n_p), -1), kv_pos], 1)
+    vis = kv_pos[:, None, :] <= qpos[:, :, None]            # causal (B, T, S)
+    if window and window > 0:
+        vis = vis & ((qpos[:, :, None] - kv_pos[:, None, :]) < window)
+    vis = vis | (kv_pos[:, None, :] < 0)                    # prefix slots
+    g = nh // nkv
+    qf = q.reshape(B, T, nkv, g, hd).float()
+    scores = torch.einsum("btngd,bsnd->bngts", qf, kp.float()) * hd ** -0.5
+    scores = torch.where(vis[:, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bngts,bsnd->btngd", probs, vp.float())
+    o = o.reshape(B, T, nh * hd).to(x.dtype)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
 

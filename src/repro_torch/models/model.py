@@ -1,6 +1,7 @@
-"""Public model API, dense family (counterpart of ``repro/models/model.py``):
-spec, init, forward, the training losses (``lm_loss``, ``classify_loss``),
-classify, prefill, decode and the serving primitives the engine drives.
+"""Public model API, dense and ssm families (counterpart of
+``repro/models/model.py``): spec, init, forward, the training losses
+(``lm_loss``, ``classify_loss``), classify, prefill, decode, the
+speculative verify pass and the serving primitives the engine drives.
 
 Params split at the top level into ``backbone`` (frozen under the paper's
 PEFT regime) and ``adapters`` (prefix-KV prompts, LoRA, classification
@@ -9,13 +10,15 @@ Every entry point takes ``adapter_ids`` (B,) for multi-tenant serving from
 AdapterBank params (``core/adapter_bank.py``), whose adapter leaves carry
 a leading ``n_slots`` dim.
 The reference's jitted fused functions (``_wave_prefill_fn``,
-``_refill_fn``, ``_segment_fn``, ``_generate_fn``, and the paged
-``_paged_prefill_fn``, ``_paged_refill_fn``, ``_paged_suffix_fn``) are
-plain functions here (:func:`wave_prefill`, :func:`refill`,
-:func:`segment`, :func:`generate`, :func:`paged_wave_prefill`,
-:func:`paged_refill`, :func:`paged_suffix`): PyTorch runs eagerly. Decode
-updates the caches in place, and a paged cache's block pool is the
-engine's persistent pool itself.
+``_refill_fn``, ``_segment_fn``, ``_generate_fn``, the paged
+``_paged_prefill_fn``, ``_paged_refill_fn``, ``_paged_suffix_fn`` and the
+speculative ``_draft_fn``, ``_verify_fn``, ``_spec_segment_fn``) are plain
+functions here (:func:`wave_prefill`, :func:`refill`, :func:`segment`,
+:func:`generate`, :func:`paged_wave_prefill`, :func:`paged_refill`,
+:func:`paged_suffix`, :func:`draft`, :func:`verify`,
+:func:`spec_segment`): PyTorch runs eagerly. Decode and verify update the
+caches in place, and a paged cache's block pool is the engine's persistent
+pool itself.
 """
 from __future__ import annotations
 
@@ -30,10 +33,12 @@ from repro_torch.models.attention import paged_write, param_dtype
 from repro_torch.models.layers import (cross_entropy, embed, embed_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec, init_from_spec
+from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import (adapter_stack_spec,
                                             cache_group_spec, paged_subs,
-                                            stack_chunk, stack_decode,
-                                            stack_seq, stack_spec)
+                                            rec_cache_part, stack_chunk,
+                                            stack_decode, stack_seq,
+                                            stack_spec, stack_verify)
 
 
 def backbone_spec(cfg: ModelConfig) -> dict:
@@ -214,23 +219,33 @@ def _next_token(logits: torch.Tensor, greedy: bool,
 
 def _decode_steps(params: dict, cfg: ModelConfig, steps: int, greedy: bool,
                   tok, caches, pos, remaining,
-                  gen: Optional[torch.Generator] = None, adapter_ids=None):
+                  gen: Optional[torch.Generator] = None, adapter_ids=None,
+                  with_state: bool = False):
     """``steps`` decode steps with per-row positions and retirement (the
     reference's ``_scan_steps``). Each step emits the carried token, then
     computes the next. Rows with ``remaining <= 0`` are retired: their
     cache writes are dropped and their position and carried token freeze.
-    Returns (toks (B, steps), (tok, caches, pos, remaining))."""
-    out = []
+    ``with_state`` also returns a copy of the recurrent cache parts
+    (:func:`transformer.rec_cache_part`) after every step, stacked at dim
+    2 ((L, B, steps, ...)): the speculative drafter's rollback points.
+    Returns (toks (B, steps), (tok, caches, pos, remaining)[, snaps])."""
+    out, snaps = [], []
     for _ in range(steps):
         active = remaining > 0
         logits, caches = decode_step(params, tok, caches, pos, cfg,
                                      active=active, adapter_ids=adapter_ids)
         nxt = _next_token(logits[:, -1], greedy, gen)
         out.append(tok)
+        if with_state:
+            snaps.append(tree_map(torch.clone, rec_cache_part(caches)))
         tok = torch.where(active[:, None], nxt, tok)
         pos = pos + active.to(pos.dtype)
         remaining = remaining - active.to(remaining.dtype)
-    return torch.cat(out, dim=1), (tok, caches, pos, remaining)
+    toks = torch.cat(out, dim=1)
+    if not with_state:
+        return toks, (tok, caches, pos, remaining)
+    return toks, (tok, caches, pos, remaining), \
+        tree_map(lambda *s: torch.stack(s, 2), *snaps)
 
 
 def _prefill_state(params: dict, batch: dict, cfg: ModelConfig, cap,
@@ -453,3 +468,61 @@ def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor, *,
     toks, _ = _decode_steps(params, cfg, gen, greedy, tok0, caches, pos0,
                             remaining, generator, ids)
     return toks
+
+
+# -- speculative decoding ---------------------------------------------------
+
+def verify_step(params: dict, tokens: torch.Tensor, caches: dict,
+                pos: torch.Tensor, cfg: ModelConfig,
+                adapter_ids: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None):
+    """Speculative verify: the target model over a whole draft chunk in one
+    pass against the live caches. tokens: (B, T) int, row b's chunk at
+    positions ``pos[b] .. pos[b]+T-1``. Returns (logits (B, T, vocab),
+    caches, rec_snaps); ``logits[:, j]`` is the distribution after chunk
+    offset j. The attention caches hold the whole chunk afterwards and the
+    recurrent ones are unchanged (:func:`transformer.stack_verify`):
+    ``core/spec_decode.py::rollback_caches`` is mandatory before the next
+    chunk."""
+    adapters = params.get("adapters", {}).get("stack", {})
+    B = tokens.shape[0]
+    pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64) \
+        .expand(B)
+    x = embed(params["backbone"]["embed"], tokens.long())
+    x, caches, snaps = stack_verify(params["backbone"]["layers"], adapters,
+                                    x, caches, cfg, pos=pos,
+                                    adapter_ids=adapter_ids, active=active)
+    x = rmsnorm(params["backbone"]["final_norm"], x)
+    return unembed(_head(params), x), caches, snaps
+
+
+@torch.no_grad()
+def draft(dparams: dict, dcfg: ModelConfig, k: int, tok, dcaches: dict,
+          pos, active):
+    """k+1 greedy drafter steps (the reference's ``_draft_fn``); see
+    ``core/spec_decode.py::draft_chunk``."""
+    from repro_torch.core import spec_decode as sd          # lazy: no cycle
+    return sd.draft_chunk(dparams, dcfg, k, tok, dcaches, pos, active)
+
+
+@torch.no_grad()
+def verify(params: dict, cfg: ModelConfig, tokens, caches: dict, pos,
+           active, adapter_ids=None):
+    """One-pass chunk verify with its rollback points (the reference's
+    ``_verify_fn``); see ``core/spec_decode.py::verify_chunk``."""
+    from repro_torch.core import spec_decode as sd          # lazy: no cycle
+    return sd.verify_chunk(params, cfg, tokens, caches, pos, active,
+                           adapter_ids)
+
+
+@torch.no_grad()
+def spec_segment(params: dict, dparams: dict, cfg: ModelConfig,
+                 dcfg: ModelConfig, chunks: int, k: int, tok, caches: dict,
+                 dcaches: dict, pos, remaining, spec_rows, adapter_ids=None):
+    """A speculative decode segment of ``chunks`` draft-verify chunks of a
+    ragged wave (the reference's ``_spec_segment_fn``); see
+    ``core/spec_decode.py::spec_segment``."""
+    from repro_torch.core import spec_decode as sd          # lazy: no cycle
+    return sd.spec_segment(params, dparams, cfg, dcfg, chunks, k, tok,
+                           caches, dcaches, pos, remaining, spec_rows,
+                           adapter_ids)

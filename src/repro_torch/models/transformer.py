@@ -1,12 +1,13 @@
-"""Decoder-stack assembly, dense family (counterpart of
+"""Decoder-stack assembly, dense and ssm families (counterpart of
 ``repro/models/transformer.py``).
 
 A model is a list of groups, each a repeating pattern of sub-layers
-(``kinds``). The reference stacks a group's parameters along a leading
-dim and runs them with ``jax.lax.scan``; the port keeps one parameter dict
-per layer in a list and runs a Python loop. KV caches keep the reference's
-layer-stacked layout ``(L, B, ...)`` (batch at dim 1) at the public
-functions, so both packages' caches compare like with like.
+(``kinds``: ``attn`` or ``ssm``). The reference stacks a group's
+parameters along a leading dim and runs them with ``jax.lax.scan``; the
+port keeps one parameter dict per layer in a list and runs a Python loop.
+Decode caches keep the reference's layer-stacked layout ``(L, B, ...)``
+(batch at dim 1) at the public functions, so both packages' caches compare
+like with like; decode and verify write them in place.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import unported
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
 
 # ROADMAP items ("Modules to port") that port the other families
 FAMILY_ITEMS = {
-    "ssm": "slice 5, ssm family and speculative decoding",
     "hybrid": "slice 6, hybrid family",
     "moe": "later, remaining families",
     "vlm": "later, remaining families",
@@ -31,6 +32,8 @@ FAMILY_ITEMS = {
 
 def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
     """[(group_name, kinds, n_repeat)] — static model structure."""
+    if cfg.family == "ssm":
+        return [("g0", ("ssm",), cfg.n_layers)]
     if cfg.family != "dense":
         raise unported(f"the {cfg.family!r} family",
                        FAMILY_ITEMS.get(cfg.family, "later"))
@@ -43,17 +46,26 @@ def attn_window(cfg: ModelConfig, kind: str) -> int:
 
 def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
+    if kind == "ssm":
+        return {"ln1": rmsnorm_spec(d), "mix": ssm_mod.ssm_spec(cfg)}
     return {"ln1": rmsnorm_spec(d), "attn": attn_mod.attn_spec(cfg),
             "ln2": rmsnorm_spec(d),
             "mlp": mlp_spec(d, cfg.d_ff, attn_mod.param_dtype(cfg))}
 
 
 def sublayer_adapter_spec(cfg: ModelConfig, kind: str) -> dict:
-    """PEFT adapters of one sub-layer: prefix-KV slots and LoRA."""
+    """PEFT adapters of one sub-layer: prefix-KV slots and LoRA for
+    attention; the learned initial state alone for ssm (no prefix, no
+    LoRA)."""
     p = cfg.peft
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dt = attn_mod.param_dtype(cfg)
     out: dict = {}
+    if kind == "ssm":
+        if p.state_prompt:
+            out["state0"] = ParamSpec((cfg.d_inner, cfg.ssm.d_state),
+                                      torch.float32, init="zeros")
+        return out
     if p.n_prefix > 0:
         out["prefix"] = {"k": ParamSpec((p.n_prefix, nkv, hd), dt),
                          "v": ParamSpec((p.n_prefix, nkv, hd), dt)}
@@ -85,10 +97,13 @@ def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
     """Decode-cache spec: {group: {sub_i: layer-stacked cache spec}}.
     ``paged=(n_blocks, block_size)`` switches the eligible sub-layers
     (full-window attention, :func:`paged_subs`) to the block-pool layout;
-    sliding-window sub-layers keep their dense per-row layout."""
-    return {name: {f"s{i}": attn_mod.cache_spec(
-                       cfg, batch, seq_len, window=attn_window(cfg, k),
-                       layers=n, paged=paged)
+    sliding-window and recurrent sub-layers keep their dense per-row
+    layout."""
+    return {name: {f"s{i}": (ssm_mod.ssm_cache_spec(cfg, batch, layers=n)
+                             if k == "ssm" else attn_mod.cache_spec(
+                                 cfg, batch, seq_len,
+                                 window=attn_window(cfg, k), layers=n,
+                                 paged=paged))
                    for i, k in enumerate(kinds)}
             for name, kinds, n in groups_for(cfg)}
 
@@ -96,7 +111,9 @@ def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
 def paged_subs(cfg: ModelConfig) -> list[tuple[str, str]]:
     """[(group, sub_key)] of the sub-layers eligible for the paged KV
     layout: full-window (window 0) attention. Sliding-window layers keep
-    their W-slot rolling buffer."""
+    their W-slot rolling buffer and recurrent layers have O(1) state: a
+    config with no eligible sub-layer (ssm) still serves through the paged
+    engine, it just commits nothing to the pool."""
     return [(name, f"s{i}") for name, kinds, _ in groups_for(cfg)
             for i, k in enumerate(kinds)
             if k == "attn" and not attn_window(cfg, k)]
@@ -106,13 +123,52 @@ def _layer_adapters(adapters: dict, name: str, n: int) -> list:
     return adapters.get(name) or [{} for _ in range(n)]
 
 
+def _select_state0(a: dict, adapter_ids):
+    """Gather each row's state prompt from a bank's stacked (n_slots, ...)
+    leaf."""
+    if adapter_ids is None or not a or "state0" not in a:
+        return a
+    ids = adapter_ids.to(device=a["state0"].device, dtype=torch.long)
+    return {**a, "state0": a["state0"].index_select(0, ids)}
+
+
+def _freeze_inactive(old: dict, new: dict, active) -> None:
+    """Write a recurrent sub-layer's new state into its cache views, in
+    place; retired rows (``active`` False) keep their old state."""
+    for leaf, o in old.items():
+        n = new[leaf].to(o.dtype)
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
+                            n, o)
+        o.copy_(n)
+
+
+def _apply_seq(kind: str, p: dict, a: dict, x, cfg: ModelConfig, *,
+               positions, make_cache: bool, cache_len, lengths,
+               adapter_ids):
+    """One full-sequence sub-layer. Returns (x, cache or None)."""
+    if kind == "ssm":
+        h, c = ssm_mod.ssm_seq(p["mix"], _select_state0(a, adapter_ids),
+                               rmsnorm(p["ln1"], x), cfg,
+                               make_cache=make_cache, lengths=lengths)
+        return x + h, c
+    h, c = attn_mod.attention_seq(
+        p["attn"], a, rmsnorm(p["ln1"], x), cfg, positions=positions,
+        window=attn_window(cfg, kind), make_cache=make_cache,
+        cache_len=cache_len, lengths=lengths, adapter_ids=adapter_ids)
+    x = x + h
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), c
+
+
 def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
               cfg: ModelConfig, *, positions: torch.Tensor,
               make_cache: bool = False, remat: bool = False, cache_len=None,
               lengths=None, adapter_ids=None):
     """Run all groups over a full sequence. ``lengths`` (B,) serves ragged
-    right-padded rows (per-row sentinel cache positions past each row's
-    length). ``adapter_ids`` (B,) serves a multi-tenant wave: each layer's
+    right-padded rows: attention caches get per-row sentinel positions
+    past each row's length, and ssm sub-layers hold their state over the
+    padded columns, so each row's caches are bitwise those it would build
+    alone. ``adapter_ids`` (B,) serves a multi-tenant wave: each layer's
     adapter leaves carry a leading ``n_slots`` dim (the AdapterBank
     layout, the port's form of the reference's ``(L, n_slots, ...)``) and
     row b uses slot ``adapter_ids[b]``. ``remat`` re-runs each layer's
@@ -127,14 +183,11 @@ def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
                 lcache = {}
                 for i, k in enumerate(kinds):
                     key = f"s{i}"
-                    p, a = lp[key], la.get(key, {})
-                    h, c = attn_mod.attention_seq(
-                        p["attn"], a, rmsnorm(p["ln1"], x), cfg,
-                        positions=positions, window=attn_window(cfg, k),
-                        make_cache=make_cache, cache_len=cache_len,
-                        lengths=lengths, adapter_ids=adapter_ids)
-                    x = x + h
-                    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+                    x, c = _apply_seq(k, lp[key], la.get(key, {}), x, cfg,
+                                      positions=positions,
+                                      make_cache=make_cache,
+                                      cache_len=cache_len, lengths=lengths,
+                                      adapter_ids=adapter_ids)
                     if c is not None:
                         lcache[key] = c
                 return x, lcache
@@ -168,6 +221,12 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                 key = f"s{i}"
                 p, a = lp[key], la.get(key, {})
                 lc = {leaf: t[l] for leaf, t in gc[key].items()}
+                if k == "ssm":
+                    h, new = ssm_mod.ssm_decode(p["mix"], a,
+                                                rmsnorm(p["ln1"], x), lc, cfg)
+                    _freeze_inactive(lc, new, active)
+                    x = x + h
+                    continue
                 h, _ = attn_mod.attention_decode(
                     p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
                     window=attn_window(cfg, k), active=active,
@@ -175,6 +234,15 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                 x = x + h
                 x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x, caches
+
+
+def rec_cache_part(caches: dict) -> dict:
+    """The recurrent ({'h', 'conv'}) sub-trees of a decode-cache tree: what
+    speculative decoding snapshots per step for rollback (attention caches,
+    which carry a 'pos' or 'table' leaf, roll back by slot restore)."""
+    return {g: {s: c for s, c in grp.items()
+                if "pos" not in c and "table" not in c}
+            for g, grp in caches.items()}
 
 
 def stack_chunk(params: dict, adapters: dict, x: torch.Tensor,
@@ -202,3 +270,46 @@ def stack_chunk(params: dict, adapters: dict, x: torch.Tensor,
                 x = x + h
                 x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x, caches
+
+
+def stack_verify(params: dict, adapters: dict, x: torch.Tensor,
+                 caches: dict, cfg: ModelConfig, *, pos: torch.Tensor,
+                 adapter_ids=None, active=None):
+    """A length-T chunk per row through all groups (speculative verify).
+
+    Attention sub-layers write the chunk's K/V into their cache in place
+    and attend the updated cache (:func:`attention.attention_verify`: one
+    cache read for T tokens); ssm sub-layers chain T exact decode steps
+    and emit a state snapshot per step, leaving their cache as it was.
+    Returns (x, caches, rec_snaps): ``rec_snaps`` mirrors
+    :func:`rec_cache_part` with a per-step axis at dim 2 ((L, B, T, ...)).
+    ``core/spec_decode.py::rollback_caches`` then brings each row to its
+    accepted length (the reference returns new caches that assume full
+    acceptance; here the attention caches are the live ones, and the
+    recurrent ones take their snapshot at rollback)."""
+    snaps: dict = {}
+    for name, kinds, n in groups_for(cfg):
+        gc = caches[name]
+        per: dict = {}
+        for l, (lp, la) in enumerate(zip(params[name],
+                                         _layer_adapters(adapters, name, n))):
+            for i, k in enumerate(kinds):
+                key = f"s{i}"
+                p, a = lp[key], la.get(key, {})
+                lc = {leaf: t[l] for leaf, t in gc[key].items()}
+                if k == "ssm":
+                    h, s = ssm_mod.ssm_verify(p["mix"], a,
+                                              rmsnorm(p["ln1"], x), lc, cfg)
+                    per.setdefault(key, []).append(s)
+                    x = x + h
+                    continue
+                h, _ = attn_mod.attention_verify(
+                    p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
+                    window=attn_window(cfg, k), adapter_ids=adapter_ids,
+                    active=active)
+                x = x + h
+                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+        snaps[name] = {key: {leaf: torch.stack([s[leaf] for s in lst])
+                             for leaf in lst[0]}
+                       for key, lst in per.items()}
+    return x, caches, snaps

@@ -10,7 +10,11 @@ round through the plain versions; the paged decode kernel against its
 plain version (block sizes 4 to 16, sentinel table entries, shared and
 per-row prefix slots) and bit for bit against the dense kernel on the
 gathered layout, and a 2-layer paged drain through the kernels against
-the plain versions and the dense drain. A CUDA kernel has
+the plain versions and the dense drain; the selective scan against its
+plain version (odd S and Di, state widths 4 to 16, B and C as strided
+views, no, per-row and shared initial states), a padded row's state bit
+for bit the solo row's, and 2-layer falcon-mamba and speculative drains
+through the kernels against the plain versions. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -26,6 +30,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import ops
+from repro_torch.kernels import selective_scan as ss
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -468,3 +473,126 @@ def test_paged_drain_on_the_card(gen):
     for a, b, c in zip(kern, plain, dense):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+def _scan_operands(gen, B, S, Di, N, dtype, h0_kind):
+    """x, dt, A, B, C, D, h0 as the ssm layer makes them: B and C are
+    column views of one x_proj-shaped output."""
+    x = randn(gen, B, S, Di, dtype=dtype, s=0.5)
+    dt = (torch.nn.functional.softplus(randn(gen, B, S, Di,
+                                             dtype=torch.float32))
+          * 0.1).to(dtype)
+    A = -torch.exp(randn(gen, Di, N, dtype=torch.float32, s=0.3))
+    xdbc = randn(gen, B, S, 5 + 2 * N, dtype=dtype, s=0.5)
+    Bm, C = xdbc[..., 5:5 + N], xdbc[..., 5 + N:]
+    D = randn(gen, Di, dtype=torch.float32)
+    h0 = {"none": None,
+          "row": randn(gen, B, Di, N, dtype=torch.float32, s=0.1),
+          "shared": randn(gen, Di, N, dtype=torch.float32, s=0.1)}[h0_kind]
+    return x, dt, A, Bm, C, D, h0
+
+
+@pytest.mark.parametrize("B,S,Di,N", [(1, 32, 128, 8), (2, 64, 256, 16),
+                                      (2, 128, 512, 16), (3, 37, 200, 16),
+                                      (2, 5, 33, 4), (1, 1, 7, 16)])
+@pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_kernel(gen, B, S, Di, N, h0_kind, dtype):
+    ops_in = _scan_operands(gen, B, S, Di, N, dtype, h0_kind)
+    n0 = ss.launches
+    y, h = ss.selective_scan(*ops_in)
+    assert ss.launches == n0 + 1
+    yw, hw = ss.selective_scan_torch(*ops_in)
+    close(y, yw, dtype)
+    assert h.dtype == torch.float32 and h.shape == (B, Di, N)
+    assert torch.allclose(h, hw, atol=1e-3, rtol=1e-3), \
+        (h - hw).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_padded_row_state_is_bitwise(gen, dtype):
+    """dt = 0 over a right-padded row's tail: the kernel's final state is
+    the solo row's, through the kernel, bit for bit."""
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, 3, 70, 300, 16, dtype,
+                                            "row")
+    lens = [70, 9, 41]
+    dtp = dt.clone()
+    for b, n in enumerate(lens):
+        dtp[b, n:] = 0
+    _, h = ss.selective_scan(x, dtp, A, Bm, C, D, h0)
+    for b, n in enumerate(lens):
+        _, hb = ss.selective_scan(x[b:b + 1, :n].contiguous(),
+                                  dt[b:b + 1, :n].contiguous(), A,
+                                  Bm[b:b + 1, :n], C[b:b + 1, :n], D,
+                                  h0[b:b + 1])
+        assert torch.equal(h[b], hb[0]), b
+
+
+def test_selective_scan_refuses_what_it_does_not_take(gen):
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, 2, 8, 16, 16,
+                                            torch.float32, "row")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.selective_scan(x.requires_grad_(True), dt, A, Bm, C, D, h0)
+    x = x.detach()
+    with pytest.raises(ValueError, match="state width"):
+        wide = randn(gen, 16, 17, dtype=torch.float32)
+        ss.selective_scan(x, dt, wide, randn(gen, 2, 8, 17,
+                                             dtype=torch.float32),
+                          randn(gen, 2, 8, 17, dtype=torch.float32), D)
+    with pytest.raises(ValueError, match="float32"):
+        ss.selective_scan(x, dt, A.bfloat16(), Bm, C, D, h0)
+
+
+def _ssm_cfg():
+    from repro_torch.configs.base import get_config
+    return get_config("falcon-mamba-7b").with_(n_layers=2, d_model=256,
+                                               vocab_size=512,
+                                               dtype="float32")
+
+
+def _queue(cfg, n=6, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randint(0, cfg.vocab_size, (int(L),), generator=g)
+             .numpy(), int(G))
+            for L, G in zip(torch.randint(3, 40, (n,), generator=g),
+                            torch.randint(2, 9, (n,), generator=g))]
+
+
+def _serve(cfg, params, reqs, **kw):
+    from repro_torch.launch.engine import DecodeEngine
+    eng = DecodeEngine(cfg, slots=3, device="cuda", **kw)
+    uids = [eng.submit(p, g) for p, g in reqs]
+    comps, stats = eng.run(params)
+    by = {c.uid: c.tokens for c in comps}
+    return [by[u] for u in uids], stats
+
+
+def test_ssm_drain_on_the_card(gen):
+    """A 2-layer f32 falcon-mamba drain through the scan kernel gives the
+    plain versions' tokens."""
+    from repro_torch.models import model as M
+    cfg = _ssm_cfg()
+    params = M.init(cfg, 0, device="cuda")
+    reqs = _queue(cfg)
+    ops.reset_launch_counts()
+    kern, st = _serve(cfg, params, reqs)
+    assert ops.launch_counts()["selective_scan"] == 2 * st.waves
+    with ops.backend("torch"):
+        plain, _ = _serve(cfg, params, reqs)
+    for a, b in zip(kern, plain):
+        assert (a == b).all()
+
+
+def test_spec_drain_on_the_card(gen):
+    """A speculative drain (the ssm target as its own drafter) through the
+    kernels gives the plain drain's tokens and accepts every draft that
+    fits the budgets."""
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.models import model as M
+    cfg = _ssm_cfg()
+    params = M.init(cfg, 0, device="cuda")
+    reqs = _queue(cfg, seed=1)
+    spec, _ = _serve(cfg, params, reqs, spec=SpecDecoder(cfg, params, k=3))
+    plain, _ = _serve(cfg, params, reqs)
+    for a, b in zip(spec, plain):
+        assert (a == b).all()

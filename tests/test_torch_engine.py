@@ -119,7 +119,7 @@ def test_engine_without_cuda_raises(monkeypatch):
         DecodeEngine(get_config("qwen2-7b").reduced(), slots=2)
 
 
-@pytest.mark.parametrize("kw", [dict(spec=object()), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_engine_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(get_config("qwen2-7b").reduced(), device="cpu", **kw)

@@ -244,7 +244,7 @@ def test_save_restore_resumes_step_for_step(pair, tmp_path):
 
 def test_runtime_entry_points():
     assert GaisNet is IntegratedRuntime
-    for kw in (dict(mesh=object()), dict(spec_k=2)):
+    for kw in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_runtime(**kw)
 

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import lora_matmul as jlm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import ops, ref
@@ -424,18 +425,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                            torch.randn(4, 2, 2, 8),
                            torch.tensor([[0, 3], [2, 4], [1, 1]]),
                            q_pos=torch.tensor([3, 1, 0]))
+    ops.selective_scan(torch.randn(2, 3, 8), torch.rand(2, 3, 8),
+                       -torch.rand(8, 4), torch.randn(2, 3, 4),
+                       torch.randn(2, 3, 4), torch.randn(8))
     x.requires_grad_(True)
     ops.lora_matmul(x, torch.randn(8, 6), torch.randn(8, 2),
                     torch.randn(2, 6), 1.0).sum().backward()
     assert ops.launch_counts() == {"lora_matmul": 0, "lora_matmul_bwd": 0,
                                    "flash_attention": 0, "flash_decode": 0,
                                    "flash_decode_paged": 0,
-                                   "lora_bgmv_rows": 0, "lora_bgmv_seq": 0}
+                                   "lora_bgmv_rows": 0, "lora_bgmv_seq": 0,
+                                   "selective_scan": 0}
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",
                                 "lora_bgmv_rows", "lora_bgmv_seq",
-                                "lora_matmul_bwd", "flash_decode_paged"])
+                                "lora_matmul_bwd", "flash_decode_paged",
+                                "selective_scan"])
 def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
     """backend='cuda' never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -453,6 +459,11 @@ def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
             ops.lora_bgmv(x, torch.randn(8, 6), torch.randn(2, 8, 2),
                           torch.randn(2, 2, 6), torch.zeros(4, dtype=torch.int32),
                           1.0, backend="cuda")
+        elif op == "selective_scan":
+            x = torch.randn(2, 3, 8)
+            ops.selective_scan(x, x, -torch.rand(8, 4), torch.randn(2, 3, 4),
+                               torch.randn(2, 3, 4), torch.randn(8),
+                               backend="cuda")
         elif op == "flash_decode_paged":
             pool = torch.randn(4, 2, 2, 8)
             ops.flash_decode_paged(torch.randn(3, 2, 8), pool, pool,
@@ -484,3 +495,63 @@ def test_online_softmax_tiles_equal_one_pass_softmax():
     got = fa.flash_attention_torch(q, k, k, q_pos=q_pos, kv_pos=kv_pos)
     want = ref.attention(q, k, k, q_pos=q_pos, kv_pos=kv_pos)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **tol("f32"))
+
+
+# ---------------------------------------------------------------------------
+# _build.checked_args: the one-dtype checks, and the mixed-dtype ones
+# ---------------------------------------------------------------------------
+
+class _FakeCuda:
+    """What ``checked_args`` reads of a tensor, on a CUDA device that this
+    machine does not need to have."""
+
+    def __init__(self, dtype, contiguous=True, last_stride=1, dev="cuda:0"):
+        self.dtype, self.device, self.is_cuda = dtype, torch.device(dev), True
+        self._contig, self._last = contiguous, last_stride
+
+    def is_contiguous(self):
+        return self._contig
+
+    def stride(self, dim):
+        return self._last
+
+
+F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
+
+
+@pytest.mark.parametrize("case", [
+    ("ok", dict(x=_FakeCuda(BF16), w=_FakeCuda(BF16)), BF16, None),
+    ("ok", dict(q=_FakeCuda(F32), kv_pos=_FakeCuda(I32)), F32, None),
+    ("mixed", dict(x=_FakeCuda(BF16), w=_FakeCuda(F32)), BF16, ValueError),
+    ("int", dict(q=_FakeCuda(F32), kv_pos=_FakeCuda(F32)), F32, ValueError),
+    ("strided", dict(x=_FakeCuda(F32, contiguous=False)), F32, ValueError),
+    ("fp16", dict(x=_FakeCuda(torch.float16)), torch.float16, TypeError),
+    ("cpu", dict(x=torch.zeros(2)), F32, ValueError),
+    ("devices", dict(x=_FakeCuda(F32), w=_FakeCuda(F32, dev="cuda:1")),
+     F32, ValueError),
+])
+def test_checked_args_single_dtype_refuses_what_it_refused(case):
+    """Without ``f32=``/``strided=`` every tensor must be one contiguous
+    dtype on one CUDA device (int32 for *pos, *ids, *table)."""
+    _, tensors, dtype, err = case
+    if err is None:
+        assert _build.checked_args("k", tensors, dtype) == \
+            {F32: 0, BF16: 1}[dtype]
+    else:
+        with pytest.raises(err):
+            _build.checked_args("k", tensors, dtype)
+
+
+def test_checked_args_names_f32_and_strided_tensors():
+    ts = dict(x=_FakeCuda(BF16), A=_FakeCuda(F32),
+              B=_FakeCuda(BF16, contiguous=False))
+    assert _build.checked_args("k", ts, BF16, f32=("A",),
+                               strided=("B",)) == 1
+    with pytest.raises(ValueError, match="float32"):       # A named f32
+        _build.checked_args("k", dict(ts, A=_FakeCuda(BF16)), BF16,
+                            f32=("A",), strided=("B",))
+    with pytest.raises(ValueError, match="row-strided"):   # unit last stride
+        _build.checked_args("k", dict(ts, B=_FakeCuda(BF16, False, 3)),
+                            BF16, f32=("A",), strided=("B",))
+    with pytest.raises(ValueError, match="contiguous"):    # not named
+        _build.checked_args("k", ts, BF16, f32=("A",))

@@ -440,12 +440,6 @@ def test_paged_engine_rejects_what_the_reference_rejects(weights, case):
                 eng.submit(np.arange(15, dtype=np.int32) % 64, 8)
 
 
-def test_paged_spec_alone_stays_unported(weights):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(weights["tcfg"], slots=2, spec=_FakeSpec(),
-                     device="cpu")
-
-
 def test_paged_bank_drain_matches_jax_bank_drain(weights):
     """A mixed-domain paged drain with prefix sharing from an AdapterBank:
     the JAX bank drain's tokens and pool statistics."""
