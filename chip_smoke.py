@@ -106,7 +106,36 @@ Phases, each of which exits nonzero on a failed check:
    falcon-mamba-7b (inside phase 18) spec drains, with rows opted out,
    give the plain drains' tokens; falcon-mamba-7b as its own drafter
    accepts every draft; the vit-edge ``IntegratedRuntime(spec_k=4)`` runs
-   phase 15's 10 rounds and books drafted and accepted tokens.
+   phase 15's 10 rounds and books drafted and accepted tokens;
+21. the RG-LRU kernel against its plain version at recurrentgemma-2b's
+   prefill shape (B 8, S 512, W 2560; bf16 and f32, with and without a
+   per-row initial state, and one (W,) state shared by the rows), an odd
+   shape (S 37, W 200), and a ragged case: a right-padded row with r_gate
+   = -1e9 must end in the state of the same row run alone, bit for bit,
+   through the kernel (rows of 1 to 512 tokens); times beside the plain
+   version and the bound (the bytes, or the special-function operations);
+   no library call computes the recurrence;
+22. the head-dim-256 instances of flash_attention (B 8, S 512, 16 prefix
+   slots, 10 query heads over 1 KV head, window 2048) and flash_decode (8
+   rows against a 2048-slot rolling buffer behind 16 prefix slots, group
+   10) against their plain versions, timed beside phase 3's head dim 128
+   rows, which re-time the dense shapes;
+23. recurrentgemma-2b at its published size (26 layers: 8 groups of
+   (rglru, rglru, attn) and an (rglru, rglru) tail, d 2560, lru_width
+   2560, 10 / 1 heads of 256, d_ff 7680, vocab 256000 tied, window 2048,
+   bf16, random weights from the seed) drains phase 4's queue shape
+   through ``DecodeEngine(slots=8)`` single-tenant and from a 4-domain
+   ``AdapterBank`` whose domains differ in prefix, LoRA and state prompts:
+   ``rglru_scan`` must launch 18 times and flash_attention 8 times per
+   prefill or refill, no plain version may run; a mixed prefill must agree
+   with per-domain prefills and the domains must give different tokens;
+   f32 full-depth prefill logits kernels vs plain;
+24. hybrid exactness, recurrentgemma-2b at full width in f32 with 5 layers
+   (one group and the tail): prefill logits kernels vs plain within 1e-3
+   and the same greedy tokens (kernels == plain == solo rows), again with
+   the window cut to 8 so that the rolling buffer wraps, and a speculative
+   drain (default drafter, k 4) inside the window giving the plain
+   tokens.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -115,6 +144,7 @@ repository, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -142,19 +172,22 @@ REPLACES = {
     "lora_bgmv_rows": "src/repro/kernels/lora_bgmv.py:91",
     "lora_bgmv_seq": "src/repro/kernels/lora_bgmv.py:168",
     "selective_scan": "src/repro/kernels/selective_scan.py:56",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:51",
 }
 N_DOMAINS = 4
 # the path whose launches a kernel's record reports
 PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
            "lora_matmul_bwd": "train", "flash_decode_paged": "paged",
-           "selective_scan": "mamba"}
+           "selective_scan": "mamba", "rglru_scan": "hybrid"}
 # exponentials per second through the special-function units: 16 per
 # clock per SM (compute capability 9.0) x 132 SMs x 1,980 MHz (H100 SXM
 # boost clock)
 PEAK_EXP = 16 * 132 * 1.98e9
-# kernels of the attention and LoRA paths, none of which an ssm model runs
+# kernels of the attention, LoRA and RG-LRU paths, none of which an ssm
+# model runs
 NOT_SSM = ("lora_matmul", "flash_attention", "flash_decode",
-           "flash_decode_paged", "lora_bgmv_rows", "lora_bgmv_seq")
+           "flash_decode_paged", "lora_bgmv_rows", "lora_bgmv_seq",
+           "rglru_scan")
 
 
 class SmokeFailure(Exception):
@@ -1120,6 +1153,7 @@ class plain_calls:
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import lora_bgmv as bg
         from repro_torch.kernels import lora_matmul as lm
+        from repro_torch.kernels import rglru_scan as rg
         from repro_torch.kernels import selective_scan as ss
         self.counts = {}
         self.patched = []
@@ -1131,7 +1165,8 @@ class plain_calls:
                         (fd, "flash_decode_torch", "flash_decode"),
                         (fd, "flash_decode_paged_torch",
                          "flash_decode_paged"),
-                        (ss, "selective_scan_torch", "selective_scan")]
+                        (ss, "selective_scan_torch", "selective_scan"),
+                        (rg, "rglru_torch", "rglru_scan")]
         for mod, attr, key in targets:
             fn = getattr(mod, attr)
             self.counts[key] = 0
@@ -1933,6 +1968,436 @@ def spec_loop(seed: int) -> dict:
                         for r in recs])
 
 
+# ---------------------------------------------------------------------------
+# phases 21 to 24: the hybrid family (recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+def lru_kernel_cases(gen: torch.Generator, timer: Timer,
+                     cases: dict) -> None:
+    """Phase 21: rglru_scan at recurrentgemma-2b's prefill shape (B 8, S
+    512, W 2560) against its plain version, a shared (W,) initial state,
+    an odd shape, and the ragged bit-for-bit case (into ``cases``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import rglru_scan as rg
+
+    W = get_config("recurrentgemma-2b").lru_width
+    cases["rglru_scan"] = []
+
+    def operands(B, S, W, dtype, h0_kind):
+        def rn(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * s
+        x = rn(B, S, W, s=0.5).to(dtype)
+        r, i = rn(B, S, W).to(dtype), rn(B, S, W).to(dtype)
+        a = rn(W)
+        h0 = {"none": None, "per row": rn(B, W, s=0.1),
+              "shared (W,)": rn(W, s=0.1)}[h0_kind]
+        return [x, r, i, a, h0]
+
+    def one(B, S, W, dtype, h0_kind, timed):
+        args = operands(B, S, W, dtype, h0_kind)
+        label = f"B={B} S={S} W={W} h0 {h0_kind} {str(dtype)[6:]}"
+        hs, hT = rg.rglru(*args)
+        hsw, hTw = rg.rglru(*args, backend="torch")
+        torch.cuda.synchronize()
+        err = compare(f"rglru_scan {label}", hs, hsw, dtype)
+        herr = (hT - hTw).abs().max().item()
+        check(bool(torch.allclose(hT, hTw, atol=1e-3, rtol=1e-3)),
+              f"rglru_scan {label}: h_final max_abs_err {herr} beyond the "
+              f"scan tolerance 1e-3")
+        c = dict(shape=label, max_abs_err=err, tol=TOL[dtype],
+                 h_final_max_abs_err=herr, h_final_tol=1e-3)
+        if timed:
+            n = B * S * W
+            elt = args[0].element_size()
+            nbytes = 4 * elt * n + 4 * W + 4 * B * W * (
+                1 if h0_kind == "none" else 2)
+            # per element through the special-function units: an
+            # exponential and a reciprocal for each sigmoid, the
+            # exponential of a_t, the square root
+            mufu = 6 * n
+            # per element on the f32 cores: two sigmoid adds, r log_a,
+            # a_t², 1 - a_t², its max with 0, two products, the chain's
+            # multiply and add
+            flops = 10 * n
+            t_b, t_f, t_e = (nbytes / PEAK_BYTES,
+                             flops / PEAK_FLOPS[torch.float32],
+                             mufu / PEAK_EXP)
+            c.update(
+                ms=timer(lambda: rg.rglru(*args)),
+                plain_ms=timer(lambda: rg.rglru(*args, backend="torch")),
+                library_ms=None,
+                library="none: no single PyTorch call computes an RG-LRU "
+                        "scan",
+                bound_ms=max(t_b, t_f, t_e) * 1e3,
+                bound_by="bytes" if t_b >= max(t_f, t_e) else "operations",
+                bytes_ms=t_b * 1e3, mufu_ms=t_e * 1e3, flops_ms=t_f * 1e3)
+        cases["rglru_scan"].append(c)
+        log(f"kernel rglru_scan {c}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for h0_kind in ("per row", "none"):
+            one(8, 512, W, dtype, h0_kind, True)
+    one(8, 512, W, torch.bfloat16, "shared (W,)", False)
+    for dtype in (torch.bfloat16, torch.float32):
+        one(3, 37, 200, dtype, "per row", False)
+
+    # ragged: right-padded rows with r = -1e9 end in their solo state
+    x, r, i, a, h0 = operands(8, 512, W, torch.bfloat16, "per row")
+    lens = [512, 37, 200, 511, 1, 256, 300, 129]
+    rp = r.clone()
+    for b, n in enumerate(lens):
+        rp[b, n:] = -1e9
+    _, h = rg.rglru(x, rp, i, a, h0)
+    same = []
+    for b, n in enumerate(lens):
+        _, hb = rg.rglru(x[b:b + 1, :n].contiguous(),
+                         r[b:b + 1, :n].contiguous(),
+                         i[b:b + 1, :n].contiguous(), a, h0[b:b + 1])
+        same.append(bool(torch.equal(h[b], hb[0])))
+    check(all(same), f"rglru_scan ragged: padded rows' final state "
+                     f"bit-equal to the solo rows' {same}")
+    cases["rglru_scan"][0]["ragged_rows_bit_equal"] = same
+    log(f"kernel rglru_scan ragged B=8 lens {lens}: h_final of each padded "
+        f"row == its solo run, bit for bit")
+
+
+def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
+    """Phase 22: the head-dim-256 instances of flash_attention and
+    flash_decode at recurrentgemma-2b's shapes (10 query heads over 1 KV
+    head, window 2048, 16 prefix slots) against their plain versions,
+    timed beside phase 3's head-dim-128 rows (into ``cases``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+
+    cfg = get_config("recurrentgemma-2b")
+    B, S, n_p = 8, 512, 16
+    Hq, Hkv, D, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, \
+        cfg.hybrid.window
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    T = n_p + S
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(B, S, Hq, D, dtype=dtype)
+        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
+                                                       dtype=dtype)
+        kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=win)
+        got = fa.flash_attention(q, k, v, backend="cuda", **kw)
+        want = fa.flash_attention(q, k, v, backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = compare(f"flash_attention D {D} {dtype}", got, want, dtype)
+        vis = ref.visibility_mask(q_pos, kv_pos, window=win)
+        pairs = int(vis.sum().item()) * B * Hq
+        elt = q.element_size()
+        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
+                        4 * D * pairs, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        cases["flash_attention"].append(dict(
+            shape=f"B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"window={win} {str(dtype)[6:]}",
+            max_abs_err=err, tol=TOL[dtype],
+            ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda",
+                                                **kw)),
+            plain_ms=timer(lambda: fa.flash_attention(q, k, v,
+                                                      backend="torch", **kw)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=vis, enable_gqa=True)),
+            bound_ms=bms, bound_by=by))
+        log(f"kernel flash_attention {cases['flash_attention'][-1]}")
+
+    # decode: the 2048-slot rolling buffer of a windowed layer in its
+    # steady state (every row at or past the window, most wrapped, so
+    # every slot is written and visible), 16 prefix slots in front,
+    # per-row positions
+    Tc = win
+    T = n_p + Tc
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(B, Hq, D, dtype=dtype)
+        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
+                                                       dtype=dtype)
+        qp = torch.randint(Tc - 1, 2 * Tc, (B,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
+        # the absolute position each slot holds: the newest p <= q_pos
+        # with p % Tc == slot
+        held = slots + torch.div(qp[:, None] - slots, Tc,
+                                 rounding_mode="floor") * Tc
+        kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
+                                   device="cuda"), held.to(torch.int32)], 1)
+        kw = dict(q_pos=qp, kv_pos=kp, window=win)
+        got = fd.flash_decode(q, k, v, backend="cuda", **kw)
+        want = fd.flash_decode(q, k, v, backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = compare(f"flash_decode D {D} {dtype}", got, want, dtype)
+        qp64, kp64 = qp.long()[:, None], kp.long()
+        vis = ((kp64 <= qp64) & (qp64 - kp64 < win)) | (kp64 < 0)
+        check(bool(vis.all()), "flash_decode D 256: every slot of the "
+              "steady-state window must be visible (the bound counts all)")
+        pairs = int(vis.sum().item()) * Hq
+        elt = q.element_size()
+        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel())
+                        + 4 * (B + B * T), 4 * D * pairs, dtype)
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = vis[:, None, None, :]
+        cases["flash_decode"].append(dict(
+            shape=f"B={B} T={Tc}+{n_p} prefix, all visible, Hq={Hq} "
+                  f"Hkv={Hkv} D={D} window={win} per-row q_pos "
+                  f"{str(dtype)[6:]}",
+            max_abs_err=err, tol=TOL[dtype],
+            ms=timer(lambda: fd.flash_decode(q, k, v, backend="cuda", **kw)),
+            plain_ms=timer(lambda: fd.flash_decode(q, k, v, backend="torch",
+                                                   **kw)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            bound_ms=bms, bound_by=by))
+        log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+
+
+def hybrid_domains(cfg, seed: int) -> dict:
+    """N_DOMAINS hybrid adapter sets that differ in prefix slots, LoRA (a
+    and a seeded nonzero b) and state prompts (seeded, drawn large, as
+    mamba_domains draws them)."""
+    from repro_torch.models.model import adapter_spec
+    from repro_torch.models.params import init_from_spec
+    out = {}
+    for i in range(N_DOMAINS):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + i)
+        ad = init_from_spec(g, adapter_spec(cfg), torch.device("cuda"))
+        for grp in ad["stack"].values():
+            for layer in grp:
+                for sub in layer.values():
+                    if "state0" in sub:
+                        sub["state0"] = torch.randn(
+                            sub["state0"].shape, generator=g,
+                            device="cuda") * 5.0
+                    for t in sub.get("lora", {}).values():
+                        t["b"] = (torch.randn(t["b"].shape, generator=g,
+                                              device="cuda") * 0.1
+                                  ).to(t["b"].dtype)
+        out[f"domain{i}"] = ad
+    return out
+
+
+def hybrid_launches_ok(cfg, launches, stats, what, bank: bool) -> None:
+    """rglru_scan and flash_attention once per sub-layer of their kind per
+    prefill or refill; decode through flash_decode; the projections
+    through lora_matmul single-tenant and the multi-LoRA kernels from the
+    bank; no paged or ssm kernel."""
+    from repro_torch.models.transformer import groups_for
+    n_rec = sum(k.count("rglru") * n for _, k, n in groups_for(cfg))
+    n_attn = sum(k.count("attn") * n for _, k, n in groups_for(cfg))
+    lora = ("lora_bgmv_rows", "lora_bgmv_seq") if bank else ("lora_matmul",)
+    off = ("lora_matmul",) if bank else ("lora_bgmv_rows", "lora_bgmv_seq")
+    check(launches["rglru_scan"] == n_rec * stats.waves
+          and launches["flash_attention"] == n_attn * stats.waves
+          and launches["flash_decode"] > 0
+          and all(launches[k] > 0 for k in lora)
+          and all(launches[k] == 0 for k in off + (
+              "flash_decode_paged", "selective_scan")),
+          f"{what}: rglru_scan must launch {n_rec} and flash_attention "
+          f"{n_attn} times per prefill or refill ({stats.waves}): "
+          f"{launches}")
+
+
+def hybrid_path(seed: int) -> tuple[dict, dict]:
+    """Phase 23: recurrentgemma-2b at its published size, single-tenant and
+    from a 4-domain bank whose domains differ in prefix, LoRA and state
+    prompts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("recurrentgemma-2b")
+    check((cfg.n_layers, cfg.d_model, cfg.lru_width, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+           cfg.hybrid.window, cfg.tie_embeddings, cfg.dtype) ==
+          (26, 2560, 2560, 10, 1, 256, 7680, 256000, 2048, True,
+           "bfloat16"), "recurrentgemma-2b is not at its published size")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params["backbone"]))
+    log(f"hybrid: recurrentgemma-2b init {n_params / 1e9:.3f} B params "
+        f"(param_count {cfg.param_count()}) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed)
+    reqs = queue(rng, 16, (32, 513), (16, 65), cfg.vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with plain_calls(serving=True) as plain:
+        comps, stats = drain(cfg, params, reqs, slots=8)
+    launches = ops.launch_counts()
+    rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "hybrid")
+    hybrid_launches_ok(cfg, launches, stats, "hybrid", bank=False)
+    check(all(v == 0 for v in plain.values()),
+          f"hybrid: a plain version ran on the card: {plain}")
+    check(stats.waves > 1, "hybrid: no in-wave refill happened")
+    log(f"hybrid: {drain_line(rec)}; per-token p50 "
+        f"{rec['tok_latency_p50_s'] * 1e3:.1f} ms")
+
+    # one prompt's bf16 prefill logits through the kernels against the
+    # plain versions, recorded (a random deep stack amplifies one-ulp
+    # differences, as phase 17 found); the check is made in f32 below
+    toks = torch.as_tensor(reqs[0][0][None, :128], device="cuda")
+    kl, _ = M.prefill(params, {"tokens": toks}, cfg)
+    with ops.backend("torch"):
+        pl, _ = M.prefill(params, {"tokens": toks}, cfg)
+    cos = F.cosine_similarity(kl.flatten(), pl.flatten(), dim=0).item()
+    check(bool(torch.isfinite(kl).all()),
+          "hybrid: full-size prefill logits not finite")
+    log(f"hybrid: full-size bf16 prefill logits (128 tokens) kernels vs "
+        f"plain, recorded: cosine {cos:.6f}, top-1 {int(kl.argmax())} vs "
+        f"{int(pl.argmax())}")
+    rec["bf16_prefill_logits_cosine"] = cos
+
+    bank = AdapterBank.create(hybrid_domains(cfg, seed + 1))
+    sp = bank.serving_params(params["backbone"])
+    doms = [bank.domains[int(i)]
+            for i in np.random.default_rng(seed + 10).integers(
+                0, N_DOMAINS, len(reqs))]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with plain_calls(serving=True) as plain:
+        bcomps, bstats = drain(cfg, sp, reqs, slots=8, bank=bank,
+                               domains=doms)
+    bl = ops.launch_counts()
+    brec = drain_record(bstats, bl, torch.cuda.max_memory_allocated())
+    served_ok(cfg, bcomps, reqs, "hybrid bank")
+    hybrid_launches_ok(cfg, bl, bstats, "hybrid bank", bank=True)
+    check(all(v == 0 for v in plain.values()),
+          f"hybrid bank: a plain version ran on the card: {plain}")
+    log(f"hybrid bank: {N_DOMAINS} domains (prefix, LoRA, state0), mix "
+        f"{[doms.count(d) for d in bank.domains]}: {drain_line(brec)}")
+
+    # one short prompt per domain in one mixed prefill against each
+    # domain's own single-tenant prefill of the same batch
+    ptoks = torch.as_tensor(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (N_DOMAINS, 4)), device="cuda")
+    ids = bank.adapter_ids(bank.domains)
+    mixed, _ = M.prefill(sp, {"tokens": ptoks}, cfg, adapter_ids=ids)
+    coss, tops = [], []
+    for i, d in enumerate(bank.domains):
+        one, _ = M.prefill({"backbone": params["backbone"],
+                            "adapters": bank.snapshot(d)},
+                           {"tokens": ptoks}, cfg)
+        coss.append(F.cosine_similarity(mixed[i].flatten(),
+                                        one[i].flatten(), dim=0).item())
+        tops.append((int(mixed[i].argmax()), int(one[i].argmax())))
+        check(bool(torch.isfinite(mixed[i]).all()) and coss[-1] > 0.999
+              and tops[-1][0] == tops[-1][1],
+              f"hybrid bank: mixed vs {d} prefill cosine {coss[-1]}, top-1 "
+              f"{tops[-1]}")
+    out = M.generate(sp, cfg, ptoks[:1, :1].expand(N_DOMAINS, 1), gen=8,
+                     adapter_ids=ids).cpu().numpy()
+    distinct = len({tuple(r) for r in out})
+    check(distinct >= 2, f"hybrid bank: all {N_DOMAINS} domains gave the "
+                         f"same tokens {out[0]}")
+    log(f"hybrid bank: mixed vs per-domain prefill cosine "
+        f"{['%.6f' % c for c in coss]}, top-1 {tops}; one 1-token prompt "
+        f"through {N_DOMAINS} domains: {distinct} distinct token rows")
+    brec.update(mixed_prefill_cosine=coss, distinct_domain_rows=distinct)
+    rec["config"] = (f"recurrentgemma-2b {cfg.n_layers} layers d "
+                     f"{cfg.d_model} lru {cfg.lru_width} heads {cfg.n_heads}"
+                     f"/{cfg.n_kv_heads} x {cfg.head_dim_} window "
+                     f"{cfg.hybrid.window} {cfg.dtype}, {n_params} params")
+    del params, bank, sp
+    torch.cuda.empty_cache()
+
+    # full depth in f32: the same prompt's logits through the kernels and
+    # through the plain versions
+    cfg32 = cfg.with_(dtype="float32")
+    params = M.init(cfg32, seed, device="cuda")
+    kl, _ = M.prefill(params, {"tokens": toks}, cfg32)
+    with ops.backend("torch"):
+        pl, _ = M.prefill(params, {"tokens": toks}, cfg32)
+    cos = F.cosine_similarity(kl.flatten(), pl.flatten(), dim=0).item()
+    err = (kl - pl).abs().max().item()
+    check(bool(torch.isfinite(kl).all()) and cos > 0.9999
+          and int(kl.argmax()) == int(pl.argmax()),
+          f"hybrid: f32 full-depth prefill logits kernels vs plain cosine "
+          f"{cos}, top-1 {int(kl.argmax())} vs {int(pl.argmax())}")
+    log(f"hybrid: f32 {cfg32.n_layers}-layer prefill logits (128 tokens) "
+        f"kernels vs plain: cosine {cos:.8f}, max_abs_err {err:.4e}, top-1 "
+        f"{int(kl.argmax())} == {int(pl.argmax())}")
+    rec.update(f32_prefill_logits_cosine=cos, f32_prefill_max_abs_err=err)
+    del params
+    torch.cuda.empty_cache()
+    return rec, brec
+
+
+def hybrid_exactness(seed: int) -> dict:
+    """Phase 24: recurrentgemma-2b at full width in f32, 5 layers (one
+    ``(rglru, rglru, attn)`` group and the ``(rglru, rglru)`` tail):
+    logits (within 1e-3) and greedy tokens through the kernels against
+    the plain versions and solo rows, again with the window cut to 8 so
+    that the rolling buffer wraps, and a speculative drain inside the
+    window against the plain drain."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import groups_for
+
+    base = get_config("recurrentgemma-2b").with_(n_layers=5,
+                                                 dtype="float32")
+    check([k for _, k, _ in groups_for(base)] ==
+          [("rglru", "rglru", "attn"), ("rglru", "rglru")],
+          f"hybrid e2e: groups {groups_for(base)}")
+    params = M.init(base, seed, device="cuda")
+    out = {}
+    for win in (base.hybrid.window, 8):
+        cfg = base.with_(hybrid=dataclasses.replace(base.hybrid,
+                                                    window=win))
+        toks = torch.as_tensor(np.random.default_rng(seed + 7).integers(
+            0, cfg.vocab_size, (2, 40)), device="cuda")
+        kl, _ = M.prefill(params, {"tokens": toks}, cfg)
+        with ops.backend("torch"):
+            pl, _ = M.prefill(params, {"tokens": toks}, cfg)
+        err = (kl - pl).abs().max().item()
+        check(bool(torch.allclose(kl, pl, atol=1e-3, rtol=1e-3))
+              and torch.equal(kl.argmax(-1), pl.argmax(-1)),
+              f"hybrid e2e window {win}: prefill logits kernels vs plain "
+              f"max_abs_err {err} beyond 1e-3")
+        reqs = queue(np.random.default_rng(seed + 1), 8, (4, 97), (4, 33),
+                     cfg.vocab_size)
+        ops.reset_launch_counts()
+        kern, st = drain(cfg, params, reqs, slots=4)
+        hybrid_launches_ok(cfg, ops.launch_counts(), st,
+                           f"hybrid e2e window {win}", bank=False)
+        with ops.backend("torch"):
+            plain, _ = drain(cfg, params, reqs, slots=4)
+        for a, b in zip(kern, plain):
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"hybrid e2e window {win}: request {a.uid} kernel "
+                  f"{a.tokens} vs plain {b.tokens}")
+        for (p, g), c in zip(reqs, kern):
+            solo = M.generate(params, cfg, torch.as_tensor(
+                p[None], device="cuda"), gen=g)[0].cpu().numpy()
+            check(np.array_equal(solo, c.tokens),
+                  f"hybrid e2e window {win}: request {c.uid} drain "
+                  f"{c.tokens} vs solo {solo}")
+        wraps = sum(len(p) + g > win for p, g in reqs)
+        log(f"hybrid e2e: 5-layer f32 recurrentgemma-2b, window {win}: "
+            f"prefill logits max_abs_err {err:.3e} (tol 1e-3), same top-1; "
+            f"{len(reqs)} requests ({wraps} past the window), {st.waves} "
+            f"waves: kernel tokens == plain tokens == solo rows")
+        out[f"window {win}"] = dict(prefill_logits_max_abs_err=err,
+                                    requests=len(reqs), past_window=wraps,
+                                    waves=st.waves, tokens_equal=True)
+    out["spec"] = spec_exactness("hybrid e2e", base, params, seed)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1969,6 +2434,14 @@ def main(argv=None) -> int:
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+    # the card's own clocks, beside the data sheet's that the bounds use
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.max.mem",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"max clocks (sm, memory): {clocks}; bounds use "
+        f"{PEAK_EXP / (16 * 132) / 1e6:.0f} MHz and "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()
     nvcc = _build.build_all()
@@ -1979,13 +2452,15 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    rec = {"gpu": smi, "kind": kind, "build_s": build_s}
+    rec = {"gpu": smi, "kind": kind, "clocks": clocks, "build_s": build_s}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
     cases = kernel_cases(gen, timer)
     rec["train_kernels"] = train_kernel_cases(gen, timer, cases)
     paged_kernel_cases(gen, timer, cases)
     scan_kernel_cases(gen, timer, cases)
+    lru_kernel_cases(gen, timer, cases)
+    attn256_cases(gen, timer, cases)
     rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -1997,6 +2472,8 @@ def main(argv=None) -> int:
     rec["mamba"], rec["mamba_bank"] = mamba_path(args.seed)
     rec["mamba_e2e"] = mamba_exactness(args.seed)
     rec["spec_loop"] = spec_loop(args.seed)
+    rec["hybrid"], rec["hybrid_bank"] = hybrid_path(args.seed)
+    rec["hybrid_e2e"] = hybrid_exactness(args.seed)
 
     kernels = []
     for name, cs in cases.items():

@@ -7,7 +7,8 @@
 Times ``flash_attention`` and ``flash_decode`` at ``chip_smoke.py``'s
 phase 3 shapes (bf16: prefill of 8 x 512 tokens behind 16 prefix slots;
 decode of 8 rows against 1024 slots behind 16 prefix slots), and
-``flash_decode_paged`` at phase 12's where the tree has it, with
+``flash_decode_paged`` at phase 12's where the tree has it, and the
+head-dim-256 instances at phase 22's shapes where the tree has them, with
 ``chip_smoke.Timer`` (median of CUDA-event timings, L2 flushed before each
 launch) on inputs drawn from a fixed seed, so that runs of two trees see
 the same inputs. ``repro_torch`` comes from ``PYTHONPATH``: run it once
@@ -85,6 +86,27 @@ def main(argv=None) -> int:
                             torch.full_like(table, nb))
         out["flash_decode_paged_ms"] = timer(lambda: fd.flash_decode_paged(
             q, k_pool, v_pool, table, q_pos=qp, prefix_k=pk, prefix_v=pv))
+    if getattr(fa, "DMAX", 128) >= 256:
+        # head dim 256 (recurrentgemma-2b): prefill of 8 x 512 tokens behind
+        # 16 prefix slots, window 2048; decode against a 2048-slot buffer
+        Hq, Hkv, D, win = 10, 1, 256, 2048
+        q, k, v = randn(B, S, Hq, D), randn(B, n_p + S, Hkv, D), \
+            randn(B, n_p + S, Hkv, D)
+        out["flash_attention_d256_ms"] = timer(lambda: fa.flash_attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=win))
+        # in its steady state, as phase 22 draws it: every row at or past
+        # the window, so all 2048 + 16 slots are visible
+        q, k, v = randn(B, Hq, D), randn(B, n_p + win, Hkv, D), \
+            randn(B, n_p + win, Hkv, D)
+        qp = torch.randint(win - 1, 2 * win, (B,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        slots = torch.arange(win, dtype=torch.int32, device="cuda")[None]
+        held = slots + torch.div(qp[:, None] - slots, win,
+                                 rounding_mode="floor") * win
+        kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
+                                   device="cuda"), held.to(torch.int32)], 1)
+        out["flash_decode_d256_ms"] = timer(lambda: fd.flash_decode(
+            q, k, v, q_pos=qp, kv_pos=kp, window=win))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -23,11 +23,14 @@ An ``IntegratedRuntime``'s state crosses with :func:`integrated_from_jax`
 into a port runtime built with the same config, tasks and seed, its
 speculative drafter's parameters included.
 
-ssm layers cross like the others: their f32 leaves (``A_log``, ``D``,
-``dt_proj_b``, the ``state0`` prompts) stay f32, since every leaf keeps
-its dtype. Decode caches share the reference's ``(L, B, ...)`` layout, so
-an ssm cache (``h`` f32, ``conv`` in the config dtype) crosses leaf by
-leaf with :func:`caches_from_jax`.
+ssm and rglru layers cross like the others: their f32 leaves (``A_log``,
+``D``, ``dt_proj_b``, ``a_param``, the ``state0`` prompts) stay f32, since
+every leaf keeps its dtype. Each group unstacks along its own layer dim,
+so a hybrid's ``g0`` (8 layers of three sub-layers at full size) and
+``tail`` (1 layer of two) cross as two lists. Decode caches share the
+reference's ``(L, B, ...)`` layout, so a recurrent cache (``h`` f32,
+``conv`` in the config dtype) crosses leaf by leaf with
+:func:`caches_from_jax`.
 """
 from __future__ import annotations
 

@@ -14,27 +14,29 @@
 // prefix slots, and shares each K/V tile in shared memory among the 16
 // query rows of a block.
 //
-// Grid: (ceil(S / 16), Hq, B); 4 warps, 4 query rows each. GQA: query head
+// Grid: (ceil(S / 16), Hq, B); 16 query rows per block: 4 warps of 4 rows
+// at head dims up to 128, 8 warps of 2 rows up to 256 (attn_tile.cuh; that
+// instance takes its ~82 KB of shared memory dynamically). GQA: query head
 // h reads KV head h / (Hq / Hkv).
 #include "attn_tile.cuh"
 
 namespace {
 
-constexpr int NW = 4;
-constexpr int RPW = 4;
-constexpr int BQ = NW * RPW;
+constexpr int BQ = 16;              // query rows per block
 
-template <typename T>
-__global__ void __launch_bounds__(NW * 32)
+template <typename T, int DM>
+__global__ void __launch_bounds__(TileShape<DM>::NW * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, T* __restrict__ out,
                        int S, int T_len, int Hq, int Hkv, int D, float scale,
                        int causal, int window) {
-  __shared__ float Qs[BQ * DMAX];
-  __shared__ int qpos_s[BQ];
-  __shared__ AttnSmem sm;
+  constexpr int NW = TileShape<DM>::NW, RPW = TileShape<DM>::RPW;
+  constexpr int NI = DM / 32;
+  BlockSmem<DM, BQ>& blk = block_smem<DM, BQ>();
+  float* Qs = blk.Qs;
+  int* qpos_s = blk.qpos;
 
   const int s0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -44,7 +46,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = threadIdx.x; idx < BQ * D; idx += NW * 32) {
     const int r = idx / D, d = idx - r * D;
-    Qs[r * DMAX + d] = r < nrows
+    Qs[r * DM + d] = r < nrows
         ? to_f32(q[(((long long)b * S + s0 + r) * Hq + h) * D + d]) : 0.f;
   }
   if (threadIdx.x < BQ)
@@ -55,7 +57,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = (long long)b * T_len * kv_stride + (long long)hk * D;
   float acc[RPW][NI];
   attend_tiles<T, NW, RPW>(Qs, qpos_s, nrows, k + base, v + base, kv_stride,
-                           kv_pos, T_len, D, scale, causal, window, sm, acc);
+                           kv_pos, T_len, D, scale, causal, window, blk.sm,
+                           acc);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -69,23 +72,40 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int S, int T_len, int Hq, int Hkv, int D, float scale,
-                   int causal, int window, cudaStream_t stream) {
+template <typename T, int DM>
+cudaError_t launch_dm(const void* q, const void* k, const void* v,
+                      const int* q_pos, const int* kv_pos, void* out, int B,
+                      int S, int T_len, int Hq, int Hkv, int D, float scale,
+                      int causal, int window, cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<T><<<grid, NW * 32, 0, stream>>>(
+  size_t smem;
+  const cudaError_t e =
+      dynamic_smem<DM, BQ>(flash_attention_kernel<T, DM>, &smem);
+  if (e != cudaSuccess) return e;
+  flash_attention_kernel<T, DM><<<grid, TileShape<DM>::NW * 32, smem,
+                                  stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), S,
       T_len, Hq, Hkv, D, scale, causal, window);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* q_pos, const int* kv_pos, void* out, int B,
+                   int S, int T_len, int Hq, int Hkv, int D, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  if (D <= 128)
+    return launch_dm<T, 128>(q, k, v, q_pos, kv_pos, out, B, S, T_len, Hq,
+                             Hkv, D, scale, causal, window, stream);
+  return launch_dm<T, 256>(q, k, v, q_pos, kv_pos, out, B, S, T_len, Hq,
+                           Hkv, D, scale, causal, window, stream);
+}
+
 }  // namespace
 
 // q (B, S, Hq, D), k/v (B, T, Hkv, D), out (B, S, Hq, D): contiguous, one
-// dtype; q_pos (S,), kv_pos (T,) int32. D <= 128, Hq % Hkv == 0.
+// dtype; q_pos (S,), kv_pos (T,) int32. D <= 256, Hq % Hkv == 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const int* q_pos,
                                       const int* kv_pos, void* out, int B,

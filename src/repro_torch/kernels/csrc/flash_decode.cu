@@ -13,27 +13,31 @@
 // +1e9 sentinel slots never show, negative (prefix) slots always do.
 //
 // Known limit, left for a split-KV version: at 8 rows x 4 KV heads the grid
-// is only 32 blocks on 132 SMs, so most of the card idles during decode.
+// is only 32 blocks on 132 SMs (8 blocks at recurrentgemma's one KV head),
+// so most of the card idles during decode.
 //
-// Grid: (Hkv, B); 4 warps, query head j of the group on warp j % 4.
+// Grid: (Hkv, B); at head dims up to 128, 4 warps, query head j of the
+// group on warp j % 4; up to 256, 8 warps, query head j on warp j % 8
+// (attn_tile.cuh; that instance takes its ~82 KB of shared memory
+// dynamically). Up to 16 query heads per KV head either way.
 #include "attn_tile.cuh"
 
 namespace {
 
-constexpr int NW = 4;
-constexpr int RPW = 4;
-constexpr int GMAX = NW * RPW;          // largest GQA group taken
+constexpr int GMAX = 16;                // largest GQA group taken
 
-template <typename T>
-__global__ void __launch_bounds__(NW * 32)
+template <typename T, int DM>
+__global__ void __launch_bounds__(TileShape<DM>::NW * 32)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, T* __restrict__ out,
                     int T_len, int Hq, int Hkv, int D, float scale,
                     int causal, int window) {
-  __shared__ float Qs[GMAX * DMAX];
-  __shared__ int qpos_s[GMAX];
-  __shared__ AttnSmem sm;
+  constexpr int NW = TileShape<DM>::NW, RPW = TileShape<DM>::RPW;
+  constexpr int NI = DM / 32;
+  BlockSmem<DM, GMAX>& blk = block_smem<DM, GMAX>();
+  float* Qs = blk.Qs;
+  int* qpos_s = blk.qpos;
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -42,7 +46,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = threadIdx.x; idx < g * D; idx += NW * 32) {
     const int r = idx / D, d = idx - r * D;
-    Qs[r * DMAX + d] = to_f32(qg[(long long)r * D + d]);
+    Qs[r * DM + d] = to_f32(qg[(long long)r * D + d]);
   }
   if (threadIdx.x < g) qpos_s[threadIdx.x] = q_pos[b];
   __syncthreads();
@@ -52,7 +56,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[RPW][NI];
   attend_tiles<T, NW, RPW>(Qs, qpos_s, g, k + base, v + base, kv_stride,
                            kv_pos + (long long)b * T_len, T_len, D, scale,
-                           causal, window, sm, acc);
+                           causal, window, blk.sm, acc);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* og = out + ((long long)b * Hq + (long long)hk * g) * D;
@@ -67,23 +71,40 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int T_len, int Hq, int Hkv, int D, float scale, int causal,
-                   int window, cudaStream_t stream) {
+template <typename T, int DM>
+cudaError_t launch_dm(const void* q, const void* k, const void* v,
+                      const int* q_pos, const int* kv_pos, void* out, int B,
+                      int T_len, int Hq, int Hkv, int D, float scale,
+                      int causal, int window, cudaStream_t stream) {
   dim3 grid(Hkv, B);
-  flash_decode_kernel<T><<<grid, NW * 32, 0, stream>>>(
+  size_t smem;
+  const cudaError_t e =
+      dynamic_smem<DM, GMAX>(flash_decode_kernel<T, DM>, &smem);
+  if (e != cudaSuccess) return e;
+  flash_decode_kernel<T, DM><<<grid, TileShape<DM>::NW * 32, smem,
+                               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), T_len,
       Hq, Hkv, D, scale, causal, window);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* q_pos, const int* kv_pos, void* out, int B,
+                   int T_len, int Hq, int Hkv, int D, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  if (D <= 128)
+    return launch_dm<T, 128>(q, k, v, q_pos, kv_pos, out, B, T_len, Hq, Hkv,
+                             D, scale, causal, window, stream);
+  return launch_dm<T, 256>(q, k, v, q_pos, kv_pos, out, B, T_len, Hq, Hkv,
+                           D, scale, causal, window, stream);
+}
+
 }  // namespace
 
 // q (B, Hq, D), k/v (B, T, Hkv, D), out (B, Hq, D): contiguous, one dtype;
-// q_pos (B,), kv_pos (B, T) int32. D <= 128, Hq / Hkv <= 16.
+// q_pos (B,), kv_pos (B, T) int32. D <= 256, Hq / Hkv <= 16.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* q_pos,
                                    const int* kv_pos, void* out, int B,

@@ -27,7 +27,10 @@
 // grid is B x Hkv blocks (32 at the paged drain's 8 rows x 4 KV heads on
 // 132 SMs), as in the dense kernel.
 //
-// Grid: (Hkv, B); 4 warps, query head j of the group on warp j % 4.
+// Grid: (Hkv, B); 4 warps, query head j of the group on warp j % 4. Head
+// dims up to 128 (attn_tile.cuh's DM = 128 instance); no model that the
+// paged engine pages has a larger one (recurrentgemma's head dim 256 is
+// all local attention, which keeps its dense rolling buffer).
 #include "attn_tile.cuh"
 
 namespace {
@@ -35,6 +38,8 @@ namespace {
 constexpr int NW = 4;
 constexpr int RPW = 4;
 constexpr int GMAX = NW * RPW;          // largest GQA group taken
+constexpr int DP = 128;                 // largest head dim taken
+constexpr int NI = DP / 32;
 
 // Keys of one (row, KV head): n_p prefix rows, then the pool through the
 // row's table. Pointers are already offset to the KV head.
@@ -76,9 +81,9 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                           int n_blocks, int bs_log2, int maxb, int n_p,
                           long long prefix_row_stride, int Hq, int Hkv, int D,
                           float scale) {
-  __shared__ float Qs[GMAX * DMAX];
+  __shared__ float Qs[GMAX * DP];
   __shared__ int qpos_s[GMAX];
-  __shared__ AttnSmem sm;
+  __shared__ AttnSmem<DP> sm;
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -87,7 +92,7 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   for (int idx = threadIdx.x; idx < g * D; idx += NW * 32) {
     const int r = idx / D, d = idx - r * D;
-    Qs[r * DMAX + d] = to_f32(qg[(long long)r * D + d]);
+    Qs[r * DP + d] = to_f32(qg[(long long)r * D + d]);
   }
   if (threadIdx.x < g) qpos_s[threadIdx.x] = q_pos[b];
   __syncthreads();
@@ -151,7 +156,7 @@ extern "C" int flash_decode_paged_launch(
     const int* q_pos, const void* prefix_k, const void* prefix_v, void* out,
     int B, int n_blocks, int bs, int maxb, int n_p, int prefix_per_row,
     int Hq, int Hkv, int D, float scale, int dtype, void* stream) {
-  if (D > DMAX || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
+  if (D > DP || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
       bs <= 0 || (bs & (bs - 1)) != 0 || n_blocks <= 0 || n_p < 0 ||
       (n_p > 0 && (prefix_k == nullptr || prefix_v == nullptr)))
     return cudaErrorInvalidValue;

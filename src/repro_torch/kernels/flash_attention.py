@@ -39,7 +39,7 @@ from repro_torch.kernels import _build
 launches = 0
 
 KT = 32                    # keys per tile, as in csrc/attn_tile.cuh
-DMAX = 128
+DMAX = 256                 # largest head dim (two instances: <= 128, <= 256)
 NEG_INF = -1e30
 SCORE_BUDGET = 1 << 25     # f32 elements per score tensor in the backward
 

@@ -40,6 +40,7 @@ launches = 0
 paged_launches = 0
 
 GMAX = 16                  # largest GQA group the kernels take
+PAGED_DMAX = 128           # largest head dim of the paged kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
 _PAGED_ARGS = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
@@ -171,10 +172,10 @@ def _launch_paged(q, k_pool, v_pool, table, q_pos, prefix_k, prefix_v,
             f"{tuple(table.shape)}, q_pos {tuple(q_pos.shape)}, prefix "
             f"{None if prefix_k is None else tuple(prefix_k.shape)} do not "
             f"match")
-    if D > DMAX or Hq // Hkv > GMAX or bs & (bs - 1):
-        raise ValueError(f"flash_decode_paged: head dim {D} > {DMAX}, group "
-                         f"{Hq // Hkv} > {GMAX} or block size {bs} not a "
-                         f"power of two")
+    if D > PAGED_DMAX or Hq // Hkv > GMAX or bs & (bs - 1):
+        raise ValueError(f"flash_decode_paged: head dim {D} > "
+                         f"{PAGED_DMAX}, group {Hq // Hkv} > {GMAX} or block "
+                         f"size {bs} not a power of two")
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "table": table, "q_pos": q_pos}
     if prefix_k is not None:

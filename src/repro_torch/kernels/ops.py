@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import selective_scan as ss
 
 _BACKEND: Optional[str] = None          # None: by tensor device
@@ -32,7 +33,8 @@ _KERNELS = {"lora_matmul": (lm, "launches"),
             "flash_decode_paged": (fd, "paged_launches"),
             "lora_bgmv_rows": (bg, "rows_launches"),
             "lora_bgmv_seq": (bg, "seq_launches"),
-            "selective_scan": (ss, "launches")}
+            "selective_scan": (ss, "launches"),
+            "rglru_scan": (rg, "launches")}
 
 
 def set_backend(name: Optional[str]) -> None:
@@ -243,3 +245,26 @@ def selective_scan_step(x, dt, A, Bm, C, D, h):
     h = h.float() * dA + dBx
     y = torch.einsum("bdn,bn->bd", h, C.float()) + D.float() * xf
     return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def rglru(x, r_gate, i_gate, a_param, h0=None, *, c: float = 8.0,
+          backend: Optional[str] = None):
+    """The RG-LRU recurrence over a sequence (shapes as :func:`ref.rglru`;
+    h0 may also be one shared (W,) state). The reference's XLA-only
+    ``_rglru_assoc`` computes the same function and is covered by the
+    plain version."""
+    return rg.rglru(x, r_gate, i_gate, a_param, h0, c=c,
+                    backend=_pick(backend))
+
+
+def rglru_step(x, r_gate, i_gate, a_param, h, c: float = 8.0):
+    """One decode step, torch operations (the reference has no kernel for
+    it): the plain version's gates and one link of its chain; all (B, W).
+    Returns (y (B, W) in x.dtype, h f32)."""
+    a, u = rg.gates(x, r_gate, i_gate, a_param, c)
+    h = a * h.float() + u
+    return h.to(x.dtype), h

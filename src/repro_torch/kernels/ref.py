@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -178,3 +179,29 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = h * dA + dBx
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + Df * xt)
     return torch.stack(ys, 1).to(x.dtype), h
+
+
+def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+          a_param: torch.Tensor, h0: Optional[torch.Tensor] = None,
+          c: float = 8.0):
+    """RG-LRU recurrence (RecurrentGemma eq. 5-7), a naive loop over time
+    in f32.
+
+    x, r_gate, i_gate: (B, S, W) gate pre-activations; a_param: (W,) raw,
+    ``a = sigmoid(a_param)`` and ``a_t = a ** (c * sigmoid(r_t))``, taken
+    as ``exp(sigmoid(r_t) * log_a)`` with ``log_a = -c * softplus(-a_param)``;
+    ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t², 0)) (sigmoid(i_t) x_t)``.
+    h0: optional (B, W) initial state. Returns (h_seq (B, S, W) in
+    x.dtype, h_final (B, W) f32)."""
+    B, S, W = x.shape
+    log_a = -c * F.softplus(-a_param.float())
+    h = torch.zeros((B, W), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    hs = []
+    for t in range(S):
+        a_t = torch.exp(torch.sigmoid(r_gate[:, t].float()) * log_a)
+        gated = torch.sigmoid(i_gate[:, t].float()) * x[:, t].float()
+        h = a_t * h + torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=0.0)) \
+            * gated
+        hs.append(h)
+    return torch.stack(hs, 1).to(x.dtype), h

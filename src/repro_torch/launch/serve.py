@@ -17,6 +17,8 @@ Usage:
       --impl engine [--device cpu --reduced]
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon-mamba-7b --impl spec --draft-k 4 [--device cpu --reduced]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --impl engine [--device cpu --reduced]
 """
 from __future__ import annotations
 

@@ -1,8 +1,11 @@
-"""Decoder-stack assembly, dense and ssm families (counterpart of
+"""Decoder-stack assembly, dense, ssm and hybrid families (counterpart of
 ``repro/models/transformer.py``).
 
 A model is a list of groups, each a repeating pattern of sub-layers
-(``kinds``: ``attn`` or ``ssm``). The reference stacks a group's
+(``kinds``: ``attn``, ``ssm`` or ``rglru``, the last a recurrent block
+plus a gated MLP, Griffin-style). Dense and ssm models are one group;
+recurrentgemma is a repeated ``(rglru, rglru, attn)`` group plus a
+``tail`` group that runs once. The reference stacks a group's
 parameters along a leading dim and runs them with ``jax.lax.scan``; the
 port keeps one parameter dict per layer in a list and runs a Python loop.
 Decode caches keep the reference's layer-stacked layout ``(L, B, ...)``
@@ -17,13 +20,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import unported
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
 
 # ROADMAP items ("Modules to port") that port the other families
 FAMILY_ITEMS = {
-    "hybrid": "slice 6, hybrid family",
     "moe": "later, remaining families",
     "vlm": "later, remaining families",
     "audio": "later, remaining families",
@@ -34,6 +37,12 @@ def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
     """[(group_name, kinds, n_repeat)] — static model structure."""
     if cfg.family == "ssm":
         return [("g0", ("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat, tail = tuple(cfg.hybrid.pattern), tuple(cfg.hybrid.tail)
+        out = [("g0", pat, (cfg.n_layers - len(tail)) // len(pat))]
+        if tail:
+            out.append(("tail", tail, 1))
+        return out
     if cfg.family != "dense":
         raise unported(f"the {cfg.family!r} family",
                        FAMILY_ITEMS.get(cfg.family, "later"))
@@ -41,6 +50,9 @@ def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
 
 
 def attn_window(cfg: ModelConfig, kind: str) -> int:
+    """Every attention layer of a hybrid is local (``cfg.hybrid.window``)."""
+    if cfg.family == "hybrid":
+        return cfg.hybrid.window
     return cfg.sliding_window if cfg.attn_variant == "sliding" else 0
 
 
@@ -48,6 +60,10 @@ def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
     if kind == "ssm":
         return {"ln1": rmsnorm_spec(d), "mix": ssm_mod.ssm_spec(cfg)}
+    if kind == "rglru":
+        return {"ln1": rmsnorm_spec(d), "mix": rglru_mod.rglru_spec(cfg),
+                "ln2": rmsnorm_spec(d),
+                "mlp": mlp_spec(d, cfg.d_ff, attn_mod.param_dtype(cfg))}
     return {"ln1": rmsnorm_spec(d), "attn": attn_mod.attn_spec(cfg),
             "ln2": rmsnorm_spec(d),
             "mlp": mlp_spec(d, cfg.d_ff, attn_mod.param_dtype(cfg))}
@@ -55,8 +71,8 @@ def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
 
 def sublayer_adapter_spec(cfg: ModelConfig, kind: str) -> dict:
     """PEFT adapters of one sub-layer: prefix-KV slots and LoRA for
-    attention; the learned initial state alone for ssm (no prefix, no
-    LoRA)."""
+    attention; the learned initial state alone for ssm and rglru (no
+    prefix, no LoRA)."""
     p = cfg.peft
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dt = attn_mod.param_dtype(cfg)
@@ -65,6 +81,11 @@ def sublayer_adapter_spec(cfg: ModelConfig, kind: str) -> dict:
         if p.state_prompt:
             out["state0"] = ParamSpec((cfg.d_inner, cfg.ssm.d_state),
                                       torch.float32, init="zeros")
+        return out
+    if kind == "rglru":
+        if p.state_prompt:
+            out["state0"] = ParamSpec((cfg.lru_width,), torch.float32,
+                                      init="zeros")
         return out
     if p.n_prefix > 0:
         out["prefix"] = {"k": ParamSpec((p.n_prefix, nkv, hd), dt),
@@ -99,12 +120,15 @@ def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
     (full-window attention, :func:`paged_subs`) to the block-pool layout;
     sliding-window and recurrent sub-layers keep their dense per-row
     layout."""
-    return {name: {f"s{i}": (ssm_mod.ssm_cache_spec(cfg, batch, layers=n)
-                             if k == "ssm" else attn_mod.cache_spec(
-                                 cfg, batch, seq_len,
-                                 window=attn_window(cfg, k), layers=n,
-                                 paged=paged))
-                   for i, k in enumerate(kinds)}
+    def one(k: str, n: int) -> dict:
+        if k == "ssm":
+            return ssm_mod.ssm_cache_spec(cfg, batch, layers=n)
+        if k == "rglru":
+            return rglru_mod.rglru_cache_spec(cfg, batch, layers=n)
+        return attn_mod.cache_spec(cfg, batch, seq_len,
+                                   window=attn_window(cfg, k), layers=n,
+                                   paged=paged)
+    return {name: {f"s{i}": one(k, n) for i, k in enumerate(kinds)}
             for name, kinds, n in groups_for(cfg)}
 
 
@@ -112,8 +136,9 @@ def paged_subs(cfg: ModelConfig) -> list[tuple[str, str]]:
     """[(group, sub_key)] of the sub-layers eligible for the paged KV
     layout: full-window (window 0) attention. Sliding-window layers keep
     their W-slot rolling buffer and recurrent layers have O(1) state: a
-    config with no eligible sub-layer (ssm) still serves through the paged
-    engine, it just commits nothing to the pool."""
+    config with no eligible sub-layer (ssm, and hybrid, whose attention is
+    all local) still serves through the paged engine, it just commits
+    nothing to the pool."""
     return [(name, f"s{i}") for name, kinds, _ in groups_for(cfg)
             for i, k in enumerate(kinds)
             if k == "attn" and not attn_window(cfg, k)]
@@ -143,21 +168,33 @@ def _freeze_inactive(old: dict, new: dict, active) -> None:
         o.copy_(n)
 
 
+# recurrent sub-layer kinds -> (seq, decode, verify) of their mixer
+_RECURRENT = {
+    "ssm": (ssm_mod.ssm_seq, ssm_mod.ssm_decode, ssm_mod.ssm_verify),
+    "rglru": (rglru_mod.rglru_seq, rglru_mod.rglru_decode,
+              rglru_mod.rglru_verify),
+}
+
+
+def _ffn(p: dict, x):
+    """The sub-layer's MLP block, where it has one (ssm has none)."""
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)) if "mlp" in p else x
+
+
 def _apply_seq(kind: str, p: dict, a: dict, x, cfg: ModelConfig, *,
                positions, make_cache: bool, cache_len, lengths,
                adapter_ids):
     """One full-sequence sub-layer. Returns (x, cache or None)."""
-    if kind == "ssm":
-        h, c = ssm_mod.ssm_seq(p["mix"], _select_state0(a, adapter_ids),
-                               rmsnorm(p["ln1"], x), cfg,
-                               make_cache=make_cache, lengths=lengths)
-        return x + h, c
+    if kind in _RECURRENT:
+        h, c = _RECURRENT[kind][0](p["mix"], _select_state0(a, adapter_ids),
+                                   rmsnorm(p["ln1"], x), cfg,
+                                   make_cache=make_cache, lengths=lengths)
+        return _ffn(p, x + h), c
     h, c = attn_mod.attention_seq(
         p["attn"], a, rmsnorm(p["ln1"], x), cfg, positions=positions,
         window=attn_window(cfg, kind), make_cache=make_cache,
         cache_len=cache_len, lengths=lengths, adapter_ids=adapter_ids)
-    x = x + h
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), c
+    return _ffn(p, x + h), c
 
 
 def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
@@ -221,18 +258,16 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                 key = f"s{i}"
                 p, a = lp[key], la.get(key, {})
                 lc = {leaf: t[l] for leaf, t in gc[key].items()}
-                if k == "ssm":
-                    h, new = ssm_mod.ssm_decode(p["mix"], a,
-                                                rmsnorm(p["ln1"], x), lc, cfg)
+                if k in _RECURRENT:
+                    h, new = _RECURRENT[k][1](p["mix"], a,
+                                              rmsnorm(p["ln1"], x), lc, cfg)
                     _freeze_inactive(lc, new, active)
-                    x = x + h
-                    continue
-                h, _ = attn_mod.attention_decode(
-                    p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
-                    window=attn_window(cfg, k), active=active,
-                    adapter_ids=adapter_ids)
-                x = x + h
-                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+                else:
+                    h, _ = attn_mod.attention_decode(
+                        p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
+                        pos=pos, window=attn_window(cfg, k), active=active,
+                        adapter_ids=adapter_ids)
+                x = _ffn(p, x + h)
     return x, caches
 
 
@@ -279,8 +314,9 @@ def stack_verify(params: dict, adapters: dict, x: torch.Tensor,
 
     Attention sub-layers write the chunk's K/V into their cache in place
     and attend the updated cache (:func:`attention.attention_verify`: one
-    cache read for T tokens); ssm sub-layers chain T exact decode steps
-    and emit a state snapshot per step, leaving their cache as it was.
+    cache read for T tokens); recurrent (ssm, rglru) sub-layers chain T
+    exact decode steps and emit a state snapshot per step, leaving their
+    cache as it was.
     Returns (x, caches, rec_snaps): ``rec_snaps`` mirrors
     :func:`rec_cache_part` with a per-step axis at dim 2 ((L, B, T, ...)).
     ``core/spec_decode.py::rollback_caches`` then brings each row to its
@@ -297,18 +333,16 @@ def stack_verify(params: dict, adapters: dict, x: torch.Tensor,
                 key = f"s{i}"
                 p, a = lp[key], la.get(key, {})
                 lc = {leaf: t[l] for leaf, t in gc[key].items()}
-                if k == "ssm":
-                    h, s = ssm_mod.ssm_verify(p["mix"], a,
-                                              rmsnorm(p["ln1"], x), lc, cfg)
+                if k in _RECURRENT:
+                    h, s = _RECURRENT[k][2](p["mix"], a,
+                                            rmsnorm(p["ln1"], x), lc, cfg)
                     per.setdefault(key, []).append(s)
-                    x = x + h
-                    continue
-                h, _ = attn_mod.attention_verify(
-                    p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, pos=pos,
-                    window=attn_window(cfg, k), adapter_ids=adapter_ids,
-                    active=active)
-                x = x + h
-                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+                else:
+                    h, _ = attn_mod.attention_verify(
+                        p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
+                        pos=pos, window=attn_window(cfg, k),
+                        adapter_ids=adapter_ids, active=active)
+                x = _ffn(p, x + h)
         snaps[name] = {key: {leaf: torch.stack([s[leaf] for s in lst])
                              for leaf in lst[0]}
                        for key, lst in per.items()}

@@ -14,7 +14,11 @@ the plain versions and the dense drain; the selective scan against its
 plain version (odd S and Di, state widths 4 to 16, B and C as strided
 views, no, per-row and shared initial states), a padded row's state bit
 for bit the solo row's, and 2-layer falcon-mamba and speculative drains
-through the kernels against the plain versions. A CUDA kernel has
+through the kernels against the plain versions; the RG-LRU kernel against
+its plain version (odd S and W, no, per-row and shared initial states), a
+padded row's state bit for bit the solo row's, and a 3-layer
+recurrentgemma drain through the kernels (the attention kernels at head
+dim 256 included) against the plain versions. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -30,6 +34,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import selective_scan as ss
 
 pytestmark = pytest.mark.gpu
@@ -166,7 +171,9 @@ def test_ops_lora_bgmv_routes_by_shape(gen):
 
 # (B, S, n_prefix, Hq, Hkv, D)
 @pytest.mark.parametrize("case", [(1, 1, 0, 1, 1, 8), (2, 37, 5, 14, 2, 64),
-                                  (3, 70, 16, 28, 4, 128)])
+                                  (3, 70, 16, 28, 4, 128),
+                                  (2, 70, 16, 10, 1, 256),
+                                  (1, 37, 3, 4, 2, 200)])
 @pytest.mark.parametrize("window,causal", [(0, True), (16, True),
                                            (0, False)])
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -190,7 +197,9 @@ def test_flash_attention_kernel(gen, case, window, causal, dtype):
 # (B, T, n_prefix, Hq, Hkv, D)
 @pytest.mark.parametrize("case", [(1, 1, 0, 2, 2, 16), (3, 45, 4, 7, 1, 64),
                                   (8, 300, 16, 28, 4, 128),
-                                  (2, 33, 0, 32, 2, 128)])
+                                  (2, 33, 0, 32, 2, 128),
+                                  (8, 300, 16, 10, 1, 256),
+                                  (2, 45, 0, 6, 2, 160)])
 @pytest.mark.parametrize("window", [0, 8])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_decode_kernel(gen, case, window, dtype):
@@ -228,7 +237,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="rank"):
         lm.lora_matmul(x, w, randn(gen, 8, 33, dtype=torch.float32),
                        randn(gen, 33, 6, dtype=torch.float32), 1.0)
-    q = randn(gen, 1, 2, 1, 256, dtype=torch.float32)
+    q = randn(gen, 1, 2, 1, 320, dtype=torch.float32)
     with pytest.raises(ValueError, match="int32"):
         bg.lora_bgmv_rows(x, w, a[None], b[None],
                           torch.zeros(4, dtype=torch.int64, device="cuda"),
@@ -595,4 +604,80 @@ def test_spec_drain_on_the_card(gen):
     spec, _ = _serve(cfg, params, reqs, spec=SpecDecoder(cfg, params, k=3))
     plain, _ = _serve(cfg, params, reqs)
     for a, b in zip(spec, plain):
+        assert (a == b).all()
+
+
+def _lru_operands(gen, B, S, W, dtype, h0_kind):
+    x = randn(gen, B, S, W, dtype=dtype, s=0.5)
+    r = randn(gen, B, S, W, dtype=dtype)
+    i = randn(gen, B, S, W, dtype=dtype)
+    a = randn(gen, W, dtype=torch.float32)
+    h0 = {"none": None,
+          "row": randn(gen, B, W, dtype=torch.float32, s=0.1),
+          "shared": randn(gen, W, dtype=torch.float32, s=0.1)}[h0_kind]
+    return x, r, i, a, h0
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 32, 128), (2, 64, 256), (2, 96, 512),
+                                   (3, 37, 200), (2, 5, 33), (1, 1, 7),
+                                   (8, 512, 2560)])
+@pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_kernel(gen, B, S, W, h0_kind, dtype):
+    args = _lru_operands(gen, B, S, W, dtype, h0_kind)
+    n0 = rg.launches
+    hs, hT = rg.rglru(*args)
+    assert rg.launches == n0 + 1
+    hsw, hTw = rg.rglru_torch(*args)
+    close(hs, hsw, dtype)
+    assert hT.dtype == torch.float32 and hT.shape == (B, W)
+    assert torch.allclose(hT, hTw, atol=1e-3, rtol=1e-3), \
+        (hT - hTw).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_padded_row_state_is_bitwise(gen, dtype):
+    """r_gate = -1e9 over a right-padded row's tail: the kernel's final
+    state is the solo row's, through the kernel, bit for bit."""
+    x, r, i, a, h0 = _lru_operands(gen, 3, 70, 300, dtype, "row")
+    lens = [70, 9, 41]
+    rp = r.clone()
+    for b, n in enumerate(lens):
+        rp[b, n:] = -1e9
+    _, h = rg.rglru(x, rp, i, a, h0)
+    for b, n in enumerate(lens):
+        _, hb = rg.rglru(x[b:b + 1, :n].contiguous(),
+                         r[b:b + 1, :n].contiguous(),
+                         i[b:b + 1, :n].contiguous(), a, h0[b:b + 1])
+        assert torch.equal(h[b], hb[0]), b
+
+
+def test_rglru_refuses_what_it_does_not_take(gen):
+    x, r, i, a, h0 = _lru_operands(gen, 2, 8, 16, torch.float32, "row")
+    with pytest.raises(RuntimeError, match="no backward"):
+        rg.rglru(x.requires_grad_(True), r, i, a, h0)
+    x = x.detach()
+    with pytest.raises(ValueError, match="float32"):
+        rg.rglru(x, r, i, a.bfloat16(), h0)
+    with pytest.raises(ValueError, match="do not match"):
+        rg.rglru(x, r, i, a[:8], h0)
+
+
+def test_hybrid_drain_on_the_card(gen):
+    """A 3-layer f32 recurrentgemma (head dim 256) drain through the
+    kernels gives the plain versions' tokens; rglru_scan launches twice
+    per prefill or refill (two rglru sub-layers)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("recurrentgemma-2b").reduced().with_(
+        head_dim=256, vocab_size=512, dtype="float32")
+    params = M.init(cfg, 0, device="cuda")
+    reqs = _queue(cfg, seed=2)
+    ops.reset_launch_counts()
+    kern, st = _serve(cfg, params, reqs)
+    n = ops.launch_counts()
+    assert n["rglru_scan"] == 2 * st.waves and n["flash_decode"] > 0
+    with ops.backend("torch"):
+        plain, _ = _serve(cfg, params, reqs)
+    for a, b in zip(kern, plain):
         assert (a == b).all()

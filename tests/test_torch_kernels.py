@@ -428,6 +428,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.selective_scan(torch.randn(2, 3, 8), torch.rand(2, 3, 8),
                        -torch.rand(8, 4), torch.randn(2, 3, 4),
                        torch.randn(2, 3, 4), torch.randn(8))
+    ops.rglru(torch.randn(2, 3, 8), torch.randn(2, 3, 8),
+              torch.randn(2, 3, 8), torch.randn(8))
     x.requires_grad_(True)
     ops.lora_matmul(x, torch.randn(8, 6), torch.randn(8, 2),
                     torch.randn(2, 6), 1.0).sum().backward()
@@ -435,13 +437,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                    "flash_attention": 0, "flash_decode": 0,
                                    "flash_decode_paged": 0,
                                    "lora_bgmv_rows": 0, "lora_bgmv_seq": 0,
-                                   "selective_scan": 0}
+                                   "selective_scan": 0, "rglru_scan": 0}
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",
                                 "lora_bgmv_rows", "lora_bgmv_seq",
                                 "lora_matmul_bwd", "flash_decode_paged",
-                                "selective_scan"])
+                                "selective_scan", "rglru_scan"])
 def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
     """backend='cuda' never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -464,6 +466,9 @@ def test_asking_for_the_kernel_on_cpu_tensors_raises(op):
             ops.selective_scan(x, x, -torch.rand(8, 4), torch.randn(2, 3, 4),
                                torch.randn(2, 3, 4), torch.randn(8),
                                backend="cuda")
+        elif op == "rglru_scan":
+            x = torch.randn(2, 3, 8)
+            ops.rglru(x, x, x, torch.randn(8), backend="cuda")
         elif op == "flash_decode_paged":
             pool = torch.randn(4, 2, 2, 8)
             ops.flash_decode_paged(torch.randn(3, 2, 8), pool, pool,
