@@ -6,13 +6,16 @@
 Phases, each of which exits nonzero on a failed check:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``kernels/csrc``;
+2. build every CUDA kernel of the serving path from ``kernels/csrc``; in
+   each LoRA library's SASS (``cuobjdump -sass``) the bf16 tile must run
+   ``HGMMA`` (wgmma) on ``UTMALDG`` (TMA) loads and the f32 tile neither;
 3. kernels: at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
    library call's time as a yardstick and the card's least time (bound);
    the two multi-LoRA kernels also row by row against ``lora_matmul`` run
-   with that row's adapter, which must give the same bits;
+   with that row's adapter, which must give the same bits; each LoRA case
+   names its ``path``, ``wgmma`` (bf16) or ``cuda-core`` (f32);
 4. main path: qwen2-7b at its full published size (28 layers, d_model
    3584, bf16, random weights from the seed) serves 16 ragged requests
    through ``DecodeEngine(slots=8)``, with in-wave refill; lora_matmul,
@@ -137,6 +140,10 @@ Phases, each of which exits nonzero on a failed check:
    drain (default drafter, k 4) inside the window giving the plain
    tokens.
 
+Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 23) must
+leave ``lora_matmul.pad_copies`` at 0: no LoRA operand of a model is
+padded for TMA.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, the script exits nonzero and prints no result.
@@ -146,6 +153,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -239,6 +247,53 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
+def lora_path(dtype) -> str:
+    """The tile a LoRA kernel runs in this dtype."""
+    return "wgmma" if dtype == torch.bfloat16 else "cuda-core"
+
+
+def no_pad_copies(what: str) -> None:
+    """Every model width is a multiple of 8, so no LoRA operand on a main
+    path is padded for TMA."""
+    from repro_torch.kernels import lora_matmul as lm
+    check(lm.pad_copies == 0, f"{what}: {lm.pad_copies} LoRA operands "
+          "were padded for TMA")
+
+
+def sass_check(build) -> dict:
+    """Phase 2: per LoRA library, the kernels whose SASS holds ``HGMMA``
+    (wgmma) and ``UTMALDG`` (TMA loads). The bf16 tile must hold both, the
+    f32 tile neither."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    rec = {}
+    for name in ("lora_matmul", "lora_bgmv_rows", "lora_bgmv_seq"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build._target(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        ops_of, cur = {}, None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = m.group(1)
+                ops_of[cur] = set()
+            elif cur is not None:
+                ops_of[cur].update(op for op in ("HGMMA", "UTMALDG")
+                                   if op in line)
+        tc = [f for f in ops_of if "lora_wgmma_kernel" in f]
+        cc = [f for f in ops_of if "_f32_kernel" in f]
+        check(bool(tc) and all(ops_of[f] == {"HGMMA", "UTMALDG"}
+                               for f in tc),
+              f"{name}: the bf16 tile lacks HGMMA or UTMALDG: "
+              f"{ {f: sorted(ops_of[f]) for f in tc} }")
+        check(bool(cc) and not any(ops_of[f] for f in cc),
+              f"{name}: the f32 tile runs {[ops_of[f] for f in cc]}")
+        rec[name] = {"wgmma": {f: sorted(ops_of[f]) for f in tc},
+                     "cuda-core": {f: sorted(ops_of[f]) for f in cc}}
+        log(f"sass {name}: bf16 tile {len(tc)} kernel(s) with HGMMA and "
+            f"UTMALDG; f32 tile {len(cc)} kernel(s) with neither")
+    return rec
+
+
 def compare(name: str, got, want, dtype) -> float:
     err = (got.float() - want.float()).abs().max().item()
     tol = TOL[dtype]
@@ -287,7 +342,7 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
                             2 * M * N * K + 2 * M * r * (K + N), dtype)
             cases["lora_matmul"].append(dict(
                 shape=f"M={M} K={K} N={N} r={r} bias {str(dtype)[6:]}",
-                max_abs_err=err, tol=TOL[dtype],
+                path=lora_path(dtype), max_abs_err=err, tol=TOL[dtype],
                 ms=timer(lambda: lm.lora_matmul(x, w, a, b, scale, bias,
                                                 backend="cuda")),
                 plain_ms=timer(lambda: lm.lora_matmul(
@@ -434,7 +489,8 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
             shape=f"{'M' if x.dim() == 2 else 'B x S'}="
                   f"{' x '.join(map(str, lead))} K={K} N={N} r={r} "
                   f"slots={n_slots} bias {str(dtype)[6:]}",
-            max_abs_err=err, tol=TOL[dtype], bits_vs_lora_matmul=bit_err,
+            path=lora_path(dtype), max_abs_err=err, tol=TOL[dtype],
+            bits_vs_lora_matmul=bit_err,
             ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
                                 backend="cuda")),
             plain_ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
@@ -629,6 +685,7 @@ def main_path(seed: int) -> tuple[dict, dict]:
                                         "flash_decode")),
           f"a kernel of the single-tenant path never launched: {launches}")
     check(stats.waves > 1, "no in-wave refill happened")
+    no_pad_copies("phase 4")
     log(f"main: {drain_line(rec)}")
 
     # full-size reference check: one prompt's prefill logits through the
@@ -719,6 +776,7 @@ def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
         f"token rows")
     rec.update(mixed_prefill_cosine=coss, mixed_prefill_max_abs_err=errs,
                mixed_prefill_bit_equal=same, distinct_domain_rows=distinct)
+    no_pad_copies("phase 5")
     return rec
 
 
@@ -799,6 +857,7 @@ def paged_path(cfg, backbone: dict, bank, seed: int, dense: dict) -> dict:
         f" {same}/{len(reqs)} requests gave the first drain's tokens")
     rec.update(redrain_prefix_hits=st2.prefix_hits,
                redrain_tok_per_s=st2.tok_per_s, redrain_same_tokens=same)
+    no_pad_copies("phase 13")
     return rec
 
 
@@ -1024,7 +1083,7 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
 
             cases["lora_matmul_bwd"].append(dict(
                 shape=f"M={M} K={K} N={N} r={r} {str(dtype)[6:]}",
-                max_abs_err=err, tol=tol,
+                path="cuda-core", max_abs_err=err, tol=tol,
                 ms=timer(lambda: lm.lora_matmul_bwd(x, dy, a, b, scale,
                                                     backend="cuda")),
                 plain_ms=timer(lambda: lm.lora_matmul_bwd(
@@ -1050,7 +1109,8 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
         cases["lora_matmul"].append(dict(
             shape=f"dx of {proj}: dy M={M} N={N} against W^T ({N}x{K}) "
                   f"r={r} bf16",
-            max_abs_err=err, tol=TOL[torch.bfloat16],
+            path=lora_path(torch.bfloat16), max_abs_err=err,
+            tol=TOL[torch.bfloat16],
             ms=timer(lambda: lm.lora_matmul(dy, wt, bt, at, scale,
                                             backend="cuda")),
             plain_ms=timer(lambda: lm.lora_matmul(dy, wt, bt, at, scale,
@@ -1318,6 +1378,7 @@ def train_phases(seed: int) -> dict:
     rec = {"train": train_round(
         "train", cfg, n_clusters=2, steps=4, batch=4, sync_every=2,
         task_args=(5, 1000, 256, 0.5), seed=seed)}
+    no_pad_copies("phase 9")
 
     # phase 10: the paper's round, vit-edge with IntegratedRuntime's
     # upgrade settings and its examples' task
@@ -1327,6 +1388,7 @@ def train_phases(seed: int) -> dict:
     rec["paper_round"] = train_round(
         "paper round", vit, n_clusters=2, steps=20, batch=16, sync_every=5,
         task_args=(5, 64, 48, 0.6), seed=seed)
+    no_pad_copies("phase 10")
 
     # phase 11: f32 2-layer full-width qwen2-7b, kernels against plain.
     # SGD with momentum: AdamW's m / (sqrt(v) + eps) turns a gradient
@@ -1518,6 +1580,7 @@ def paper_loop(seed: int) -> dict:
         f"{rt.versions_of('cv')}, adapters differ by {diff:.3e}")
     del rt, fresh
     torch.cuda.empty_cache()
+    no_pad_copies("phase 15")
     return dict(config=f"vit-edge {cfg.n_layers} layers d {cfg.d_model} "
                        f"{cfg.dtype}", wall_s=wall, build_s=build_s,
                 rounds=rows, total_profit=recs[-1].cumulative,
@@ -1772,6 +1835,7 @@ def mamba_path(seed: int) -> tuple[dict, dict]:
     rec.update(f32_prefill_logits_cosine=cos, f32_prefill_max_abs_err=err)
     del params
     torch.cuda.empty_cache()
+    no_pad_copies("phase 23")
     return rec, brec
 
 
@@ -2449,10 +2513,11 @@ def main(argv=None) -> int:
     log(f"build: {len(nvcc)} kernels in {build_s:.1f}s")
     for name, text in nvcc.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    rec = {"gpu": smi, "kind": kind, "clocks": clocks, "build_s": build_s}
+    rec = {"gpu": smi, "kind": kind, "clocks": clocks, "build_s": build_s,
+           "sass": sass_check(_build)}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
     cases = kernel_cases(gen, timer)

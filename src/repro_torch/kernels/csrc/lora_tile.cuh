@@ -1,5 +1,7 @@
-// One (64 x 64) output tile of the LoRA-fused projection
-// y = x W + s (x A) B (+ bias), shared by the three LoRA kernels:
+// One (64 x 64) output tile of the f32 LoRA-fused projection
+// y = x W + s (x A) B (+ bias) on the CUDA cores, shared by the f32
+// instances of the three LoRA kernels (bf16 takes the tensor-core tile,
+// lora_u.cuh and lora_wgmma.cuh; TF32 would round f32 operands):
 //
 // - lora_matmul.cu:    one adapter (A (K, r), B (r, N)) for every row;
 // - lora_bgmv_seq.cu:  one adapter per block, the slot its sequence's id
@@ -9,10 +11,10 @@
 //
 // Every output element goes through the same sequence of f32 operations in
 // all three: the main product and u = x A summed over K in steps of BK, in
-// the same order, u kept in f32 (never rounded to the input dtype), one
-// cast at the end. A row's result therefore does not depend on the kernel,
-// the tile or the rows beside it, which is what makes a mixed-domain wave
-// equal single-tenant serving bit for bit.
+// the same order, u kept in f32, one store at the end. A row's result
+// therefore does not depend on the kernel, the tile or the rows beside it,
+// which is what makes a mixed-domain wave equal single-tenant serving bit
+// for bit.
 //
 // Tiles: one block per output tile, 256 threads, each thread 4 x 4 outputs
 // at stride 16; K in steps of 32 through shared memory, the next step's
@@ -26,7 +28,7 @@
 // slots, and staging every slot would take n_slots times the space; each
 // row's u and rank-r epilogue read its own slot straight from device
 // memory instead. The whole stack is n_slots * (K + N) * r elements
-// (230 KB at 4 slots, K 3584, N 3584, r 8, bf16), so those reads hit L2.
+// (917 KB at 4 slots, K 3584, N 3584, r 8, f32), so those reads hit L2.
 #pragma once
 
 #include "common.cuh"
@@ -43,12 +45,12 @@ constexpr int XPT = BM * BK / NT, WPT = BK * BN / NT, APT = BK * RMAX / NT;
 // y (M, N). x (M, K), w (K, N), bias (N,) or null. One adapter: a (K, r),
 // b (r, N), ids unused. PER_ROW: a (n_slots, K, r), b (n_slots, r, N) and
 // row m takes slot ids[m] (valid ids are the caller's contract).
-template <typename T, bool PER_ROW>
+template <bool PER_ROW>
 __device__ __forceinline__ void tile(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ a, const T* __restrict__ b,
-    const T* __restrict__ bias, const int* __restrict__ ids,
-    T* __restrict__ y, int M, int N, int K, int r, float scale, int m0,
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ bias, const int* __restrict__ ids,
+    float* __restrict__ y, int M, int N, int K, int r, float scale, int m0,
     int n0) {
   __shared__ float Xs[BK][BM + 1];            // transposed x tile
   __shared__ float Ws[BK][BN];
@@ -71,27 +73,26 @@ __device__ __forceinline__ void tile(
   float acc[4][4] = {};
   float u_acc[UPT] = {};
 
-  T xr[XPT], wr[WPT], ar[APT];
+  float xr[XPT], wr[WPT], ar[APT];
   auto load = [&](int k0) {
 #pragma unroll
     for (int it = 0; it < XPT; ++it) {
       const int e = tid + NT * it, rr = e / BK, c = e % BK;
       const int m = m0 + rr, kk = k0 + c;
-      xr[it] = (m < M && kk < K) ? x[(long long)m * K + kk] : from_f32<T>(0.f);
+      xr[it] = (m < M && kk < K) ? x[(long long)m * K + kk] : 0.f;
     }
 #pragma unroll
     for (int it = 0; it < WPT; ++it) {
       const int e = tid + NT * it, rr = e / BN, c = e % BN;
       const int kk = k0 + rr, n = n0 + c;
-      wr[it] = (kk < K && n < N) ? w[(long long)kk * N + n] : from_f32<T>(0.f);
+      wr[it] = (kk < K && n < N) ? w[(long long)kk * N + n] : 0.f;
     }
     if constexpr (!PER_ROW) {
 #pragma unroll
       for (int it = 0; it < APT; ++it) {
         const int e = tid + NT * it, rr = e / RMAX, j = e % RMAX;
         const int kk = k0 + rr;
-        ar[it] = (kk < K && j < r) ? a[(long long)kk * r + j]
-                                   : from_f32<T>(0.f);
+        ar[it] = (kk < K && j < r) ? a[(long long)kk * r + j] : 0.f;
       }
     }
   };
@@ -101,18 +102,18 @@ __device__ __forceinline__ void tile(
 #pragma unroll
     for (int it = 0; it < XPT; ++it) {
       const int e = tid + NT * it;
-      Xs[e % BK][e / BK] = to_f32(xr[it]);
+      Xs[e % BK][e / BK] = xr[it];
     }
 #pragma unroll
     for (int it = 0; it < WPT; ++it) {
       const int e = tid + NT * it;
-      Ws[e / BN][e % BN] = to_f32(wr[it]);
+      Ws[e / BN][e % BN] = wr[it];
     }
     if constexpr (!PER_ROW) {
 #pragma unroll
       for (int it = 0; it < APT; ++it) {
         const int e = tid + NT * it;
-        As[e / RMAX][e % RMAX] = to_f32(ar[it]);
+        As[e / RMAX][e % RMAX] = ar[it];
       }
     }
     __syncthreads();
@@ -138,10 +139,9 @@ __device__ __forceinline__ void tile(
         float s = 0.f;
         if constexpr (PER_ROW) {
           if (m0 + m < M) {                   // rows past M are never written
-            const T* am = a + Aoff[m] + (long long)k0 * r + j;
+            const float* am = a + Aoff[m] + (long long)k0 * r + j;
             for (int kk = 0; kk < BK; ++kk) {
-              const float av = k0 + kk < K ? to_f32(am[(long long)kk * r])
-                                           : 0.f;
+              const float av = k0 + kk < K ? am[(long long)kk * r] : 0.f;
               s += Xs[kk][m] * av;
             }
           }
@@ -154,7 +154,7 @@ __device__ __forceinline__ void tile(
     __syncthreads();
   }
 
-  // epilogue: y = acc + s * u B[:, tile] + bias, cast to the output dtype
+  // epilogue: y = acc + s * u B[:, tile] + bias
 #pragma unroll
   for (int e = 0; e < UPT; ++e) {
     const int p = tid + NT * e;
@@ -164,7 +164,7 @@ __device__ __forceinline__ void tile(
     for (int idx = tid; idx < r * BN; idx += NT) {
       const int j = idx / BN, c = idx % BN;
       const int n = n0 + c;
-      Bs[j][c] = n < N ? to_f32(b[(long long)j * N + n]) : 0.f;
+      Bs[j][c] = n < N ? b[(long long)j * N + n] : 0.f;
     }
   }
   __syncthreads();
@@ -179,14 +179,14 @@ __device__ __forceinline__ void tile(
       if (n >= N) continue;
       float lo = 0.f;
       if constexpr (PER_ROW) {
-        const T* bm = b + Boff[ml] + n;
-        for (int j = 0; j < r; ++j) lo += Us[ml][j] * to_f32(bm[(long long)j * N]);
+        const float* bm = b + Boff[ml] + n;
+        for (int j = 0; j < r; ++j) lo += Us[ml][j] * bm[(long long)j * N];
       } else {
         for (int j = 0; j < r; ++j) lo += Us[ml][j] * Bs[j][nl];
       }
       float out = acc[i][jj] + scale * lo;
-      if (bias != nullptr) out += to_f32(bias[n]);
-      y[(long long)m * N + n] = from_f32<T>(out);
+      if (bias != nullptr) out += bias[n];
+      y[(long long)m * N + n] = out;
     }
   }
 }

@@ -9,13 +9,17 @@ Two CUDA kernels and their plain PyTorch version.
   the prefill shape. Replaces ``lora_bgmv_seq_pallas``.
 
 a: (n_slots, K, r); b: (n_slots, r, N); ids int32 in [0, n_slots). Both
-kernels run ``lora_matmul``'s tile loop (``csrc/lora_tile.cuh``), so each
-row is bit-identical to ``lora_matmul`` run with that row's adapter. Valid
-ids are the caller's contract: no launch reads them back on the host.
+kernels run ``lora_matmul``'s tiles, so each row is bit-identical to
+``lora_matmul`` run with that row's adapter: in bf16 the u pass
+(``csrc/lora_u.cuh``) and the tensor-core tile (``csrc/lora_wgmma.cuh``),
+two launches per call, with ``lora_matmul._pad_for_tma``'s padding; in f32
+the CUDA-core tile (``csrc/lora_tile.cuh``). Valid ids are the caller's
+contract: no launch reads them back on the host.
 
-The wrappers launch a kernel for CUDA tensors and take the plain version
-only for CPU tensors or when the caller passes ``backend="torch"``.
-``rows_launches`` and ``seq_launches`` count kernel launches, nothing else.
+The wrappers launch the kernels for CUDA tensors and take the plain
+version only for CPU tensors or when the caller passes
+``backend="torch"``. ``rows_launches`` and ``seq_launches`` count calls of
+the op on the card (one per call), nothing else.
 """
 from __future__ import annotations
 
@@ -25,13 +29,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import lora_matmul as lm
 
 rows_launches = 0
 seq_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ROWS_ARGS = [_P] * 7 + [_I] * 4 + [_F, _I, _P]
-_SEQ_ARGS = [_P] * 7 + [_I] * 5 + [_F, _I, _P]
+_ROWS_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _P]
+_SEQ_ARGS = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
 
 
 def lora_bgmv_torch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -72,7 +77,7 @@ def _check(name, x, w, a, b, ids, bias, rows_of_ids):
     ts = {"x": x, "w": w, "a": a, "b": b, "ids": ids}
     if bias is not None:
         ts["bias"] = bias
-    return _build.checked_args(name, ts, x.dtype), N, r
+    return _build.checked_args(name, ts, x.dtype), r
 
 
 def _launch_rows(x, w, a, b, ids, scale, bias):
@@ -80,17 +85,20 @@ def _launch_rows(x, w, a, b, ids, scale, bias):
     if x.dim() != 2:
         raise ValueError(f"lora_bgmv_rows: x must be (M, K), got "
                          f"{tuple(x.shape)}")
-    M, K = x.shape
-    code, N, r = _check("lora_bgmv_rows", x, w, a, b, ids, bias, M)
+    M = x.shape[0]
+    code, r = _check("lora_bgmv_rows", x, w, a, b, ids, bias, M)
     lib = _build.bind("lora_bgmv_rows", _ROWS_ARGS)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    x, w, a, b, bias, N, u = lm._operands(x, w, a, b, bias, r)
+    Kp, Np = w.shape
+    y = torch.empty((M, Np), dtype=x.dtype, device=x.device)
     err = lib.lora_bgmv_rows_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         None if bias is None else bias.data_ptr(), ids.data_ptr(),
-        y.data_ptr(), M, N, K, r, float(scale), code, _build.stream(x))
+        None if u is None else u.data_ptr(), y.data_ptr(), M, Np, Kp, r,
+        float(scale), code, _build.stream(x))
     _build.check(lib, "lora_bgmv_rows", err)
     rows_launches += 1
-    return y
+    return y if Np == N else y[:, :N].contiguous()
 
 
 def _launch_seq(x, w, a, b, ids, scale, bias):
@@ -98,20 +106,23 @@ def _launch_seq(x, w, a, b, ids, scale, bias):
     if x.dim() != 3:
         raise ValueError(f"lora_bgmv_seq: x must be (B, S, K), got "
                          f"{tuple(x.shape)}")
-    B, S, K = x.shape
-    code, N, r = _check("lora_bgmv_seq", x, w, a, b, ids, bias, B)
+    B, S, _ = x.shape
+    code, r = _check("lora_bgmv_seq", x, w, a, b, ids, bias, B)
     if B > 65535:
         raise ValueError(f"lora_bgmv_seq: the kernel takes at most 65535 "
                          f"sequences, not {B}")
     lib = _build.bind("lora_bgmv_seq", _SEQ_ARGS)
-    y = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    x, w, a, b, bias, N, u = lm._operands(x, w, a, b, bias, r)
+    Kp, Np = w.shape
+    y = torch.empty((B, S, Np), dtype=x.dtype, device=x.device)
     err = lib.lora_bgmv_seq_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         None if bias is None else bias.data_ptr(), ids.data_ptr(),
-        y.data_ptr(), B, S, N, K, r, float(scale), code, _build.stream(x))
+        None if u is None else u.data_ptr(), y.data_ptr(), B, S, Np, Kp, r,
+        float(scale), code, _build.stream(x))
     _build.check(lib, "lora_bgmv_seq", err)
     seq_launches += 1
-    return y
+    return y if Np == N else y[..., :N].contiguous()
 
 
 def _plain(x, backend, name):
@@ -126,7 +137,9 @@ def lora_bgmv_rows(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, adapter_ids: torch.Tensor, scale: float,
                    bias: Optional[torch.Tensor] = None, *,
                    backend: Optional[str] = None) -> torch.Tensor:
-    """x: (M, K); adapter_ids: (M,) int32. Returns (M, N) in x.dtype."""
+    """x: (M, K); adapter_ids: (M,) int32. Returns (M, N) in x.dtype. A
+    bf16 call on the card launches two kernels, the u pass and then the
+    tensor-core tile."""
     if _plain(x, backend, "lora_bgmv_rows"):
         return lora_bgmv_torch(x, w, a, b, adapter_ids, scale, bias)
     return _launch_rows(x, w, a, b, adapter_ids, scale, bias)
@@ -137,7 +150,8 @@ def lora_bgmv_seq(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
                   backend: Optional[str] = None) -> torch.Tensor:
     """x: (B, S, K); adapter_ids: (B,) int32. Returns (B, S, N) in
-    x.dtype."""
+    x.dtype. A bf16 call on the card launches two kernels, the u pass and
+    then the tensor-core tile."""
     if _plain(x, backend, "lora_bgmv_seq"):
         return lora_bgmv_torch(x, w, a, b, adapter_ids, scale, bias)
     return _launch_seq(x, w, a, b, adapter_ids, scale, bias)

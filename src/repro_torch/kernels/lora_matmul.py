@@ -16,10 +16,19 @@ one read of x and dy, never ``dW``; the rank-r intermediates stay f32 as
 in the TPU kernel. Design: see the source note in
 ``csrc/lora_matmul_bwd.cu``.
 
+In bf16 the forward runs on the tensor cores: a pass writes ``u = x A``
+to an (M, r) f32 scratch, then a TMA-fed ``wgmma`` tile computes ``x W``
+and adds ``s u B (+ bias)``, so a bf16 call launches two kernels. TMA
+needs 16-byte-aligned bases and row strides, so :func:`_pad_for_tma`
+zero-pads K and N to multiples of 8 (and copies a misaligned base) where
+a shape needs it, and the wrapper slices y back; ``pad_copies`` counts
+those copies. Every model shape is aligned. f32 keeps the CUDA-core tile.
+
 ``lora_matmul`` and ``lora_matmul_bwd`` launch their kernel for CUDA
 tensors and take the plain version only for CPU tensors or when the caller
-passes ``backend="torch"``. ``launches`` and ``bwd_launches`` count kernel
-launches (one per call of the op), nothing else.
+passes ``backend="torch"``. ``launches`` and ``bwd_launches`` count calls
+of the op on the card (one per call, whatever the number of kernels it
+launches), nothing else.
 """
 from __future__ import annotations
 
@@ -32,9 +41,10 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 bwd_launches = 0
+pad_copies = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 4 + [_F, _I, _P]
 _BWD_ARGS = [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P]
 
 
@@ -42,6 +52,44 @@ _BWD_ARGS = [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P]
 # naive f32 sum (with one cast at the end for the forward).
 lora_matmul_torch = ref.lora_matmul
 lora_matmul_bwd_torch = ref.lora_adapter_grads
+
+
+def _pad_for_tma(x, w, a, b, bias):
+    """The operands of a bf16 launch with K and N zero-padded to multiples
+    of 8, and x and w copied where their base is not 16-byte aligned; an
+    operand that needs neither is returned as it is. x (..., K), w (K, N),
+    a (..., K, r), b (..., r, N), bias (N,) or None. Returns the five and
+    the N to slice y back to. Zeros add exact zeros, so no bit of y[..., :N]
+    changes."""
+    K, N = w.shape
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+
+    def fit(t, shape, aligned):
+        global pad_copies
+        if tuple(t.shape) == shape and \
+                (not aligned or t.data_ptr() % 16 == 0):
+            return t
+        out = t.new_zeros(shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        pad_copies += 1
+        return out
+
+    return (fit(x, (*x.shape[:-1], Kp), True), fit(w, (Kp, Np), True),
+            fit(a, (*a.shape[:-2], Kp, a.shape[-1]), False),
+            fit(b, (*b.shape[:-1], Np), False),
+            None if bias is None else fit(bias, (Np,), False), N)
+
+
+def _operands(x, w, a, b, bias, r):
+    """What a launch passes: in bf16 the operands through
+    :func:`_pad_for_tma`, the N to slice y back to and the (rows, r) f32 u
+    scratch; in f32 the operands as they are and no scratch."""
+    if x.dtype != torch.bfloat16:
+        return x, w, a, b, bias, w.shape[1], None
+    x, w, a, b, bias, N = _pad_for_tma(x, w, a, b, bias)
+    u = torch.empty((x.numel() // x.shape[-1], r), dtype=torch.float32,
+                    device=x.device)
+    return x, w, a, b, bias, N, u
 
 
 def _launch(x, w, a, b, scale, bias):
@@ -60,14 +108,17 @@ def _launch(x, w, a, b, scale, bias):
         ts["bias"] = bias
     code = _build.checked_args("lora_matmul", ts, x.dtype)
     lib = _build.bind("lora_matmul", _ARGS)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    x, w, a, b, bias, N, u = _operands(x, w, a, b, bias, r)
+    Kp, Np = w.shape
+    y = torch.empty((M, Np), dtype=x.dtype, device=x.device)
     err = lib.lora_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        M, N, K, r, float(scale), code, _build.stream(x))
+        None if bias is None else bias.data_ptr(),
+        None if u is None else u.data_ptr(), y.data_ptr(),
+        M, Np, Kp, r, float(scale), code, _build.stream(x))
     _build.check(lib, "lora_matmul", err)
     launches += 1
-    return y
+    return y if Np == N else y[:, :N].contiguous()
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -75,7 +126,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *,
                 backend: Optional[str] = None) -> torch.Tensor:
     """x: (M, K); w: (K, N); a: (K, r); b: (r, N); bias: (N,) or None.
-    Returns (M, N) in x.dtype."""
+    Returns (M, N) in x.dtype. A bf16 call on the card launches two
+    kernels, the u pass and then the tensor-core tile."""
     if backend == "torch" or (backend is None and x.device.type == "cpu"):
         return lora_matmul_torch(x, w, a, b, scale, bias)
     if backend not in (None, "cuda"):

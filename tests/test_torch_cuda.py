@@ -1,8 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: odd shapes (M, N, K not multiples of any tile, g = 7, D = 64),
-windows, non-causal masks, sentinels and prefix slots; the multi-LoRA
+windows, non-causal masks, sentinels and prefix slots; one 128 x 128 x 64
+tile of the bf16 LoRA path's tensor-core layout (TMA boxes, swizzle,
+wgmma descriptors) against ``x.float() @ w.float()``; the LoRA kernels at
+prefill size with ragged tails, their padding for TMA (``pad_copies``),
+and no fallback when their library is missing; the multi-LoRA
 kernels with 1 to 8 slots, ranks 1 to 32, and ids all the same, all
-different and repeating, and bit for bit against ``lora_matmul`` per row;
+different and repeating, and bit for bit against ``lora_matmul`` per row
+(a prefill case at K 3584 included);
 the adapter-gradient kernel, the autograd ``lora_matmul`` and the
 flash-attention backward on the card against autograd through the plain
 versions, and a reduced HFSL round through the kernels against the same
@@ -26,9 +31,12 @@ no JAX (that machine has none).
 Tolerances: bf16 2e-2 as in tests/test_kernels.py; f32 1e-4, because the
 kernels sum up to a few thousand terms in another order than cuBLAS.
 """
+import ctypes
+
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
@@ -62,8 +70,28 @@ def close(got, want, dtype):
         (got.float() - want.float()).abs().max().item()
 
 
+def test_wgmma_probe_one_tile(gen):
+    """One 128 x 128 x 64 bf16 tile through the tensor-core path's TMA
+    boxes, 128-byte swizzle and wgmma descriptors (x K-major, W N-major),
+    f32 out, against ``x.float() @ w.float()``: bf16 products are exact in
+    f32, so only the order of each 64-term sum differs."""
+    lib = _build.load("lora_matmul")
+    fn = lib.lora_wgmma_probe_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
+    x = randn(gen, 128, 64, dtype=torch.bfloat16)
+    w = randn(gen, 64, 128, dtype=torch.bfloat16)
+    y = torch.full((128, 128), float("nan"), device="cuda")
+    _build.check(lib, "lora_matmul", fn(x.data_ptr(), w.data_ptr(),
+                                        y.data_ptr(), _build.stream(x)))
+    torch.cuda.synchronize()
+    want = x.float() @ w.float()
+    assert torch.allclose(y, want, atol=1e-4, rtol=1e-4), \
+        (y - want).abs().max().item()
+
+
 @pytest.mark.parametrize("M,K,N,r", [(1, 7, 5, 1), (65, 130, 97, 8),
-                                     (8, 3584, 512, 8), (130, 67, 200, 32)])
+                                     (8, 3584, 512, 8), (130, 67, 200, 32),
+                                     (300, 3584, 1000, 8)])
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_lora_matmul_kernel(gen, M, K, N, r, with_bias, dtype):
@@ -130,12 +158,27 @@ def test_lora_bgmv_seq_kernel(gen, B, K, N, r, n_slots, S, pattern, dtype):
     close(got, bg.lora_bgmv_torch(x, w, a, b, ids, 2.0, bias), dtype)
 
 
-@pytest.mark.parametrize("seq", [None, 37])
+@pytest.mark.parametrize("pattern", ["same", "distinct", "repeat"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_lora_bgmv_rows_equal_lora_matmul_bit_for_bit(gen, seq, dtype):
+def test_lora_bgmv_seq_kernel_at_prefill_size(gen, pattern, dtype):
+    """Three sequences of 300 tokens (a ragged last row tile) at K 3584:
+    56 K steps through the ring, so every stage is refilled many times."""
+    B, S, K, N, r, n_slots = 3, 300, 3584, 512, 8, 4
+    x, w, a, b, bias = _bgmv_operands(gen, (B, S), K, N, r, n_slots, dtype,
+                                      True)
+    ids = _ids(gen, B, n_slots, pattern)
+    n0 = bg.seq_launches
+    got = bg.lora_bgmv_seq(x, w, a, b, ids, 2.0, bias)
+    assert bg.seq_launches == n0 + 1
+    close(got, bg.lora_bgmv_torch(x, w, a, b, ids, 2.0, bias), dtype)
+
+
+@pytest.mark.parametrize("seq,K", [(None, 200), (37, 200), (300, 3584)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lora_bgmv_rows_equal_lora_matmul_bit_for_bit(gen, seq, K, dtype):
     """Each row (sequence) equals ``lora_matmul`` run alone with its own
     adapter: the same bits, whatever batch it came in."""
-    n, K, N, r, n_slots = 9, 200, 131, 8, 4
+    n, N, r, n_slots = 9, 131, 8, 4
     lead = (n,) if seq is None else (n, seq)
     x, w, a, b, bias = _bgmv_operands(gen, lead, K, N, r, n_slots, dtype,
                                       True)
@@ -151,6 +194,54 @@ def test_lora_bgmv_rows_equal_lora_matmul_bit_for_bit(gen, seq, dtype):
         gi = got[i:i + 1] if seq is None else got[i]
         assert torch.equal(gi, want), (i, (gi.float() - want.float()).abs()
                                        .max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pad_copies_only_at_unaligned_bf16_shapes(gen, dtype):
+    """TMA takes bf16 K and N in multiples of 8: aligned shapes (every
+    model's) launch with no copy, unaligned ones pad; f32 never pads."""
+    for K, N, copies in ((256, 136, False), (130, 131, True)):
+        x, w, a, b, bias = _bgmv_operands(gen, (2, 20), K, N, 8, 3, dtype,
+                                          True)
+        ids = _ids(gen, 2, 3, "distinct")
+        n0 = lm.pad_copies
+        lm.lora_matmul(x[0], w, a[0], b[0], 2.0, bias)
+        bg.lora_bgmv_rows(x[0], w, a, b, _ids(gen, 20, 3, "repeat"), 2.0,
+                          bias)
+        bg.lora_bgmv_seq(x, w, a, b, ids, 2.0, bias)
+        padded = lm.pad_copies - n0
+        assert (padded > 0) == (copies and dtype == torch.bfloat16), padded
+
+
+def test_bf16_lora_raises_without_its_kernel(gen, monkeypatch):
+    """No fallback: a library that is not there, or a launch the C entry
+    point refuses, raises; nothing takes the CUDA-core tile or the plain
+    version instead."""
+    x, w, a, b, bias = _bgmv_operands(gen, (2, 16), 64, 32, 4, 2,
+                                      torch.bfloat16, True)
+    ids = _ids(gen, 2, 2, "distinct")
+    lib = _build.bind("lora_matmul", lm._ARGS)
+    u = torch.empty((16, 4), device="cuda")
+    y = torch.empty((16, 32), dtype=torch.bfloat16, device="cuda")
+    err = lib.lora_matmul_launch(                   # K 63: not for TMA
+        x[0].data_ptr(), w.data_ptr(), a[0].data_ptr(), b[0].data_ptr(),
+        None, u.data_ptr(), y.data_ptr(), 16, 32, 63, 4, 1.0, 1,
+        _build.stream(x))
+    with pytest.raises(RuntimeError, match="lora_matmul kernel launch"):
+        _build.check(lib, "lora_matmul", err)
+
+    def missing(name, argtypes):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "bind", missing)
+    n = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc failed for lora_matmul"):
+        lm.lora_matmul(x[0], w, a[0], b[0], 2.0, bias)
+    with pytest.raises(RuntimeError, match="nvcc failed for lora_bgmv_rows"):
+        bg.lora_bgmv_rows(x[0], w, a, b, _ids(gen, 16, 2, "repeat"), 2.0)
+    with pytest.raises(RuntimeError, match="nvcc failed for lora_bgmv_seq"):
+        bg.lora_bgmv_seq(x, w, a, b, ids, 2.0, bias)
+    assert ops.launch_counts() == n
 
 
 def test_ops_lora_bgmv_routes_by_shape(gen):
