@@ -7,15 +7,21 @@ Phases, each of which exits nonzero on a failed check:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the serving path from ``kernels/csrc``; in
-   each LoRA library's SASS (``cuobjdump -sass``) the bf16 tile must run
-   ``HGMMA`` (wgmma) on ``UTMALDG`` (TMA) loads and the f32 tile neither;
+   the SASS (``cuobjdump -sass``) of each LoRA library and of the
+   ``flash_attention`` library, every bf16 tile (the three attention
+   instances, head dims 64, 128 and 256) must run ``HGMMA`` (wgmma) on
+   ``UTMALDG`` (TMA) loads and every f32 tile neither;
 3. kernels: at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
    library call's time as a yardstick and the card's least time (bound);
    the two multi-LoRA kernels also row by row against ``lora_matmul`` run
-   with that row's adapter, which must give the same bits; each LoRA case
-   names its ``path``, ``wgmma`` (bf16) or ``cuda-core`` (f32);
+   with that row's adapter, which must give the same bits; each LoRA and
+   attention case names its ``path``, ``wgmma`` (bf16) or ``cuda-core``
+   (f32); flash_attention at head dim 128 (qwen2-7b's prefill) and, in
+   bf16, at head dim 64: vit-edge's classify (B 8, S 197, 16 prefix
+   slots, 12 / 12 heads) and 512 tokens, which refill the instance's
+   4-stage ring;
 4. main path: qwen2-7b at its full published size (28 layers, d_model
    3584, bf16, random weights from the seed) serves 16 ragged requests
    through ``DecodeEngine(slots=8)``, with in-wave refill; lora_matmul,
@@ -122,7 +128,8 @@ Phases, each of which exits nonzero on a failed check:
    slots, 10 query heads over 1 KV head, window 2048) and flash_decode (8
    rows against a 2048-slot rolling buffer behind 16 prefix slots, group
    10) against their plain versions, timed beside phase 3's head dim 128
-   rows, which re-time the dense shapes;
+   rows, which re-time the dense shapes; each attention case names its
+   ``path``;
 23. recurrentgemma-2b at its published size (26 layers: 8 groups of
    (rglru, rglru, attn) and an (rglru, rglru) tail, d 2560, lru_width
    2560, 10 / 1 heads of 256, d_ff 7680, vocab 256000 tied, window 2048,
@@ -140,9 +147,9 @@ Phases, each of which exits nonzero on a failed check:
    drain (default drafter, k 4) inside the window giving the plain
    tokens.
 
-Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 23) must
-leave ``lora_matmul.pad_copies`` at 0: no LoRA operand of a model is
-padded for TMA.
+Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 17, 23)
+must leave ``lora_matmul.pad_copies`` and ``flash_attention.pad_copies``
+at 0: no LoRA or attention operand of a model is padded for TMA.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -247,26 +254,40 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
-def lora_path(dtype) -> str:
-    """The tile a LoRA kernel runs in this dtype."""
+def tile_path(dtype) -> str:
+    """The tile a LoRA or attention kernel runs in this dtype."""
     return "wgmma" if dtype == torch.bfloat16 else "cuda-core"
 
 
 def no_pad_copies(what: str) -> None:
-    """Every model width is a multiple of 8, so no LoRA operand on a main
-    path is padded for TMA."""
+    """Every model width and head dim is a multiple of 8, so no LoRA or
+    attention operand on a main path is padded for TMA."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_matmul as lm
     check(lm.pad_copies == 0, f"{what}: {lm.pad_copies} LoRA operands "
           "were padded for TMA")
+    check(fa.pad_copies == 0, f"{what}: {fa.pad_copies} attention calls "
+          "padded their operands for TMA")
+
+
+# per library: the name of its bf16 tensor-core kernels, of its f32
+# CUDA-core kernels, and how many of each it must hold
+SASS_TILES = {
+    "lora_matmul": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
+    "lora_bgmv_rows": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
+    "lora_bgmv_seq": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
+    # head dims 64, 128, 256 in bf16; 128 and 256 in f32
+    "flash_attention": ("attn_wgmma_kernel", "flash_attention_kernel", 3,
+                        2)}
 
 
 def sass_check(build) -> dict:
-    """Phase 2: per LoRA library, the kernels whose SASS holds ``HGMMA``
-    (wgmma) and ``UTMALDG`` (TMA loads). The bf16 tile must hold both, the
-    f32 tile neither."""
+    """Phase 2: per LoRA library and the attention library, the kernels
+    whose SASS holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads). Every
+    bf16 tile must hold both, every f32 tile neither."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
-    for name in ("lora_matmul", "lora_bgmv_rows", "lora_bgmv_seq"):
+    for name, (tc_name, cc_name, n_tc, n_cc) in SASS_TILES.items():
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(build._target(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -279,14 +300,15 @@ def sass_check(build) -> dict:
             elif cur is not None:
                 ops_of[cur].update(op for op in ("HGMMA", "UTMALDG")
                                    if op in line)
-        tc = [f for f in ops_of if "lora_wgmma_kernel" in f]
-        cc = [f for f in ops_of if "_f32_kernel" in f]
-        check(bool(tc) and all(ops_of[f] == {"HGMMA", "UTMALDG"}
-                               for f in tc),
-              f"{name}: the bf16 tile lacks HGMMA or UTMALDG: "
+        tc = [f for f in ops_of if tc_name in f]
+        cc = [f for f in ops_of if cc_name in f]
+        check(len(tc) == n_tc and all(ops_of[f] == {"HGMMA", "UTMALDG"}
+                                      for f in tc),
+              f"{name}: a bf16 tile lacks HGMMA or UTMALDG, or is missing: "
               f"{ {f: sorted(ops_of[f]) for f in tc} }")
-        check(bool(cc) and not any(ops_of[f] for f in cc),
-              f"{name}: the f32 tile runs {[ops_of[f] for f in cc]}")
+        check(len(cc) == n_cc and not any(ops_of[f] for f in cc),
+              f"{name}: an f32 tile runs {[ops_of[f] for f in cc]}, or is "
+              "missing")
         rec[name] = {"wgmma": {f: sorted(ops_of[f]) for f in tc},
                      "cuda-core": {f: sorted(ops_of[f]) for f in cc}}
         log(f"sass {name}: bf16 tile {len(tc)} kernel(s) with HGMMA and "
@@ -307,12 +329,52 @@ def compare(name: str, got, want, dtype) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
+def attn_case(cases: dict, randn, timer: Timer, B: int, S: int, n_p: int,
+              Hq: int, Hkv: int, D: int, dtype, *, label: str,
+              window: int = 0, sentinel: bool = False) -> None:
+    """flash_attention at a prefill of B rows x S tokens behind n_p prefix
+    slots (position -1), causal, against its plain version, with its times
+    and bound (into ``cases``). ``sentinel`` puts the last 64 keys at the
+    +1e9 sentinel."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    T = n_p + S
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+    if sentinel:
+        kv_pos[-64:] = 10 ** 9
+    q = randn(B, S, Hq, D, dtype=dtype)
+    k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    got = fa.flash_attention(q, k, v, backend="cuda", **kw)
+    want = fa.flash_attention(q, k, v, backend="torch", **kw)
+    torch.cuda.synchronize()
+    err = compare(f"flash_attention D {D} {label} {dtype}", got, want, dtype)
+    vis = ref.visibility_mask(q_pos, kv_pos, window=window)
+    pairs = int(vis.sum().item()) * B * Hq
+    elt = q.element_size()
+    bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
+                    4 * D * pairs, dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    cases["flash_attention"].append(dict(
+        shape=f"B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D} "
+              f"{label} {str(dtype)[6:]}",
+        path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
+        ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda", **kw)),
+        plain_ms=timer(lambda: fa.flash_attention(q, k, v, backend="torch",
+                                                  **kw)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=vis, enable_gqa=True)),
+        bound_ms=bms, bound_by=by))
+    log(f"kernel flash_attention {cases['flash_attention'][-1]}")
+
+
+def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import lora_bgmv as bg
     from repro_torch.kernels import lora_matmul as lm
-    from repro_torch.kernels import ref
 
     def randn(*shape, dtype=torch.bfloat16, s=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
@@ -342,7 +404,7 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
                             2 * M * N * K + 2 * M * r * (K + N), dtype)
             cases["lora_matmul"].append(dict(
                 shape=f"M={M} K={K} N={N} r={r} bias {str(dtype)[6:]}",
-                path=lora_path(dtype), max_abs_err=err, tol=TOL[dtype],
+                path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
                 ms=timer(lambda: lm.lora_matmul(x, w, a, b, scale, bias,
                                                 backend="cuda")),
                 plain_ms=timer(lambda: lm.lora_matmul(
@@ -354,43 +416,18 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
 
     # flash_attention: prefill of 8 rows x 512 tokens behind 16 prefix
     # slots, Hq 28 / Hkv 4 (g = 7), D 128; plus a case whose last 64 keys
-    # carry the +1e9 sentinel
+    # carry the +1e9 sentinel; then the head-dim-64 instance at vit-edge's
+    # classify (8 x 197 tokens, 12 / 12 heads) and at 512 tokens, where
+    # its 4-stage ring is refilled (9 key tiles)
     B, S, n_p, Hq, Hkv, D = 8, 512, 16, 28, 4, 128
-    T = n_p + S
-    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
     for dtype, label in ((torch.bfloat16, "causal"),
                          (torch.bfloat16, "sentinel"),
                          (torch.float32, "causal")):
-        kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
-                                       device="cuda"), q_pos])
-        if label == "sentinel":
-            kv_pos[-64:] = 10 ** 9
-        q = randn(B, S, Hq, D, dtype=dtype)
-        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
-                                                       dtype=dtype)
-        kw = dict(q_pos=q_pos, kv_pos=kv_pos)
-        got = fa.flash_attention(q, k, v, backend="cuda", **kw)
-        want = fa.flash_attention(q, k, v, backend="torch", **kw)
-        torch.cuda.synchronize()
-        err = compare(f"flash_attention {label} {dtype}", got, want, dtype)
-        vis = ref.visibility_mask(q_pos, kv_pos)
-        pairs = int(vis.sum().item()) * B * Hq
-        elt = q.element_size()
-        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
-                        4 * D * pairs, dtype)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        cases["flash_attention"].append(dict(
-            shape=f"B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D} "
-                  f"{label} {str(dtype)[6:]}",
-            max_abs_err=err, tol=TOL[dtype],
-            ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda",
-                                                **kw)),
-            plain_ms=timer(lambda: fa.flash_attention(q, k, v,
-                                                      backend="torch", **kw)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=vis, enable_gqa=True)),
-            bound_ms=bms, bound_by=by))
-        log(f"kernel flash_attention {cases['flash_attention'][-1]}")
+        attn_case(cases, randn, timer, B, S, n_p, Hq, Hkv, D, dtype,
+                  label=label, sentinel=label == "sentinel")
+    for S in (197, 512):
+        attn_case(cases, randn, timer, B, S, n_p, 12, 12, 64,
+                  torch.bfloat16, label="causal")
 
     # flash_decode: 8 rows against a 1024-slot cache behind 16 prefix slots
     # (concatenated in front at position -1), per-row q_pos, sentinels past
@@ -489,7 +526,7 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
             shape=f"{'M' if x.dim() == 2 else 'B x S'}="
                   f"{' x '.join(map(str, lead))} K={K} N={N} r={r} "
                   f"slots={n_slots} bias {str(dtype)[6:]}",
-            path=lora_path(dtype), max_abs_err=err, tol=TOL[dtype],
+            path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
             bits_vs_lora_matmul=bit_err,
             ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
                                 backend="cuda")),
@@ -1109,7 +1146,7 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
         cases["lora_matmul"].append(dict(
             shape=f"dx of {proj}: dy M={M} N={N} against W^T ({N}x{K}) "
                   f"r={r} bf16",
-            path=lora_path(torch.bfloat16), max_abs_err=err,
+            path=tile_path(torch.bfloat16), max_abs_err=err,
             tol=TOL[torch.bfloat16],
             ms=timer(lambda: lm.lora_matmul(dy, wt, bt, at, scale,
                                             backend="cuda")),
@@ -1835,7 +1872,7 @@ def mamba_path(seed: int) -> tuple[dict, dict]:
     rec.update(f32_prefill_logits_cosine=cos, f32_prefill_max_abs_err=err)
     del params
     torch.cuda.empty_cache()
-    no_pad_copies("phase 23")
+    no_pad_copies("phase 17")
     return rec, brec
 
 
@@ -2131,9 +2168,7 @@ def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
     head, window 2048, 16 prefix slots) against their plain versions,
     timed beside phase 3's head-dim-128 rows (into ``cases``)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import ref
 
     cfg = get_config("recurrentgemma-2b")
     B, S, n_p = 8, 512, 16
@@ -2143,37 +2178,9 @@ def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    T = n_p + S
-    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
-    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
-                                   device="cuda"), q_pos])
     for dtype in (torch.bfloat16, torch.float32):
-        q = randn(B, S, Hq, D, dtype=dtype)
-        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
-                                                       dtype=dtype)
-        kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=win)
-        got = fa.flash_attention(q, k, v, backend="cuda", **kw)
-        want = fa.flash_attention(q, k, v, backend="torch", **kw)
-        torch.cuda.synchronize()
-        err = compare(f"flash_attention D {D} {dtype}", got, want, dtype)
-        vis = ref.visibility_mask(q_pos, kv_pos, window=win)
-        pairs = int(vis.sum().item()) * B * Hq
-        elt = q.element_size()
-        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
-                        4 * D * pairs, dtype)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        cases["flash_attention"].append(dict(
-            shape=f"B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D} "
-                  f"window={win} {str(dtype)[6:]}",
-            max_abs_err=err, tol=TOL[dtype],
-            ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda",
-                                                **kw)),
-            plain_ms=timer(lambda: fa.flash_attention(q, k, v,
-                                                      backend="torch", **kw)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=vis, enable_gqa=True)),
-            bound_ms=bms, bound_by=by))
-        log(f"kernel flash_attention {cases['flash_attention'][-1]}")
+        attn_case(cases, randn, timer, B, S, n_p, Hq, Hkv, D, dtype,
+                  label=f"window={win}", window=win)
 
     # decode: the 2048-slot rolling buffer of a windowed layer in its
     # steady state (every row at or past the window, most wrapped, so
@@ -2395,6 +2402,7 @@ def hybrid_path(seed: int) -> tuple[dict, dict]:
     rec.update(f32_prefill_logits_cosine=cos, f32_prefill_max_abs_err=err)
     del params
     torch.cuda.empty_cache()
+    no_pad_copies("phase 23")
     return rec, brec
 
 

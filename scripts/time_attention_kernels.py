@@ -8,10 +8,14 @@ Times ``flash_attention`` and ``flash_decode`` at ``chip_smoke.py``'s
 phase 3 shapes (bf16: prefill of 8 x 512 tokens behind 16 prefix slots;
 decode of 8 rows against 1024 slots behind 16 prefix slots), and
 ``flash_decode_paged`` at phase 12's where the tree has it, and the
-head-dim-256 instances at phase 22's shapes where the tree has them, with
+head-dim-256 instances at phase 22's shapes where the tree has them, and
+head dim 64 at vit-edge's classify shape (phase 3), with
 ``chip_smoke.Timer`` (median of CUDA-event timings, L2 flushed before each
 launch) on inputs drawn from a fixed seed, so that runs of two trees see
-the same inputs. ``repro_torch`` comes from ``PYTHONPATH``: run it once
+the same inputs; then the ``flash_attention`` shapes' device time per
+kernel (``torch.profiler`` over 10 calls, L2 flushed before each, as in
+``scripts/time_lora_kernels.py``), which leaves out the host's time
+between launches. ``repro_torch`` comes from ``PYTHONPATH``: run it once
 per tree, alternating trees (parent, change, change, parent) within one
 call to the card. Prints the card's name and power limit, then one JSON
 line. Needs a CUDA device.
@@ -22,6 +26,7 @@ import argparse
 import json
 import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -39,6 +44,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import Timer
+    from scripts.time_lora_kernels import device_us
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
 
@@ -54,14 +60,16 @@ def main(argv=None) -> int:
                            device="cuda").to(torch.bfloat16)
 
     B, S, n_p, Hq, Hkv, D, Tc = 8, 512, 16, 28, 4, 128, 1024
-    out = {"label": args.label, "source": fa.__file__}
+    out = {"label": args.label, "source": fa.__file__, "device_us": {}}
     q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
     kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
                                    device="cuda"), q_pos])
     q, k, v = randn(B, S, Hq, D), randn(B, n_p + S, Hkv, D), \
         randn(B, n_p + S, Hkv, D)
-    out["flash_attention_ms"] = timer(lambda: fa.flash_attention(
-        q, k, v, q_pos=q_pos, kv_pos=kv_pos))
+    prefill = partial(fa.flash_attention, q, k, v, q_pos=q_pos,
+                      kv_pos=kv_pos)
+    out["flash_attention_ms"] = timer(prefill)
+    out["device_us"]["flash_attention"] = device_us(prefill, timer.flush)
 
     q, k, v = randn(B, Hq, D), randn(B, n_p + Tc, Hkv, D), \
         randn(B, n_p + Tc, Hkv, D)
@@ -92,8 +100,11 @@ def main(argv=None) -> int:
         Hq, Hkv, D, win = 10, 1, 256, 2048
         q, k, v = randn(B, S, Hq, D), randn(B, n_p + S, Hkv, D), \
             randn(B, n_p + S, Hkv, D)
-        out["flash_attention_d256_ms"] = timer(lambda: fa.flash_attention(
-            q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=win))
+        prefill = partial(fa.flash_attention, q, k, v, q_pos=q_pos,
+                          kv_pos=kv_pos, window=win)
+        out["flash_attention_d256_ms"] = timer(prefill)
+        out["device_us"]["flash_attention_d256"] = device_us(prefill,
+                                                             timer.flush)
         # in its steady state, as phase 22 draws it: every row at or past
         # the window, so all 2048 + 16 slots are visible
         q, k, v = randn(B, Hq, D), randn(B, n_p + win, Hkv, D), \
@@ -107,6 +118,18 @@ def main(argv=None) -> int:
                                    device="cuda"), held.to(torch.int32)], 1)
         out["flash_decode_d256_ms"] = timer(lambda: fd.flash_decode(
             q, k, v, q_pos=qp, kv_pos=kp, window=win))
+    # head dim 64 (vit-edge's classify): 8 x 197 tokens behind 16 prefix
+    # slots, 12 / 12 heads, causal
+    S, Hq, Hkv, D = 197, 12, 12, 64
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+    q, k, v = randn(B, S, Hq, D), randn(B, n_p + S, Hkv, D), \
+        randn(B, n_p + S, Hkv, D)
+    prefill = partial(fa.flash_attention, q, k, v, q_pos=q_pos,
+                      kv_pos=kv_pos)
+    out["flash_attention_d64_ms"] = timer(prefill)
+    out["device_us"]["flash_attention_d64"] = device_us(prefill, timer.flush)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Time the full-size drains and training rounds of one source tree on the
+GPU, through that tree's own ``chip_smoke.py``.
+
+    PYTHONPATH=<tree>/src python3 scripts/time_drains.py --tree <tree> \\
+        [--label NAME] [--seed 0]
+
+Runs the tree's ``main_path`` (phases 4, 5, 13 and 19: qwen2-7b at its
+published size single-tenant, from a 4-domain bank, paged from the bank,
+speculative), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
+and from a bank) and ``train_phases`` (phases 9 to 11: the HFSL rounds),
+checks included, and prints the card's name and power limit, then one
+JSON line with each drain's tok/s and TTFT p50 / p99 and each round's
+seconds a step. The tree's kernels are built before the first drain, so
+that no drain waits for ``nvcc``. These drains are host-bound, and their
+numbers spread between calls to the card, so compare two trees only
+within one call: run this once per tree, alternating trees (parent,
+change, change, parent). Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "step_s")
+
+
+def numbers(rec: dict) -> dict:
+    """The timing fields of a phase's record and of the records in it."""
+    out = {k: rec[k] for k in KEYS if k in rec}
+    for name, sub in rec.items():
+        if isinstance(sub, dict) and any(k in sub for k in KEYS):
+            out[name] = {k: sub[k] for k in KEYS if k in sub}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True,
+                    help="root of the checkout whose chip_smoke.py runs")
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_drains: needs a CUDA device", file=sys.stderr)
+        return 2
+    path = Path(args.tree).resolve() / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    main, bank, paged, spec_rec = smoke.main_path(args.seed)
+    hybrid, hybrid_bank = smoke.hybrid_path(args.seed)
+    train = smoke.train_phases(args.seed)
+    out = {"label": args.label, "source": str(path),
+           "main": numbers(main), "bank": numbers(bank),
+           "paged": numbers(paged), "spec": numbers(spec_rec),
+           "hybrid": numbers(hybrid), "hybrid_bank": numbers(hybrid_bank),
+           "train": {k: numbers(v) for k, v in train.items()
+                     if isinstance(v, dict) and "step_s" in v}}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

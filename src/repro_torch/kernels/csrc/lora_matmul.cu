@@ -118,7 +118,7 @@ extern "C" int lora_wgmma_probe_launch(const void* x, const void* w, void* y,
   CUtensorMap tmx, tmw;
   cudaError_t e = encode_maps(&tmx, &tmw, x, w, 1, BM, BN, BK);
   if (e != cudaSuccess) return e;
-  if ((e = raise_smem<probe_kernel>()) != cudaSuccess) return e;
+  if ((e = raise_smem<probe_kernel, SMEM_BYTES>()) != cudaSuccess) return e;
   probe_kernel<<<1, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tmx, tmw, static_cast<float*>(y));
   return cudaGetLastError();

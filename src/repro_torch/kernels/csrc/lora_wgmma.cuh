@@ -27,13 +27,13 @@
 // element is its own dot product).
 #pragma once
 
-#include <cuda.h>          // CUtensorMap and its enums; libcuda is reached
-                           // through cudaGetDriverEntryPoint, not linked
-
 #include "common.cuh"
+#include "hopper.cuh"      // PTX: mbarriers, TMA, descriptors, wgmma sync
 #include "lora_u.cuh"      // Slot
 
 namespace lora_wgmma {
+
+using namespace hopper;
 
 constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, NT = 256;
 constexpr int RMAX = 32;                       // largest LoRA rank taken
@@ -61,75 +61,8 @@ struct Epilogue {
 };
 
 // ---------------------------------------------------------------------------
-// PTX: shared addresses, mbarriers, TMA, wgmma
+// the product
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2) : "memory");
-}
-
-// Shared-memory matrix descriptor with the 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 128, f32) += A (64 x 16, K-major) B (16 x 128, N-major).
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
@@ -161,18 +94,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING)
-               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -354,48 +275,6 @@ lora_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The host's statics have internal linkage, so each library keeps its own:
-// a static local of an inline function or template is one object across
-// every library the process loads, and the first library to raise its
-// kernel's shared-memory limit would answer for the others' kernels.
-namespace {
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded; null if it
-// has none.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// Raises KERNEL's dynamic shared-memory limit, once.
-template <auto KERNEL>
-cudaError_t raise_smem() {
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  return raised;
-}
-
-}  // namespace
-
 // bf16 maps with the 128-byte swizzle. x: (groups, rows, K), K innermost,
 // box 64 x 128 x 1. w: (K, N), N innermost, box 64 x 64.
 inline cudaError_t encode_maps(CUtensorMap* tmx, CUtensorMap* tmw,
@@ -440,7 +319,9 @@ cudaError_t launch(const void* x, const void* w, const void* a,
   CUtensorMap tmx, tmw;
   cudaError_t e = encode_maps(&tmx, &tmw, x, w, groups, G, N, K);
   if (e != cudaSuccess) return e;
-  if ((e = raise_smem<lora_wgmma_kernel<MODE>>()) != cudaSuccess) return e;
+  if ((e = raise_smem<lora_wgmma_kernel<MODE>, SMEM_BYTES>()) !=
+      cudaSuccess)
+    return e;
   e = lora_u::launch<MODE>(x, a, ids, u, groups * G, K, r, G, stream);
   if (e != cudaSuccess) return e;
   const Epilogue p{u, static_cast<const __nv_bfloat16*>(b),

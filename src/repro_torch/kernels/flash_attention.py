@@ -8,6 +8,16 @@ q_pos``, an optional window, prefix slots (``kv_pos < 0``) always visible,
 ``+1e9`` sentinels never. Bound on an H100 and design: see the source note
 in ``csrc/flash_attention.cu``.
 
+In bf16 the kernel runs on the tensor cores (``csrc/attn_wgmma.cuh``: TMA
+loads, ``wgmma`` for S = Q Kᵀ and O += P V, P rounded to bf16), one launch
+per call, for head dims up to 64, 128 and 256.
+TMA needs 16-byte-aligned bases and row strides, so :func:`_pad_for_tma`
+zero-pads D to a multiple of 8 (zero columns add nothing to a score; the
+scale stays that of the true D) and copies a misaligned base, and the
+wrapper slices the output back; ``pad_copies`` counts the calls that
+copied. Every model's head dim is a multiple of 8. f32 keeps the CUDA-core
+tile of ``csrc/attn_tile.cuh``.
+
 The plain version is the kernel's dataflow written in torch: an online
 softmax over 32-key tiles with f32 state, ``NEG_INF = -1e30`` for masked
 scores and ``l`` clamped at 1e-30. ``flash_attention`` launches the kernel
@@ -37,9 +47,10 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+pad_copies = 0
 
 KT = 32                    # keys per tile, as in csrc/attn_tile.cuh
-DMAX = 256                 # largest head dim (two instances: <= 128, <= 256)
+DMAX = 256                 # largest head dim
 NEG_INF = -1e30
 SCORE_BUDGET = 1 << 25     # f32 elements per score tensor in the backward
 
@@ -100,6 +111,28 @@ def flash_attention_torch(q, k, v, *, q_pos, kv_pos, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
+def _pad_for_tma(q, k, v):
+    """q, k, v of a bf16 launch with D zero-padded to a multiple of 8, and
+    each copied where its base is not 16-byte aligned; an operand that
+    needs neither is returned as it is. Counts one in ``pad_copies`` per
+    call that copied. The zero columns add exact zeros to every score and
+    to the output's extra columns, which the caller slices away."""
+    global pad_copies
+    Dp = -(-q.shape[-1] // 8) * 8
+
+    def fit(t):
+        if t.shape[-1] == Dp and t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((*t.shape[:-1], Dp))
+        out[..., :t.shape[-1]] = t
+        return out
+
+    out = (fit(q), fit(k), fit(v))
+    if any(o is not t for o, t in zip(out, (q, k, v))):
+        pad_copies += 1
+    return out
+
+
 def _launch(q, k, v, q_pos, kv_pos, window, causal, scale):
     global launches
     B, S, Hq, D = q.shape
@@ -112,19 +145,23 @@ def _launch(q, k, v, q_pos, kv_pos, window, causal, scale):
             f"{tuple(kv_pos.shape)} do not match")
     if D > DMAX:
         raise ValueError(f"flash_attention: head dim {D} > {DMAX}")
+    bf16 = q.dtype == torch.bfloat16
     code = _build.checked_args(
         "flash_attention",
         {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos}, q.dtype)
     lib = _build.bind("flash_attention", _ARGS)
+    scale = float(scale if scale is not None else D ** -0.5)
+    if bf16:
+        q, k, v = _pad_for_tma(q, k, v)
+    Dp = q.shape[-1]
     out = torch.empty_like(q)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D,
-        float(scale if scale is not None else D ** -0.5), int(causal),
-        int(window or 0), code, _build.stream(q))
+        kv_pos.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, Dp, scale,
+        int(causal), int(window or 0), code, _build.stream(q))
     _build.check(lib, "flash_attention", err)
     launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 def _forward(q, k, v, q_pos, kv_pos, window, causal, scale, backend):

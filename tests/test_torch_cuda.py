@@ -41,7 +41,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import selective_scan as ss
 
@@ -260,13 +260,80 @@ def test_ops_lora_bgmv_routes_by_shape(gen):
     assert (counts["lora_bgmv_seq"], counts["lora_bgmv_rows"]) == (1, 2)
 
 
-# (B, S, n_prefix, Hq, Hkv, D)
+def _tile(D):
+    """(query rows a block, keys a tile) of the bf16 attention instance
+    for head dim D."""
+    fn = _build.bind("flash_attention", fa._ARGS).attn_wgmma_block_rows
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(D), 64
+
+
+def _attn_probe(q, k, v, pm, D, out):
+    lib = _build.bind("flash_attention", fa._ARGS)
+    fn = lib.attn_wgmma_probe_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    _build.check(lib, "flash_attention", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if pm is None else pm.data_ptr(), D, out.data_ptr(),
+        _build.stream(q)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 200, 256])
+def test_attn_wgmma_probe_qk_tile(gen, D):
+    """S = Q Kᵀ for one tile (a block's query rows and a tile's keys)
+    through the attention tile's TMA boxes, 128-byte swizzle and wgmma
+    descriptors (Q K-major as A, the K tile K-major as B with no
+    transpose), f32 out, against ``q.float() @ k.float().T``: bf16
+    products are exact in f32, so only the order of each D-term sum
+    differs."""
+    rows, n = _tile(D)
+    q = randn(gen, rows, D, dtype=torch.bfloat16)
+    k = randn(gen, n, D, dtype=torch.bfloat16)
+    s = torch.full((rows, n), float("nan"), device="cuda")
+    _attn_probe(q, k, k, None, D, s)
+    want = q.float() @ k.float().T
+    assert torch.allclose(s, want, atol=1e-4, rtol=1e-4), \
+        (s - want).abs().max().item()
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 200, 256])
+def test_attn_wgmma_probe_pv_tile(gen, D):
+    """O = P V for one tile: P (a block's query rows x a tile's keys,
+    bf16) loaded into the register A fragment exactly as the kernel packs
+    it from S's accumulator, V (keys x D) read where it lies as the N-major
+    B operand (the transpose flag), f32 out, against
+    ``p.float() @ v.float()``."""
+    rows, n = _tile(D)
+    q = randn(gen, rows, D, dtype=torch.bfloat16)
+    v = randn(gen, n, D, dtype=torch.bfloat16)
+    pm = torch.rand((rows, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    o = torch.full((rows, D), float("nan"), device="cuda")
+    _attn_probe(q, v, v, pm, D, o)
+    want = pm.float() @ v.float()
+    assert torch.allclose(o, want, atol=1e-4, rtol=1e-4), \
+        (o - want).abs().max().item()
+
+
+# (B, S, n_prefix, Hq, Hkv, D): S 129 and 200 leave partial q tiles, T =
+# n_prefix + S is rarely a multiple of the 64-key tile, groups 1 to 10; T
+# 515 and 528 fold more 64-key tiles than the head-dim-64 instance's ring
+# has stages (4), so its stages are refilled
 @pytest.mark.parametrize("case", [(1, 1, 0, 1, 1, 8), (2, 37, 5, 14, 2, 64),
                                   (3, 70, 16, 28, 4, 128),
                                   (2, 70, 16, 10, 1, 256),
-                                  (1, 37, 3, 4, 2, 200)])
+                                  (1, 37, 3, 4, 2, 200),
+                                  (2, 129, 0, 7, 1, 64),
+                                  (1, 200, 3, 10, 1, 256),
+                                  (2, 129, 16, 28, 4, 128),
+                                  (1, 200, 0, 8, 8, 8),
+                                  (2, 512, 16, 12, 12, 64),
+                                  (1, 512, 3, 8, 8, 8)])
 @pytest.mark.parametrize("window,causal", [(0, True), (16, True),
-                                           (0, False)])
+                                           (100, True), (0, False)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(gen, case, window, causal, dtype):
     B, S, n_p, Hq, Hkv, D = case
@@ -283,6 +350,90 @@ def test_flash_attention_kernel(gen, case, window, causal, dtype):
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.launches == n0 + 1
     close(got, fa.flash_attention_torch(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("shift", [40, 300])
+@pytest.mark.parametrize("window,causal", [(0, True), (16, True),
+                                           (8, False)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_rows_that_see_nothing(gen, shift, window, causal,
+                                               dtype):
+    """Rows whose q_pos sees no key average every key uniformly, as the
+    plain version's -1e30 masking does. Causal, shift 40: the first 40 rows
+    sit at negative positions before every key (no prefix), beside rows
+    that see keys in the same q tile; shift 300: every row does, so no
+    tile is visible to any row of the call. Non-causal with window 8: the
+    rows 8 or more positions past every key."""
+    B, S, Hq, Hkv, D = 2, 200, 7, 1, 128
+    q = randn(gen, B, S, Hq, D, dtype=dtype)
+    k = randn(gen, B, S, Hkv, D, dtype=dtype)
+    v = randn(gen, B, S, Hkv, D, dtype=dtype)
+    kv_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    if causal:
+        q_pos = kv_pos - shift
+    else:
+        q_pos = kv_pos + (S if shift == 300 else shift)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, causal=causal)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    close(got, want, dtype)
+    blind = ~ref.visibility_mask(q_pos, kv_pos, window=window,
+                                 causal=causal).any(-1)
+    assert blind.any()
+    uniform = v.float().mean(1, keepdim=True).expand(B, S, Hkv, D)
+    uniform = uniform.repeat_interleave(Hq // Hkv, 2)
+    close(got[:, blind].float(), uniform[:, blind], torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_bits_repeat_and_rows_stand_alone(gen, D):
+    """Two launches give the same bits, and each sequence of a batch of 8
+    gives the bits of the same sequence run alone (blocks share nothing,
+    and the tiles a block visits depend on positions only)."""
+    B, S, n_p, Hq, Hkv = 8, 200, 16, 14, 2
+    q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    k = randn(gen, B, n_p + S, Hkv, D, dtype=torch.bfloat16)
+    v = randn(gen, B, n_p + S, Hkv, D, dtype=torch.bfloat16)
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"), q_pos])
+    kv_pos[-30:] = 10 ** 9
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=100)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for i in range(B):
+        one = fa.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], got[i]), i
+
+
+@pytest.mark.parametrize("D,copies", [(36, True), (100, True), (200, False),
+                                      (64, False)])
+def test_flash_attention_pads_only_what_tma_refuses(gen, D, copies):
+    """A bf16 head dim that is not a multiple of 8 takes one counted
+    zero-padding copy and agrees with the plain version; aligned head dims
+    launch with none; a misaligned base is copied too. f32 never pads."""
+    B, S, n_p, Hq, Hkv = 2, 70, 3, 4, 2
+    kw = dict(q_pos=torch.arange(S, dtype=torch.int32, device="cuda"),
+              kv_pos=torch.arange(-n_p, S, dtype=torch.int32,
+                                  device="cuda"))
+    for dtype in DTYPES:
+        q = randn(gen, B, S, Hq, D, dtype=dtype)
+        k = randn(gen, B, n_p + S, Hkv, D, dtype=dtype)
+        v = randn(gen, B, n_p + S, Hkv, D, dtype=dtype)
+        n0 = fa.pad_copies
+        got = fa.flash_attention(q, k, v, **kw)
+        assert fa.pad_copies - n0 == int(copies and dtype == torch.bfloat16)
+        close(got, fa.flash_attention_torch(q, k, v, **kw), dtype)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    qs = buf[1:].view(q.shape)
+    qs.copy_(q)
+    n0 = fa.pad_copies
+    got = fa.flash_attention(qs, k, v, **kw)
+    assert fa.pad_copies == n0 + 1
+    close(got, fa.flash_attention_torch(q, k, v, **kw), torch.bfloat16)
 
 
 # (B, T, n_prefix, Hq, Hkv, D)
