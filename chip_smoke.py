@@ -10,18 +10,27 @@ Phases, each of which exits nonzero on a failed check:
    the SASS (``cuobjdump -sass``) of each LoRA library and of the
    ``flash_attention`` library, every bf16 tile (the three attention
    instances, head dims 64, 128 and 256) must run ``HGMMA`` (wgmma) on
-   ``UTMALDG`` (TMA) loads and every f32 tile neither;
+   ``UTMALDG`` (TMA) loads, in the ``flash_decode`` and
+   ``flash_decode_paged`` libraries every bf16 split-KV tile (head dims
+   64, 128, 256 dense; 64, 128 paged) ``HMMA`` (mma.sync) on ``UTMALDG``
+   loads, and every f32 tile none of them;
 3. kernels: at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
-   library call's time as a yardstick and the card's least time (bound);
+   library call's time as a yardstick and the card's least time (bound;
+   for decode, the visible cache keys' bytes and each prefix bank slot
+   read once);
    the two multi-LoRA kernels also row by row against ``lora_matmul`` run
    with that row's adapter, which must give the same bits; each LoRA and
    attention case names its ``path``, ``wgmma`` (bf16) or ``cuda-core``
    (f32); flash_attention at head dim 128 (qwen2-7b's prefill) and, in
    bf16, at head dim 64: vit-edge's classify (B 8, S 197, 16 prefix
    slots, 12 / 12 heads) and 512 tokens, which refill the instance's
-   4-stage ring;
+   4-stage ring; flash_decode as the models call it (B 8, 1024 slots,
+   a 16-slot prefix bank, 28/4 heads, D 128), with its ``path``
+   (``split-mma`` in bf16, ``cuda-core`` in f32), its splits, and the
+   host microseconds of a call; in bf16 also with a 4-domain bank's
+   stacked prefix slots read by the rows' ids, the bank drains' layout;
 4. main path: qwen2-7b at its full published size (28 layers, d_model
    3584, bf16, random weights from the seed) serves 16 ragged requests
    through ``DecodeEngine(slots=8)``, with in-wave refill; lora_matmul,
@@ -32,7 +41,9 @@ Phases, each of which exits nonzero on a failed check:
    (seeded prefix slots, seeded nonzero LoRA b) serves 16 ragged requests
    of mixed domains through ``DecodeEngine(slots=8, bank=...)``; the
    multi-LoRA kernels, flash_attention and flash_decode must launch and
-   lora_matmul must not; a mixed 4-domain prefill must agree with each
+   lora_matmul must not; the drain must encode fewer TMA maps than it
+   makes decode calls (the bank's slots are read by id, so its maps are
+   encoded once); a mixed 4-domain prefill must agree with each
    domain's own prefill (cosine > 0.999, same top-1), and the domains must
    not all give the same tokens;
 6. end to end: a 2-layer, full-width f32 qwen2-7b drains the same kind of
@@ -67,13 +78,18 @@ Phases, each of which exits nonzero on a failed check:
    drain's shape (B 8, Hq 28 / Hkv 4, D 128, block 16, 64 blocks per row,
    16 per-row prefix slots, ragged q_pos, bf16 and f32), timed beside
    phase 3; the same inputs through the dense ``flash_decode`` kernel on
-   ``cat(prefix, pool[table])`` must give the same bits;
+   ``cat(prefix, pool[table])`` and on ``pool[table]`` with the prefix
+   bank read in place must give the same bits; in bf16, a 4-domain bank's
+   stacked slots read by the rows' ids must give the bits of the same
+   slots gathered per row; path, splits and host microseconds a call as
+   in phase 3, also by id;
 13. paged serving at full size, on phase 5's backbone and bank:
    ``DecodeEngine(slots=8, bank=..., paged=PagedSpec(512, 16,
    share_prefix=True))`` drains 16 requests, 4 per domain sharing a
    256-token system prompt; the paged kernel, the multi-LoRA kernels and
    flash_attention must launch, the dense flash_decode and lora_matmul
-   must not; prefixes must be shared, the pool must be empty and
+   must not; fewer TMA maps encoded than decode calls; prefixes must be
+   shared, the pool must be empty and
    consistent after the drain, and a second drain of the same prompts
    must revive blocks off the free list;
 14. paged exactness: the 2-layer f32 qwen2-7b of phase 6 drains a ragged
@@ -129,7 +145,8 @@ Phases, each of which exits nonzero on a failed check:
    rows against a 2048-slot rolling buffer behind 16 prefix slots, group
    10) against their plain versions, timed beside phase 3's head dim 128
    rows, which re-time the dense shapes; each attention case names its
-   ``path``;
+   ``path``, each decode case its path, splits and host microseconds a
+   call;
 23. recurrentgemma-2b at its published size (26 layers: 8 groups of
    (rglru, rglru, attn) and an (rglru, rglru) tail, d 2560, lru_width
    2560, 10 / 1 heads of 256, d_ff 7680, vocab 256000 tied, window 2048,
@@ -148,8 +165,9 @@ Phases, each of which exits nonzero on a failed check:
    tokens.
 
 Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 17, 23)
-must leave ``lora_matmul.pad_copies`` and ``flash_attention.pad_copies``
-at 0: no LoRA or attention operand of a model is padded for TMA.
+must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
+and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
+operand of a model is padded for TMA.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -247,6 +265,26 @@ class Timer:
         return float(np.median(ts))
 
 
+def host_us(fn, calls: int = 1000, batch: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to return: ``calls`` calls
+    timed with ``time.perf_counter`` in batches of ``batch``, synchronised
+    outside the timing between batches, so that the launch queue never
+    fills and blocks the host; the median batch's time a call (the host's
+    cores are shared, and a batch that another process interrupts is an
+    outlier)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(calls // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        per_call.append((time.perf_counter() - t0) / batch)
+        torch.cuda.synchronize()
+    return float(np.median(per_call)) * 1e6
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over the memory rate or
     operations over the peak rate of the dtype, whichever is larger."""
@@ -259,35 +297,62 @@ def tile_path(dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "cuda-core"
 
 
+def decode_plan(dtype, D: int, n_keys: int, B: int, Hkv: int) -> dict:
+    """The tile a decode kernel runs in this dtype and, in bf16, its
+    split-KV grid (``flash_decode.split_plan``)."""
+    from repro_torch.kernels import flash_decode as fd
+    if dtype != torch.bfloat16:
+        return dict(path="cuda-core", splits=None)
+    tps, n = fd.split_plan(D, n_keys)
+    return dict(path="split-mma", splits=dict(
+        tiles_per_split=tps, splits=n, blocks=n * Hkv * B))
+
+
 def no_pad_copies(what: str) -> None:
-    """Every model width and head dim is a multiple of 8, so no LoRA or
-    attention operand on a main path is padded for TMA."""
+    """Every model width and head dim is a multiple of 8, so no LoRA,
+    attention or decode operand on a main path is padded for TMA."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import lora_matmul as lm
     check(lm.pad_copies == 0, f"{what}: {lm.pad_copies} LoRA operands "
           "were padded for TMA")
     check(fa.pad_copies == 0, f"{what}: {fa.pad_copies} attention calls "
           "padded their operands for TMA")
+    check(fd.pad_copies == 0, f"{what}: {fd.pad_copies} decode calls "
+          "padded their operands for TMA")
 
 
 # per library: the name of its bf16 tensor-core kernels, of its f32
-# CUDA-core kernels, and how many of each it must hold
+# CUDA-core kernels, how many of each it must hold, and the instructions
+# each bf16 kernel must hold (HGMMA: wgmma; HMMA: mma.sync; UTMALDG: TMA
+# loads); an f32 kernel must hold none of them
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
 SASS_TILES = {
-    "lora_matmul": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
-    "lora_bgmv_rows": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
-    "lora_bgmv_seq": ("lora_wgmma_kernel", "_f32_kernel", 1, 1),
+    "lora_matmul": ("lora_wgmma_kernel", "_f32_kernel", 1, 1,
+                    {"HGMMA", "UTMALDG"}),
+    "lora_bgmv_rows": ("lora_wgmma_kernel", "_f32_kernel", 1, 1,
+                       {"HGMMA", "UTMALDG"}),
+    "lora_bgmv_seq": ("lora_wgmma_kernel", "_f32_kernel", 1, 1,
+                      {"HGMMA", "UTMALDG"}),
     # head dims 64, 128, 256 in bf16; 128 and 256 in f32
     "flash_attention": ("attn_wgmma_kernel", "flash_attention_kernel", 3,
-                        2)}
+                        2, {"HGMMA", "UTMALDG"}),
+    # the split-KV decode tile: head dims 64, 128, 256 dense, 64 and 128
+    # paged, in bf16; 128 and 256 dense, 128 paged, in f32
+    "flash_decode": ("split_kernel", "flash_decode_kernel", 3, 2,
+                     {"HMMA", "UTMALDG"}),
+    "flash_decode_paged": ("split_kernel", "flash_decode_paged_kernel", 2,
+                           1, {"HMMA", "UTMALDG"})}
 
 
 def sass_check(build) -> dict:
-    """Phase 2: per LoRA library and the attention library, the kernels
-    whose SASS holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads). Every
-    bf16 tile must hold both, every f32 tile neither."""
+    """Phase 2: per LoRA library and the attention and decode libraries,
+    the kernels whose SASS holds ``HGMMA`` (wgmma), ``HMMA`` (mma.sync)
+    and ``UTMALDG`` (TMA loads). Every bf16 tile must hold exactly its
+    library's set, every f32 tile none."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
-    for name, (tc_name, cc_name, n_tc, n_cc) in SASS_TILES.items():
+    for name, (tc_name, cc_name, n_tc, n_cc, want) in SASS_TILES.items():
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(build._target(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -298,21 +363,21 @@ def sass_check(build) -> dict:
                 cur = m.group(1)
                 ops_of[cur] = set()
             elif cur is not None:
-                ops_of[cur].update(op for op in ("HGMMA", "UTMALDG")
-                                   if op in line)
+                ops_of[cur].update(op for op in SASS_OPS
+                                   if re.search(rf"\b{op}\b", line))
         tc = [f for f in ops_of if tc_name in f]
         cc = [f for f in ops_of if cc_name in f]
-        check(len(tc) == n_tc and all(ops_of[f] == {"HGMMA", "UTMALDG"}
-                                      for f in tc),
-              f"{name}: a bf16 tile lacks HGMMA or UTMALDG, or is missing: "
-              f"{ {f: sorted(ops_of[f]) for f in tc} }")
+        check(len(tc) == n_tc and all(ops_of[f] == want for f in tc),
+              f"{name}: a bf16 tile lacks {sorted(want)}, holds more, or "
+              f"is missing: { {f: sorted(ops_of[f]) for f in tc} }")
         check(len(cc) == n_cc and not any(ops_of[f] for f in cc),
               f"{name}: an f32 tile runs {[ops_of[f] for f in cc]}, or is "
               "missing")
-        rec[name] = {"wgmma": {f: sorted(ops_of[f]) for f in tc},
+        rec[name] = {"tensor-core": {f: sorted(ops_of[f]) for f in tc},
                      "cuda-core": {f: sorted(ops_of[f]) for f in cc}}
-        log(f"sass {name}: bf16 tile {len(tc)} kernel(s) with HGMMA and "
-            f"UTMALDG; f32 tile {len(cc)} kernel(s) with neither")
+        log(f"sass {name}: bf16 tile {len(tc)} kernel(s) with "
+            f"{' and '.join(sorted(want))}; f32 tile {len(cc)} kernel(s) "
+            "with neither")
     return rec
 
 
@@ -371,8 +436,71 @@ def attn_case(cases: dict, randn, timer: Timer, B: int, S: int, n_p: int,
     log(f"kernel flash_attention {cases['flash_attention'][-1]}")
 
 
-def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
+def bank_slots(*shape, dtype) -> tuple:
+    """A multi-tenant bank's stacked K and V prefix slots, from a generator
+    of their own."""
+    g = torch.Generator(device="cuda").manual_seed(len(shape) + shape[0])
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+
+
+def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
+                window: int, label: str, pids=None) -> None:
+    """flash_decode as the models call it (the cache kc / vc at positions
+    kpc, the prefix bank pk / pv: shared, or a multi-tenant bank's stacked
+    slots read through the rows' ids ``pids``) against its plain version,
+    with its path, splits, times, host time per call and bound (into
+    ``cases``). The bound reads q, the output, every row's positions (and
+    ids), each visible cache key's K and V once (the +1e9 sentinel tails
+    and the keys outside the window are not needed) and each bank slot
+    that some row reads once: a shared bank once, not once a row."""
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+
+    dtype = q.dtype
+    B, Hq, D = q.shape
+    Tc, Hkv = kc.shape[1], kc.shape[2]
+    n_p = pk.shape[-3]
+    kw = dict(q_pos=qp, kv_pos=kpc, prefix_k=pk, prefix_v=pv,
+              prefix_ids=pids, window=window)
+    got = fd.flash_decode(q, kc, vc, backend="cuda", **kw)
+    want = fd.flash_decode(q, kc, vc, backend="torch", **kw)
+    torch.cuda.synchronize()
+    err = compare(f"flash_decode D {D} {dtype}", got, want, dtype)
+    qp64, kp64 = qp.long()[:, None], kpc.long()
+    vis = kp64 <= qp64
+    if window:
+        vis = vis & (qp64 - kp64 < window)
+    vis = vis | (kp64 < 0)                                    # (B, Tc)
+    cache_keys = int(vis.sum().item())
+    keys = cache_keys + B * n_p                      # every row sees its bank
+    n_read = 1 if pids is None else len(set(pids.tolist()))  # bank slots
+    elt = q.element_size()
+    bms, by = bound(elt * (2 * q.numel()
+                           + 2 * (cache_keys + n_read * n_p) * Hkv * D)
+                    + 4 * (B + B * Tc) + (0 if pids is None else 4 * B),
+                    4 * D * keys * Hq, dtype)
+    rows_k, rows_v = fd.select_rows(pk, pv, pids)
+    kd, vd, _ = fd.with_prefix(kc, vc, kpc, rows_k, rows_v)
+    qt, kt, vt = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    mask = torch.cat([vis.new_ones(B, n_p), vis], 1)[:, None, None, :]
+    cases["flash_decode"].append(dict(
+        shape=f"{label} {str(dtype)[6:]}",
+        **decode_plan(dtype, D, n_p + Tc, B, Hkv),
+        max_abs_err=err, tol=TOL[dtype], visible_keys=keys,
+        bank="shared" if pids is None else f"{pk.shape[0]} slots by id",
+        ms=timer(lambda: fd.flash_decode(q, kc, vc, backend="cuda", **kw)),
+        ops_ms=timer(lambda: ops.flash_decode(q, kc, vc, **kw)),
+        host_us=host_us(lambda: ops.flash_decode(q, kc, vc, **kw)),
+        plain_ms=timer(lambda: fd.flash_decode(q, kc, vc, backend="torch",
+                                               **kw)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bms, bound_by=by))
+    log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+
+
+def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
     from repro_torch.kernels import lora_bgmv as bg
     from repro_torch.kernels import lora_matmul as lm
 
@@ -429,45 +557,37 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
         attn_case(cases, randn, timer, B, S, n_p, 12, 12, 64,
                   torch.bfloat16, label="causal")
 
-    # flash_decode: 8 rows against a 1024-slot cache behind 16 prefix slots
-    # (concatenated in front at position -1), per-row q_pos, sentinels past
-    # each row's position
+    # flash_decode: 8 rows against a 1024-slot cache, per-row q_pos,
+    # sentinels past each row's position, and a 16-slot prefix bank
+    # (shared, position -1) as the models pass it: read in place in bf16,
+    # concatenated in front in f32
     Tc = 1024
-    T = n_p + Tc
     for dtype in (torch.bfloat16, torch.float32):
         q = randn(B, Hq, D, dtype=dtype)
-        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
-                                                       dtype=dtype)
+        kc, vc = randn(B, Tc, Hkv, D, dtype=dtype), randn(B, Tc, Hkv, D,
+                                                          dtype=dtype)
+        pk, pv = randn(n_p, Hkv, D, dtype=dtype), randn(n_p, Hkv, D,
+                                                        dtype=dtype)
         qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
                            dtype=torch.int32)
         slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
-        kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
-                                   device="cuda"),
-                        torch.where(slots <= qp[:, None], slots,
-                                    torch.full_like(slots, 10 ** 9))], 1)
-        kw = dict(q_pos=qp, kv_pos=kp)
-        got = fd.flash_decode(q, k, v, backend="cuda", **kw)
-        want = fd.flash_decode(q, k, v, backend="torch", **kw)
-        torch.cuda.synchronize()
-        err = compare(f"flash_decode {dtype}", got, want, dtype)
-        vis = (kp <= qp[:, None]) | (kp < 0)                   # (B, T)
-        pairs = int(vis.sum().item()) * Hq
-        elt = q.element_size()
-        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel())
-                        + 4 * (B + B * T), 4 * D * pairs, dtype)
-        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        mask = vis[:, None, None, :]
-        cases["flash_decode"].append(dict(
-            shape=f"B={B} T={Tc}+{n_p} prefix Hq={Hq} Hkv={Hkv} D={D} "
-                  f"per-row q_pos {str(dtype)[6:]}",
-            max_abs_err=err, tol=TOL[dtype],
-            ms=timer(lambda: fd.flash_decode(q, k, v, backend="cuda", **kw)),
-            plain_ms=timer(lambda: fd.flash_decode(q, k, v, backend="torch",
-                                                   **kw)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-            bound_ms=bms, bound_by=by))
-        log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+        kpc = torch.where(slots <= qp[:, None], slots,
+                          torch.full_like(slots, 10 ** 9)).contiguous()
+        decode_case(cases, timer, q, kc, vc, qp, kpc, pk, pv, 0,
+                    f"B={B} T={Tc}+{n_p} prefix Hq={Hq} Hkv={Hkv} D={D} "
+                    f"per-row q_pos")
+        if dtype == torch.bfloat16:
+            # the bank drains' layout (phases 5 and 13): a 4-domain bank's
+            # stacked prefix slots, each row reading its domain's by id
+            # (drawn from a generator of its own: the later phases' inputs
+            # stay those of a run without this case)
+            bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
+            ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                               device="cuda")
+            decode_case(cases, timer, q, kc, vc, qp, kpc, bk, bv, 0,
+                        f"B={B} T={Tc}+{n_p} prefix of {N_DOMAINS} domains "
+                        f"by id Hq={Hq} Hkv={Hkv} D={D} per-row q_pos",
+                        pids=ids)
 
     # multi-LoRA: the q (N 3584) and v (N 512) projections of a 4-domain
     # bank wave; rows at decode (M = 8 rows, ids repeating), seq at
@@ -547,6 +667,7 @@ def paged_kernel_cases(gen: torch.Generator, timer: Timer,
     version, and bit for bit against the dense kernel on the gathered
     keys (into ``cases``)."""
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
 
     B, Hq, Hkv, D, bs, maxb, n_p, nb = 8, 28, 4, 128, 16, 64, 16, 512
     cases["flash_decode_paged"] = []
@@ -573,18 +694,25 @@ def paged_kernel_cases(gen: torch.Generator, timer: Timer,
         torch.cuda.synchronize()
         err = compare(f"flash_decode_paged {dtype}", got, want, dtype)
 
-        # the dense kernel on the same keys: cat(prefix, pool[table])
+        # the dense kernel on the same keys: cat(prefix, pool[table]), and
+        # pool[table] with the prefix bank read in place
         kg, vg = fd.gather_pool(k_pool, v_pool, table)
         slots = torch.arange(maxb * bs, dtype=torch.int32,
-                             device="cuda")[None].expand(B, -1)
+                             device="cuda")[None].expand(B, -1).contiguous()
         kd, vd, kpd = fd.with_prefix(kg, vg, slots, pk, pv)
-        dense = fd.flash_decode(q, kd.contiguous(), vd.contiguous(), q_pos=qp,
-                                kv_pos=kpd.contiguous())
+        kd, vd, kpd = kd.contiguous(), vd.contiguous(), kpd.contiguous()
+        dense = fd.flash_decode(q, kd, vd, q_pos=qp, kv_pos=kpd)
+        in_place = fd.flash_decode(q, kg, vg, q_pos=qp, kv_pos=slots,
+                                   prefix_k=pk, prefix_v=pv)
         torch.cuda.synchronize()
         bits = (got.float() - dense.float()).abs().max().item()
         check(torch.equal(got, dense),
               f"flash_decode_paged {dtype}: differs from the dense kernel "
               f"on the gathered keys by {bits}")
+        bits_in_place = (got.float() - in_place.float()).abs().max().item()
+        check(torch.equal(got, in_place),
+              f"flash_decode_paged {dtype}: differs from the dense kernel "
+              f"with the prefix in place by {bits_in_place}")
 
         vis = (kpd <= qp[:, None]) | (kpd < 0)               # (B, T)
         keys = int(vis.sum().item())
@@ -608,17 +736,42 @@ def paged_kernel_cases(gen: torch.Generator, timer: Timer,
             shape=f"B={B} bs={bs} maxb={maxb} blocks={nb} prefix={n_p} "
                   f"per-row Hq={Hq} Hkv={Hkv} D={D} per-row q_pos "
                   f"{str(dtype)[6:]}",
+            **decode_plan(dtype, D, n_p + maxb * bs, B, Hkv),
             max_abs_err=err, tol=TOL[dtype], bits_vs_dense_kernel=bits,
-            visible_keys=keys,
+            bits_vs_dense_in_place=bits_in_place, visible_keys=keys,
             ms=timer(lambda: fd.flash_decode_paged(q, k_pool, v_pool, table,
                                                    **kw)),
+            host_us=host_us(lambda: ops.flash_decode_paged(
+                q, k_pool, v_pool, table, **kw)),
             dense_kernel_ms=timer(lambda: fd.flash_decode(
-                q, kd, vd, q_pos=qp, kv_pos=kpd)),
+                q, kg, vg, q_pos=qp, kv_pos=slots, prefix_k=pk,
+                prefix_v=pv)),
             plain_ms=timer(lambda: fd.flash_decode_paged(
                 q, k_pool, v_pool, table, backend="torch", **kw)),
             library_ms=timer(lambda: library(True)),
             library_without_gather_ms=timer(lambda: library(False)),
             bound_ms=bms, bound_by=by))
+        if dtype == torch.bfloat16:
+            # the paged bank drain's layout (phase 13): a 4-domain bank's
+            # stacked prefix slots read by the rows' ids give the bits of
+            # the same slots gathered per row; its host time a call
+            bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
+            ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                               device="cuda")
+            kw_ids = dict(q_pos=qp, prefix_k=bk, prefix_v=bv,
+                          prefix_ids=ids)
+            by_id = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw_ids)
+            rows = fd.flash_decode_paged(q, k_pool, v_pool, table, q_pos=qp,
+                                         prefix_k=bk[ids.long()],
+                                         prefix_v=bv[ids.long()])
+            torch.cuda.synchronize()
+            check(torch.equal(by_id, rows),
+                  "flash_decode_paged: the bank read by id differs from its "
+                  "slots gathered per row by "
+                  f"{(by_id.float() - rows.float()).abs().max().item()}")
+            cases["flash_decode_paged"][-1]["host_us_bank_by_id"] = host_us(
+                lambda: ops.flash_decode_paged(q, k_pool, v_pool, table,
+                                               **kw_ids))
         log(f"kernel flash_decode_paged {cases['flash_decode_paged'][-1]}")
 
 
@@ -686,6 +839,18 @@ def drain_record(stats, launches, peak) -> dict:
                 peak_mem_gib=peak / 2 ** 30)
 
 
+def maps_ok(what: str, encodes: int, decode_launches: int) -> int:
+    """A bank drain's decode calls read the bank's stacked prefix slots by
+    id, so its TMA maps are encoded once a tensor (the bank's once, each
+    wave's cache once), never once a call: fewer encodes than calls."""
+    check(encodes < decode_launches,
+          f"{what}: {encodes} TMA maps encoded over {decode_launches} "
+          "decode calls")
+    log(f"{what}: {encodes} TMA maps encoded over {decode_launches} decode "
+        "calls")
+    return encodes
+
+
 def drain_line(r: dict) -> str:
     return (f"{r['requests']} requests, {r['tokens']} tokens in "
             f"{r['wall_s']:.3f}s = {r['tok_per_s']:.2f} tok/s; waves "
@@ -751,6 +916,7 @@ def main_path(seed: int) -> tuple[dict, dict]:
 def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
     """The multi-tenant path on the main path's backbone, serving the main
     path's queue with a seeded domain per request."""
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
@@ -761,10 +927,13 @@ def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    enc0 = fd.map_encodes
     comps, stats = drain(cfg, sp, reqs, slots=8, bank=bank, domains=doms)
     launches = ops.launch_counts()
     rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
     served_ok(cfg, comps, reqs, "bank")
+    rec["map_encodes"] = maps_ok("bank", fd.map_encodes - enc0,
+                                 launches["flash_decode"])
     check(all(launches[k] > 0 for k in ("lora_bgmv_rows", "lora_bgmv_seq",
                                         "flash_attention", "flash_decode"))
           and launches["lora_matmul"] == 0,
@@ -837,6 +1006,7 @@ def paged_path(cfg, backbone: dict, bank, seed: int, dense: dict) -> dict:
     """Phase 13: paged serving of full-size qwen2-7b from the 4-domain bank
     with prefix sharing, twice on one engine."""
     from repro_torch.core.paged import PagedSpec
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import DecodeEngine
 
@@ -848,11 +1018,14 @@ def paged_path(cfg, backbone: dict, bank, seed: int, dense: dict) -> dict:
     sp = bank.serving_params(backbone)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    enc0 = fd.map_encodes
     with plain_calls(serving=True) as plain:
         comps, stats = serve_on(eng, sp, reqs, doms)
     launches = ops.launch_counts()
     rec = drain_record(stats, launches, torch.cuda.max_memory_allocated())
     served_ok(cfg, comps, reqs, "paged")
+    rec["map_encodes"] = maps_ok("paged", fd.map_encodes - enc0,
+                                 launches["flash_decode_paged"])
     check(all(launches[k] > 0 for k in ("flash_decode_paged",
                                         "lora_bgmv_rows", "lora_bgmv_seq",
                                         "flash_attention"))
@@ -2168,7 +2341,6 @@ def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
     head, window 2048, 16 prefix slots) against their plain versions,
     timed beside phase 3's head-dim-128 rows (into ``cases``)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import flash_decode as fd
 
     cfg = get_config("recurrentgemma-2b")
     B, S, n_p = 8, 512, 16
@@ -2184,14 +2356,15 @@ def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
 
     # decode: the 2048-slot rolling buffer of a windowed layer in its
     # steady state (every row at or past the window, most wrapped, so
-    # every slot is written and visible), 16 prefix slots in front,
-    # per-row positions
+    # every slot is written and visible), a 16-slot prefix bank, per-row
+    # positions
     Tc = win
-    T = n_p + Tc
     for dtype in (torch.bfloat16, torch.float32):
         q = randn(B, Hq, D, dtype=dtype)
-        k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D,
-                                                       dtype=dtype)
+        kc, vc = randn(B, Tc, Hkv, D, dtype=dtype), randn(B, Tc, Hkv, D,
+                                                          dtype=dtype)
+        pk, pv = randn(n_p, Hkv, D, dtype=dtype), randn(n_p, Hkv, D,
+                                                        dtype=dtype)
         qp = torch.randint(Tc - 1, 2 * Tc, (B,), generator=gen,
                            device="cuda", dtype=torch.int32)
         slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
@@ -2199,35 +2372,13 @@ def attn256_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
         # with p % Tc == slot
         held = slots + torch.div(qp[:, None] - slots, Tc,
                                  rounding_mode="floor") * Tc
-        kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
-                                   device="cuda"), held.to(torch.int32)], 1)
-        kw = dict(q_pos=qp, kv_pos=kp, window=win)
-        got = fd.flash_decode(q, k, v, backend="cuda", **kw)
-        want = fd.flash_decode(q, k, v, backend="torch", **kw)
-        torch.cuda.synchronize()
-        err = compare(f"flash_decode D {D} {dtype}", got, want, dtype)
-        qp64, kp64 = qp.long()[:, None], kp.long()
-        vis = ((kp64 <= qp64) & (qp64 - kp64 < win)) | (kp64 < 0)
-        check(bool(vis.all()), "flash_decode D 256: every slot of the "
-              "steady-state window must be visible (the bound counts all)")
-        pairs = int(vis.sum().item()) * Hq
-        elt = q.element_size()
-        bms, by = bound(elt * (2 * q.numel() + 2 * k.numel())
-                        + 4 * (B + B * T), 4 * D * pairs, dtype)
-        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        mask = vis[:, None, None, :]
-        cases["flash_decode"].append(dict(
-            shape=f"B={B} T={Tc}+{n_p} prefix, all visible, Hq={Hq} "
-                  f"Hkv={Hkv} D={D} window={win} per-row q_pos "
-                  f"{str(dtype)[6:]}",
-            max_abs_err=err, tol=TOL[dtype],
-            ms=timer(lambda: fd.flash_decode(q, k, v, backend="cuda", **kw)),
-            plain_ms=timer(lambda: fd.flash_decode(q, k, v, backend="torch",
-                                                   **kw)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-            bound_ms=bms, bound_by=by))
-        log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+        decode_case(cases, timer, q, kc, vc, qp,
+                    held.to(torch.int32).contiguous(), pk, pv, win,
+                    f"B={B} T={Tc}+{n_p} prefix, all visible, Hq={Hq} "
+                    f"Hkv={Hkv} D={D} window={win} per-row q_pos")
+        check(cases["flash_decode"][-1]["visible_keys"] == B * (n_p + Tc),
+              "flash_decode D 256: every slot of the steady-state window "
+              "must be visible")
 
 
 def hybrid_domains(cfg, seed: int) -> dict:

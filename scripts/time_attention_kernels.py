@@ -15,14 +15,30 @@ launch) on inputs drawn from a fixed seed, so that runs of two trees see
 the same inputs; then the ``flash_attention`` shapes' device time per
 kernel (``torch.profiler`` over 10 calls, L2 flushed before each, as in
 ``scripts/time_lora_kernels.py``), which leaves out the host's time
-between launches. ``repro_torch`` comes from ``PYTHONPATH``: run it once
-per tree, alternating trees (parent, change, change, parent) within one
-call to the card. Prints the card's name and power limit, then one JSON
-line. Needs a CUDA device.
+between launches. Each decode shape is timed twice: ``<shape>_ms`` is
+the kernel alone (``fd.flash_decode`` with the prefix bank in place
+where the tree takes it, else on the cache with the bank concatenated
+beforehand), ``<shape>_ops_ms`` the call as the models make it
+(``ops.flash_decode`` with the bank; a tree that concatenates does so
+inside it); ``device_us`` gives that call's kernels and ``host_us`` its
+host time (``chip_smoke.host_us``: 1,000 calls timed with
+``time.perf_counter`` in batches of 50, a synchronise (untimed) between
+batches so that the launch queue never fills and blocks the host, the
+median batch's time a call). The multi-tenant bank drains' layout is
+timed too (``<shape>_bank_by_id``): a 4-domain bank's stacked prefix
+slots and each row's domain id, passed as ``prefix_ids`` where the tree's
+``ops`` takes them, else gathered per row with ``index_select`` inside
+the timed call, as such a tree's ``models/attention.py`` gathers them
+every layer and step; ``map_encodes`` counts the TMA maps the tree
+encoded over those calls, where it counts them. ``repro_torch`` comes from
+``PYTHONPATH``: run it once per tree, alternating trees (parent, change,
+change, parent) within one call to the card. Prints the card's name and
+power limit, then one JSON line. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -34,6 +50,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
@@ -43,10 +60,11 @@ def main(argv=None) -> int:
         print("time_attention_kernels: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import Timer
+    from chip_smoke import Timer, host_us
     from scripts.time_lora_kernels import device_us
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -60,7 +78,54 @@ def main(argv=None) -> int:
                            device="cuda").to(torch.bfloat16)
 
     B, S, n_p, Hq, Hkv, D, Tc = 8, 512, 16, 28, 4, 128, 1024
-    out = {"label": args.label, "source": fa.__file__, "device_us": {}}
+    out = {"label": args.label, "source": fa.__file__, "device_us": {},
+           "host_us": {}}
+    in_place = "prefix_k" in inspect.signature(fd.flash_decode).parameters
+    by_id = "prefix_ids" in inspect.signature(ops.flash_decode).parameters
+    out["map_encodes"] = {}
+    ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                       device="cuda")
+
+    def bank_call(fn, bk, bv, *args, **kw):
+        """``fn`` with the stacked bank bk / bv read by ``ids``, as the
+        tree's bank drains call it."""
+        if by_id:
+            return partial(fn, *args, prefix_k=bk, prefix_v=bv,
+                           prefix_ids=ids, **kw)
+        rows = ids.long()
+
+        def gathered():
+            return fn(*args, prefix_k=bk.index_select(0, rows),
+                      prefix_v=bv.index_select(0, rows), **kw)
+        return gathered
+
+    def bank_times(label, call):
+        """Device and host time of a bank call, and the maps it encodes
+        over the host timing's 1,010 calls."""
+        out["device_us"][label] = device_us(call, timer.flush)
+        e0 = getattr(fd, "map_encodes", None)
+        out["host_us"][label] = host_us(call)
+        if e0 is not None:
+            out["map_encodes"][label] = fd.map_encodes - e0
+
+    def decode(label, q, kc, vc, qp, kpc, pk, pv, window=0):
+        """``label``: the kernel alone and the models' call (see above);
+        kc / vc / kpc the cache alone, pk / pv the prefix bank."""
+        kw = dict(q_pos=qp, window=window)
+        if in_place:
+            kernel = partial(fd.flash_decode, q, kc, vc, kv_pos=kpc,
+                             prefix_k=pk, prefix_v=pv, **kw)
+        else:
+            kk, vv, kp = (t.contiguous() for t in fd.with_prefix(
+                kc, vc, kpc, pk, pv))
+            kernel = partial(fd.flash_decode, q, kk, vv, kv_pos=kp, **kw)
+        call = partial(ops.flash_decode, q, kc, vc, kv_pos=kpc, prefix_k=pk,
+                       prefix_v=pv, **kw)
+        out[f"{label}_ms"] = timer(kernel)
+        out[f"{label}_ops_ms"] = timer(call)
+        out["device_us"][label] = device_us(call, timer.flush)
+        out["host_us"][label] = host_us(call)
+
     q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
     kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
                                    device="cuda"), q_pos])
@@ -71,17 +136,20 @@ def main(argv=None) -> int:
     out["flash_attention_ms"] = timer(prefill)
     out["device_us"]["flash_attention"] = device_us(prefill, timer.flush)
 
-    q, k, v = randn(B, Hq, D), randn(B, n_p + Tc, Hkv, D), \
-        randn(B, n_p + Tc, Hkv, D)
+    # decode: the bank (16 slots, shared) and a 1024-slot cache with
+    # sentinels past each row's position
+    q, kc, vc = randn(B, Hq, D), randn(B, Tc, Hkv, D), randn(B, Tc, Hkv, D)
+    pk, pv = randn(n_p, Hkv, D), randn(n_p, Hkv, D)
     qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
                        dtype=torch.int32)
     slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
-    kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
-                               device="cuda"),
-                    torch.where(slots <= qp[:, None], slots,
-                                torch.full_like(slots, 10 ** 9))], 1)
-    out["flash_decode_ms"] = timer(lambda: fd.flash_decode(
-        q, k, v, q_pos=qp, kv_pos=kp))
+    kpc = torch.where(slots <= qp[:, None], slots,
+                      torch.full_like(slots, 10 ** 9)).contiguous()
+    decode("flash_decode", q, kc, vc, qp, kpc, pk, pv)
+    bk, bv = randn(4, n_p, Hkv, D), randn(4, n_p, Hkv, D)
+    bank_times("flash_decode_bank_by_id",
+               bank_call(ops.flash_decode, bk, bv, q, kc, vc, q_pos=qp,
+                         kv_pos=kpc))
 
     if hasattr(fd, "flash_decode_paged"):
         bs, maxb, nb = 16, 64, 512
@@ -92,8 +160,16 @@ def main(argv=None) -> int:
         cols = torch.arange(maxb, device="cuda")[None]
         table = torch.where(cols <= qp[:, None] // bs, table,
                             torch.full_like(table, nb))
-        out["flash_decode_paged_ms"] = timer(lambda: fd.flash_decode_paged(
-            q, k_pool, v_pool, table, q_pos=qp, prefix_k=pk, prefix_v=pv))
+        paged = partial(fd.flash_decode_paged, q, k_pool, v_pool, table,
+                        q_pos=qp, prefix_k=pk, prefix_v=pv)
+        out["flash_decode_paged_ms"] = timer(paged)
+        call = partial(ops.flash_decode_paged, q, k_pool, v_pool, table,
+                       q_pos=qp, prefix_k=pk, prefix_v=pv)
+        out["device_us"]["flash_decode_paged"] = device_us(call, timer.flush)
+        out["host_us"]["flash_decode_paged"] = host_us(call)
+        bank_times("flash_decode_paged_bank_by_id",
+                   bank_call(ops.flash_decode_paged, bk, bv, q, k_pool,
+                             v_pool, table, q_pos=qp))
     if getattr(fa, "DMAX", 128) >= 256:
         # head dim 256 (recurrentgemma-2b): prefill of 8 x 512 tokens behind
         # 16 prefix slots, window 2048; decode against a 2048-slot buffer
@@ -107,17 +183,16 @@ def main(argv=None) -> int:
                                                              timer.flush)
         # in its steady state, as phase 22 draws it: every row at or past
         # the window, so all 2048 + 16 slots are visible
-        q, k, v = randn(B, Hq, D), randn(B, n_p + win, Hkv, D), \
-            randn(B, n_p + win, Hkv, D)
+        q, kc, vc = randn(B, Hq, D), randn(B, win, Hkv, D), \
+            randn(B, win, Hkv, D)
+        pk, pv = randn(n_p, Hkv, D), randn(n_p, Hkv, D)
         qp = torch.randint(win - 1, 2 * win, (B,), generator=gen,
                            device="cuda", dtype=torch.int32)
         slots = torch.arange(win, dtype=torch.int32, device="cuda")[None]
         held = slots + torch.div(qp[:, None] - slots, win,
                                  rounding_mode="floor") * win
-        kp = torch.cat([torch.full((B, n_p), -1, dtype=torch.int32,
-                                   device="cuda"), held.to(torch.int32)], 1)
-        out["flash_decode_d256_ms"] = timer(lambda: fd.flash_decode(
-            q, k, v, q_pos=qp, kv_pos=kp, window=win))
+        decode("flash_decode_d256", q, kc, vc, qp,
+               held.to(torch.int32).contiguous(), pk, pv, window=win)
     # head dim 64 (vit-edge's classify): 8 x 197 tokens behind 16 prefix
     # slots, 12 / 12 heads, causal
     S, Hq, Hkv, D = 197, 12, 12, 64

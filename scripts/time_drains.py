@@ -10,8 +10,8 @@ published size single-tenant, from a 4-domain bank, paged from the bank,
 speculative), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
 and from a bank) and ``train_phases`` (phases 9 to 11: the HFSL rounds),
 checks included, and prints the card's name and power limit, then one
-JSON line with each drain's tok/s and TTFT p50 / p99 and each round's
-seconds a step. The tree's kernels are built before the first drain, so
+JSON line with each drain's tok/s, TTFT p50 / p99 and per-token
+latency p50, and each round's seconds a step. The tree's kernels are built before the first drain, so
 that no drain waits for ``nvcc``. These drains are host-bound, and their
 numbers spread between calls to the card, so compare two trees only
 within one call: run this once per tree, alternating trees (parent,
@@ -29,7 +29,8 @@ from pathlib import Path
 
 import torch
 
-KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "step_s")
+KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "tok_latency_p50_s",
+        "step_s")
 
 
 def numbers(rec: dict) -> dict:

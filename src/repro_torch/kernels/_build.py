@@ -142,5 +142,7 @@ def checked_args(name: str, tensors: dict, dtype: torch.dtype, *,
 
 
 def stream(t: torch.Tensor) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device (no
+    ``torch.cuda.Stream`` is built: a few microseconds less host time a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

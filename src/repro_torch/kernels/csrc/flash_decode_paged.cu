@@ -2,9 +2,10 @@
 // addressed through a per-row block table, with the layer's prefix-KV slots
 // in front. The Hopper replacement of the TPU kernel
 // repro/kernels/flash_decode.py::flash_decode_paged_pallas (body
-// _paged_kernel), which the TPU route takes only without a prefix bank;
-// this kernel takes the prefix bank itself, so a paged drain never gathers
-// a row's cache into a dense copy.
+// _paged_kernel, one grid step per pool block through the scalar-prefetched
+// table), which the TPU route takes only without a prefix bank; this kernel
+// takes the prefix bank itself, so a paged drain never gathers a row's
+// cache into a dense copy.
 //
 // Keys, in order: the n_p prefix slots (position -1, always visible), then
 // cache positions 0 .. maxb * bs - 1, position t living at
@@ -14,24 +15,29 @@
 //
 // What bounds it on an H100: bytes, as for flash_decode.cu: each step reads
 // every visible key of every row once for 4 * D flops per (query head, key).
-// Design: flash_decode.cu's grid, one block per (KV head, row), the g query
-// heads of the group riding along, and attn_tile.cuh's 32-key tiles and
-// online softmax; only the tile loader differs, resolving each key's row
-// through the table (PagedKV, attend_tiles' accessor). So the tiles, the
-// skipped tiles and every sum are those of flash_decode.cu over
-// cat(prefix, pool[table]) with kv_pos cat(-1, 0 .. maxb*bs-1): the two
-// kernels agree bit for bit.
 //
-// Known limits, left for later: every thread resolves the table once per
-// key it loads (an L1 hit, but 32 lookups per thread per tile), and the
-// grid is B x Hkv blocks (32 at the paged drain's 8 rows x 4 KV heads on
-// 132 SMs), as in the dense kernel.
+// bf16 (every serving path): decode_split.cuh's split-KV tile with the
+// paged loader: the pool is a 4-D tensor map over (D, Hkv, bs, n_blocks),
+// a 64-key tile is 64 / bs boxes (one of 64 rows when bs >= 64) whose
+// coordinate is the table entry, and a split's table entries are staged in
+// shared memory once (clamped into the pool; keys past the table read the
+// last pool block and are masked). Only the loads differ from the dense
+// kernel: the tiles (the prefix in tiles of its own, then the cache from
+// slot 0), the splits, the skipped tiles and every sum are those of
+// flash_decode.cu over the prefix and pool[table], so the two kernels agree
+// bit for bit. Head dims up to 64 and 128.
 //
-// Grid: (Hkv, B); 4 warps, query head j of the group on warp j % 4. Head
-// dims up to 128 (attn_tile.cuh's DM = 128 instance); no model that the
-// paged engine pages has a larger one (recurrentgemma's head dim 256 is
-// all local attention, which keeps its dense rolling buffer).
+// f32 (the token-exact checks): attn_tile.cuh's CUDA-core tile, unchanged:
+// grid (Hkv, B), one block per (KV head, row), the g query heads riding
+// along, 32-key tiles resolving each key's row through the table
+// (PagedKV, attend_tiles' accessor), bit for bit the dense f32 kernel on
+// cat(prefix, pool[table]).
+//
+// Head dims up to 128: no model that the paged engine pages has a larger
+// one (recurrentgemma's head dim 256 is all local attention, which keeps
+// its dense rolling buffer).
 #include "attn_tile.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -146,11 +152,11 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// q (B, Hq, D); k_pool / v_pool (n_blocks, bs, Hkv, D); table (B, maxb)
-// int32; q_pos (B,) int32; prefix_k / prefix_v (B, n_p, Hkv, D) with
-// prefix_per_row = 1, or (n_p, Hkv, D) shared with prefix_per_row = 0, or
-// null with n_p = 0; out (B, Hq, D). Contiguous, one float dtype.
-// bs a power of two, D <= 128, Hq / Hkv <= 16.
+// f32 only (the bf16 calls take flash_decode_paged_bf16_launch): q (B, Hq,
+// D); k_pool / v_pool (n_blocks, bs, Hkv, D); table (B, maxb) int32; q_pos
+// (B,) int32; prefix_k / prefix_v (B, n_p, Hkv, D) with prefix_per_row = 1,
+// or (n_p, Hkv, D) shared with prefix_per_row = 0, or null with n_p = 0;
+// out (B, Hq, D). Contiguous. bs a power of two, D <= 128, Hq / Hkv <= 16.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* table,
     const int* q_pos, const void* prefix_k, const void* prefix_v, void* out,
@@ -158,23 +164,84 @@ extern "C" int flash_decode_paged_launch(
     int Hq, int Hkv, int D, float scale, int dtype, void* stream) {
   if (D > DP || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
       bs <= 0 || (bs & (bs - 1)) != 0 || n_blocks <= 0 || n_p < 0 ||
-      (n_p > 0 && (prefix_k == nullptr || prefix_v == nullptr)))
+      (n_p > 0 && (prefix_k == nullptr || prefix_v == nullptr)) ||
+      dtype != DT_F32)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   int bs_log2 = 0;
   while ((1 << bs_log2) < bs) ++bs_log2;
   const long long row_stride =
       prefix_per_row ? (long long)n_p * Hkv * D : 0;
+  return launch<float>(q, k_pool, v_pool, table, q_pos, prefix_k, prefix_v,
+                       out, B, n_blocks, bs_log2, maxb, n_p, row_stride, Hq,
+                       Hkv, D, scale, static_cast<cudaStream_t>(stream));
+}
+
+// A tensor map of the bf16 tile (decode_split::encode_map) into out's 128
+// bytes: (D, H, rows, nbatch), box 64 x 1 x box_rows x 1.
+extern "C" int flash_decode_paged_encode_map(void* out, const void* base,
+                                             int D, int H, int rows,
+                                             int nbatch, int box_rows) {
+  return decode_split::encode_map(out, base, D, H, rows, nbatch, box_rows);
+}
+
+// bf16: q (B, Hq, D), out (B, Hq, D), contiguous; q_pos (B,), table
+// (B, maxb) int32; maps (encode_map images) over the pools (n_blocks, bs,
+// Hkv, D) with box min(bs, 64) rows, and the prefix bank (n_p, Hkv, D),
+// or (B, n_p, Hkv, D) with prefix_per_row, or a stacked (n_slots, n_p,
+// Hkv, D) bank with prefix_ids (B,) int32 naming each row's slot (any map
+// when n_p == 0); work holds
+// B * Hkv * n_splits * g * (D + 2) floats; counters B * Hkv ints, 0 (and
+// left at 0). bs a power of two, D % 8 == 0, D <= 128, Hq / Hkv <= 16;
+// tps and n_splits from flash_decode.py::split_plan, n_ent the most pool
+// blocks a split spans.
+extern "C" int flash_decode_paged_bf16_launch(
+    const void* q, const int* q_pos, const int* table, void* out,
+    const void* map_k, const void* map_v, const void* map_pk,
+    const void* map_pv, const int* prefix_ids, void* work, int* counters,
+    int B, int n_blocks, int bs, int maxb, int n_p, int prefix_per_row,
+    int n_slots, int Hq, int Hkv, int D, float scale, int tps, int n_splits,
+    int n_ent, void* stream) {
+  if (D > DP || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      Hq / Hkv > GMAX || bs <= 0 || (bs & (bs - 1)) != 0 || n_blocks <= 0 ||
+      n_p < 0 || maxb < 0 || n_ent < 1 ||
+      (prefix_ids != nullptr && n_slots < 1))
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  int bs_log2 = 0;
+  while ((1 << bs_log2) < bs) ++bs_log2;
+  const int g = Hq / Hkv;
+  decode_split::Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q_pos = q_pos;
+  p.table = table;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.part_o = static_cast<float*>(work);
+  p.part_ml = p.part_o + (long long)B * Hkv * n_splits * g * D;
+  p.counters = counters;
+  p.T = maxb * bs;
+  p.n_p = n_p;
+  p.prefix_per_row = prefix_per_row;
+  p.prefix_ids = prefix_ids;
+  p.n_slots = n_slots;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.D = D;
+  p.causal = 1;
+  p.window = 0;
+  p.bs = bs;
+  p.bs_log2 = bs_log2;
+  p.maxb = maxb;
+  p.n_blocks = n_blocks;
+  p.tps = tps;
+  p.n_splits = n_splits;
+  p.n_ent = n_ent;
+  p.nkb = (D + 63) / 64;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  const void* const maps[4] = {map_k, map_v, map_pk, map_pv};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return launch<float>(q, k_pool, v_pool, table, q_pos, prefix_k, prefix_v,
-                         out, B, n_blocks, bs_log2, maxb, n_p, row_stride, Hq,
-                         Hkv, D, scale, st);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, table, q_pos, prefix_k,
-                                 prefix_v, out, B, n_blocks, bs_log2, maxb,
-                                 n_p, row_stride, Hq, Hkv, D, scale, st);
-  return cudaErrorInvalidValue;
+  if (D <= 64) return decode_split::launch<64, true>(maps, p, B, st);
+  return decode_split::launch<128, true>(maps, p, B, st);
 }
 
 DEFINE_ERROR_STRING(flash_decode_paged)

@@ -1,6 +1,7 @@
 // Hopper PTX shared by the port's tensor-core tiles (lora_wgmma.cuh,
-// attn_wgmma.cuh): shared-memory addresses, mbarriers, TMA tensor loads,
-// the 128-byte-swizzle wgmma descriptor, wgmma fence / commit / wait, and
+// attn_wgmma.cuh, decode_split.cuh): shared-memory addresses, mbarriers,
+// TMA tensor loads, the 128-byte-swizzle wgmma descriptor, wgmma fence /
+// commit / wait, ldmatrix and the warp-wide mma.sync bf16 product, and
 // on the host cuTensorMapEncodeTiled from the driver the runtime loaded
 // and the raise of a kernel's dynamic shared-memory limit.
 // Every function is inline, so a tile that includes this header compiles
@@ -114,6 +115,46 @@ template <int PENDING>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING)
                : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one 16-byte row address a
+// lane (lanes 8 i .. 8 i + 7 give matrix i's rows): thread t receives
+// elements (t / 4, 2 (t % 4) + {0, 1}) of each, the mma.sync fragment
+// layout; with .trans, elements (2 (t % 4) + {0, 1}, t / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col): the
+// warp-wide tensor-core product. a: (row t / 4, cols 2 (t % 4) + {0, 1}),
+// (row + 8), (cols + 8), (both); b: (k 2 (t % 4) + {0, 1}, n t / 4),
+// (k + 8); d: (row t / 4, cols 2 (t % 4) + {0, 1}), (row + 8).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk `chunk` (0 .. 7) of row `row` in a box of
+// 128-byte rows written by TMA with the 128-byte swizzle, the box starting
+// on a 1024-byte boundary: the chunk index XOR the row's index mod 8.
+__device__ __forceinline__ uint32_t sw128_off(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
 // The most dynamic shared memory a block may opt in to on sm_90 (227 KB).

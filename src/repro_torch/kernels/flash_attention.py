@@ -111,25 +111,30 @@ def flash_attention_torch(q, k, v, *, q_pos, kv_pos, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
+def pad_d8(*ts):
+    """(operands, copied): the bf16 operands of a launch (q first; None
+    passes through) with D zero-padded to a multiple of 8, and each copied
+    where its base is not 16-byte aligned; an operand that needs neither
+    is returned as it is. The zero columns add exact zeros to every score
+    and to the output's extra columns, which the caller slices away."""
+    Dp = -(-ts[0].shape[-1] // 8) * 8
+    out = ts
+    for i, t in enumerate(ts):
+        if t is None or (t.shape[-1] == Dp and t.data_ptr() % 16 == 0):
+            continue
+        if out is ts:
+            out = list(ts)
+        out[i] = t.new_zeros((*t.shape[:-1], Dp))
+        out[i][..., :t.shape[-1]] = t
+    return out, out is not ts
+
+
 def _pad_for_tma(q, k, v):
-    """q, k, v of a bf16 launch with D zero-padded to a multiple of 8, and
-    each copied where its base is not 16-byte aligned; an operand that
-    needs neither is returned as it is. Counts one in ``pad_copies`` per
-    call that copied. The zero columns add exact zeros to every score and
-    to the output's extra columns, which the caller slices away."""
+    """:func:`pad_d8` of q, k, v; counts one in ``pad_copies`` per call
+    that copied."""
     global pad_copies
-    Dp = -(-q.shape[-1] // 8) * 8
-
-    def fit(t):
-        if t.shape[-1] == Dp and t.data_ptr() % 16 == 0:
-            return t
-        out = t.new_zeros((*t.shape[:-1], Dp))
-        out[..., :t.shape[-1]] = t
-        return out
-
-    out = (fit(q), fit(k), fit(v))
-    if any(o is not t for o, t in zip(out, (q, k, v))):
-        pad_copies += 1
+    out, copied = pad_d8(q, k, v)
+    pad_copies += copied
     return out
 
 

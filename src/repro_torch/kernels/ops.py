@@ -174,30 +174,49 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, window: int = 0,
 # Flash decode (single-token attention against a padded KV cache)
 # ---------------------------------------------------------------------------
 
+def _int32(x, shape, device) -> torch.Tensor:
+    """x (a scalar, a list or a tensor) as a contiguous int32 tensor on
+    ``device``, broadcast to ``shape`` unless that is None; a tensor that
+    is all of these already is returned as it is."""
+    t = torch.as_tensor(x, device=device)
+    if shape is not None and t.shape != shape:
+        t = t.expand(shape)
+    return fd.contiguous_as(t, torch.int32)
+
+
 def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
-                 window: int = 0, causal: bool = True,
+                 prefix_ids=None, window: int = 0, causal: bool = True,
                  scale: Optional[float] = None,
                  backend: Optional[str] = None):
     """One decode token per sequence against a KV cache (+ prefix bank).
 
     q: (B, Hq, D); k, v: (B, T, Hkv, D); q_pos: scalar or (B,); kv_pos:
     (T,) or (B, T) (``+1e9`` sentinel marks unwritten slots). prefix_k/v:
-    (n_p, Hkv, D) or (B, n_p, Hkv, D) always-visible slots, concatenated
-    in front at position -1 as the TPU kernel route does
-    (``repro/kernels/ops.py::flash_decode``). Returns (B, Hq, D)."""
+    (n_p, Hkv, D) or (B, n_p, Hkv, D) always-visible slots at position -1
+    in front, as the TPU kernel route's concatenation puts them
+    (``repro/kernels/ops.py::flash_decode``), or a multi-tenant bank's
+    stacked (n_slots, n_p, Hkv, D) slots with ``prefix_ids`` (B,) naming
+    each row's slot: the bf16 kernel reads them in place, the f32 kernel
+    and the plain version (the CPU path) after :func:`fd.with_prefix`
+    concatenates them. Returns (B, Hq, D)."""
     B, T = k.shape[0], k.shape[1]
-    qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).expand(B)
-    kp = torch.as_tensor(kv_pos, device=q.device).to(torch.int32) \
-        .expand(B, T)
-    k, v, kp = fd.with_prefix(k, v, kp, prefix_k, prefix_v)
-    return fd.flash_decode(q.contiguous(), k, v, q_pos=qp.contiguous(),
-                           kv_pos=kp.contiguous(), window=window,
-                           causal=causal, scale=scale,
+    qp = _int32(q_pos, (B,), q.device)
+    kp = _int32(kv_pos, (B, T), q.device)
+    if prefix_k is not None:
+        prefix_k = fd.contiguous_as(prefix_k, k.dtype)
+        prefix_v = fd.contiguous_as(prefix_v, v.dtype)
+    if prefix_ids is not None:
+        prefix_ids = _int32(prefix_ids, (B,), q.device)
+    return fd.flash_decode(q.contiguous(), k, v, q_pos=qp, kv_pos=kp,
+                           window=window,
+                           causal=causal, scale=scale, prefix_k=prefix_k,
+                           prefix_v=prefix_v, prefix_ids=prefix_ids,
                            backend=_pick(backend))
 
 
 def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
-                       prefix_v=None, scale: Optional[float] = None,
+                       prefix_v=None, prefix_ids=None,
+                       scale: Optional[float] = None,
                        backend: Optional[str] = None):
     """One decode token per sequence against a paged block-pool cache.
 
@@ -206,20 +225,23 @@ def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
     ``pool[table[b, t // bs], t % bs]``, so positions are implicit and
     visibility is causal; entries >= n_blocks are the sentinel and clamp
     into the pool. prefix_k/v: (n_p, Hkv, D) or (B, n_p, Hkv, D)
-    always-visible slots in front. The same function as the reference's
+    always-visible slots in front, or stacked (n_slots, n_p, Hkv, D) with
+    ``prefix_ids`` (B,), as :func:`flash_decode` takes them. The same function as the reference's
     ``ops.flash_decode_paged`` with or without a prefix bank; for CUDA
     tensors it is always the paged kernel (no gather into a dense copy).
     Returns (B, Hq, D)."""
     B = q.shape[0]
-    qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).expand(B)
+    qp = _int32(q_pos, (B,), q.device)
     if prefix_k is not None:
-        prefix_k = prefix_k.to(k_pool.dtype)
-        prefix_v = prefix_v.to(v_pool.dtype)
+        prefix_k = fd.contiguous_as(prefix_k, k_pool.dtype)
+        prefix_v = fd.contiguous_as(prefix_v, v_pool.dtype)
+    if prefix_ids is not None:
+        prefix_ids = _int32(prefix_ids, (B,), q.device)
     return fd.flash_decode_paged(q.contiguous(), k_pool, v_pool,
-                                 torch.as_tensor(table, device=q.device),
-                                 q_pos=qp.contiguous(), prefix_k=prefix_k,
-                                 prefix_v=prefix_v, scale=scale,
-                                 backend=_pick(backend))
+                                 _int32(table, None, q.device),
+                                 q_pos=qp, prefix_k=prefix_k,
+                                 prefix_v=prefix_v, prefix_ids=prefix_ids,
+                                 scale=scale, backend=_pick(backend))
 
 
 # ---------------------------------------------------------------------------

@@ -246,21 +246,20 @@ def attention_decode(params: dict, adapters: Optional[dict],
             mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
             buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
 
-    pfx = (adapters or {}).get("prefix")
-    pfx_k = pfx_v = None
-    if pfx is not None:
-        if adapter_ids is not None:                # per-row domain prefix
-            pfx_k, pfx_v = _prefix_slots(pfx, B, adapter_ids)
-        else:
-            pfx_k, pfx_v = pfx["k"], pfx["v"]
+    # the layer's prefix bank, read in place: shared, or with adapter_ids
+    # the bank's stacked (n_slots, ...) slots, each row its own domain's
+    pfx = (adapters or {}).get("prefix") or {}
+    pfx_k, pfx_v = pfx.get("k"), pfx.get("v")
+    pfx_ids = adapter_ids if pfx else None
     if "table" in cache:
         o = kops.flash_decode_paged(
             q[:, 0], cache["k"], cache["v"], cache["table"], q_pos=pos,
-            prefix_k=pfx_k, prefix_v=pfx_v)
+            prefix_k=pfx_k, prefix_v=pfx_v, prefix_ids=pfx_ids)
     else:
         o = kops.flash_decode(
             q[:, 0], cache["k"], cache["v"], q_pos=pos, kv_pos=cache["pos"],
-            prefix_k=pfx_k, prefix_v=pfx_v, window=window, causal=True)
+            prefix_k=pfx_k, prefix_v=pfx_v, prefix_ids=pfx_ids,
+            window=window, causal=True)
     o = o.reshape(B, 1, nh * hd).to(x.dtype)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache

@@ -11,10 +11,18 @@ different and repeating, and bit for bit against ``lora_matmul`` per row
 the adapter-gradient kernel, the autograd ``lora_matmul`` and the
 flash-attention backward on the card against autograd through the plain
 versions, and a reduced HFSL round through the kernels against the same
-round through the plain versions; the paged decode kernel against its
-plain version (block sizes 4 to 16, sentinel table entries, shared and
-per-row prefix slots) and bit for bit against the dense kernel on the
-gathered layout, and a 2-layer paged drain through the kernels against
+round through the plain versions; the bf16 decode tile's S = Q Kᵀ and P V
+fragments (TMA, 128-byte swizzle, ldmatrix, mma.sync) against f32 torch
+products, the dense decode kernel at T 1 to 300 (partial last tiles),
+prefix banks of 0 to 70 slots, groups 1 to 16, head dims 8 to 256,
+windows, rows that see nothing, bits that repeat across launches and
+batch sizes, back-to-back shapes on one set of split counters, and its
+padding for TMA; a multi-tenant bank's prefix slots read by id (dense and
+paged) bit for bit against the slots gathered per row, and launches
+through a full TMA map cache; the paged decode kernel against its
+plain version (block sizes 4 to 128, sentinel table entries, shared and
+per-row prefix slots) and bit for bit against the dense kernel with the
+prefix read in place and on the concatenated gathered layout, and a 2-layer paged drain through the kernels against
 the plain versions and the dense drain; the selective scan against its
 plain version (odd S and Di, state widths 4 to 16, B and C as strided
 views, no, per-row and shared initial states), a padded row's state bit
@@ -436,16 +444,56 @@ def test_flash_attention_pads_only_what_tma_refuses(gen, D, copies):
     close(got, fa.flash_attention_torch(q, k, v, **kw), torch.bfloat16)
 
 
-# (B, T, n_prefix, Hq, Hkv, D)
-@pytest.mark.parametrize("case", [(1, 1, 0, 2, 2, 16), (3, 45, 4, 7, 1, 64),
-                                  (8, 300, 16, 28, 4, 128),
-                                  (2, 33, 0, 32, 2, 128),
-                                  (8, 300, 16, 10, 1, 256),
-                                  (2, 45, 0, 6, 2, 160)])
-@pytest.mark.parametrize("window", [0, 8])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_decode_kernel(gen, case, window, dtype):
-    B, T, n_p, Hq, Hkv, D = case
+def _decode_probe(q, k, v, pm, D, out):
+    lib = _build.bind("flash_decode", fd._ARGS)
+    fn = lib.decode_split_probe_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    mk = fd._map(lib, "flash_decode", k, 1, 64, 1, 64)
+    mv = fd._map(lib, "flash_decode", v, 1, 64, 1, 64)
+    _build.check(lib, "flash_decode", fn(
+        mk, mv, q.data_ptr(), None if pm is None else pm.data_ptr(), D,
+        out.data_ptr(), _build.stream(q)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 160, 256])
+def test_decode_split_probe_qk_tile(gen, D):
+    """S = Q Kᵀ for one decode tile (16 query heads, 64 keys) through the
+    bf16 decode tile's TMA boxes, 128-byte swizzle and ldmatrix addresses
+    (Q and K row-major, each warp 16 keys, mma.sync m16n8k16), f32 out,
+    against ``q.float() @ k.float().T``: bf16 products are exact in f32,
+    so only the order of each D-term sum differs."""
+    q = randn(gen, 16, D, dtype=torch.bfloat16)
+    k = randn(gen, 64, D, dtype=torch.bfloat16)
+    s = torch.full((16, 64), float("nan"), device="cuda")
+    _decode_probe(q, k, k, None, D, s)
+    want = q.float() @ k.float().T
+    assert torch.allclose(s, want, atol=1e-4, rtol=1e-4), \
+        (s - want).abs().max().item()
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 160, 256])
+def test_decode_split_probe_pv_tile(gen, D):
+    """O = P V for one decode tile: P (16 x 64, bf16) loaded into the A
+    fragment exactly as the kernel packs it from S's accumulator, V (64 x
+    D) through ldmatrix.trans of the swizzled tile, the four warps' keys
+    summed in order, f32 out, against ``p.float() @ v.float()``."""
+    q = randn(gen, 16, D, dtype=torch.bfloat16)
+    v = randn(gen, 64, D, dtype=torch.bfloat16)
+    pm = torch.rand((16, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    o = torch.full((16, D), float("nan"), device="cuda")
+    _decode_probe(q, v, v, pm, D, o)
+    want = pm.float() @ v.float()
+    assert torch.allclose(o, want, atol=1e-4, rtol=1e-4), \
+        (o - want).abs().max().item()
+
+
+def _decode_operands(gen, B, T, n_p, Hq, Hkv, D, dtype, per_row=False):
+    """q, k, v; ragged q_pos; kv_pos with the +1e9 sentinel past each
+    row's position; a prefix bank (shared or per row) or None."""
     q = randn(gen, B, Hq, D, dtype=dtype)
     k = randn(gen, B, T, Hkv, D, dtype=dtype)
     v = randn(gen, B, T, Hkv, D, dtype=dtype)
@@ -454,8 +502,35 @@ def test_flash_decode_kernel(gen, case, window, dtype):
     slots = torch.arange(T, dtype=torch.int32, device="cuda")[None]
     kp = torch.where(slots <= qp[:, None], slots,
                      torch.full_like(slots, 10 ** 9))
-    pk = randn(gen, n_p, Hkv, D, dtype=dtype) if n_p else None
-    pv = randn(gen, n_p, Hkv, D, dtype=dtype) if n_p else None
+    pshape = (B, n_p, Hkv, D) if per_row else (n_p, Hkv, D)
+    pk = randn(gen, *pshape, dtype=dtype) if n_p else None
+    pv = randn(gen, *pshape, dtype=dtype) if n_p else None
+    return q, k, v, qp, kp, pk, pv
+
+
+# (B, T, n_prefix, Hq, Hkv, D): T 1, 63, 64, 65 and 300 (a partial last
+# tile, exactly one tile, one key past it); prefix 0, 3, 16 and 70 (in
+# tiles of their own, 70 in two); groups 1, 7, 10 and 16; head dims 8,
+# 64, 128, 160 and 256 (all three bf16 instances, D not a multiple of 64)
+@pytest.mark.parametrize("case", [(1, 1, 0, 2, 2, 16), (3, 45, 4, 7, 1, 64),
+                                  (8, 300, 16, 28, 4, 128),
+                                  (2, 33, 0, 32, 2, 128),
+                                  (8, 300, 16, 10, 1, 256),
+                                  (2, 45, 0, 6, 2, 160),
+                                  (2, 1, 0, 1, 1, 64),
+                                  (3, 63, 3, 7, 1, 128),
+                                  (2, 64, 70, 16, 1, 64),
+                                  (2, 65, 16, 10, 1, 256),
+                                  (2, 300, 70, 16, 2, 8),
+                                  (1, 300, 3, 7, 1, 160),
+                                  (4, 65, 0, 28, 4, 128),
+                                  (2, 63, 16, 16, 1, 256)])
+@pytest.mark.parametrize("window", [0, 8, 2048])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_kernel(gen, case, window, dtype):
+    B, T, n_p, Hq, Hkv, D = case
+    q, k, v, qp, kp, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                               dtype)
     n0 = fd.launches
     got = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp, prefix_k=pk,
                            prefix_v=pv, window=window)
@@ -465,6 +540,190 @@ def test_flash_decode_kernel(gen, case, window, dtype):
                                 prefix_v=pv, window=window)
     assert fd.launches == n0 + 1
     close(got, want, dtype)
+
+
+@pytest.mark.parametrize("n_p", [0, 3])
+@pytest.mark.parametrize("window,causal", [(0, True), (8, True),
+                                           (8, False)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_rows_that_see_nothing(gen, n_p, window, causal,
+                                            dtype):
+    """Rows whose q_pos sees no slot average every key uniformly (the
+    prefix slots and the cache's slots), as the plain version's -1e30
+    masking does, beside rows that see keys in the same call. Causal: rows
+    0-2 sit at negative positions before every slot; non-causal with
+    window 8: rows 0-2 sit 8 or more positions past every slot. Without a
+    prefix those rows see nothing at all, and every split of theirs folds
+    every tile; with one, they see the prefix only."""
+    B, T, Hq, Hkv, D = 6, 300, 7, 1, 128
+    q, k, v, _, _, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                             dtype)
+    kp = torch.arange(T, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, T).contiguous()
+    qp = torch.tensor([-5, -1, -300, 10, 150, 299], dtype=torch.int32,
+                      device="cuda")
+    if not causal:
+        qp = torch.where(qp < 0, T + 7 - qp, qp)
+    kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv, window=window,
+              causal=causal)
+    got = ops.flash_decode(q, k, v, **kw)
+    with ops.backend("torch"):
+        want = ops.flash_decode(q, k, v, **kw)
+    close(got, want, dtype)
+    if n_p == 0:
+        uniform = v[:3].float().mean(1).repeat_interleave(Hq // Hkv, 1)
+        close(got[:3].float(), uniform, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_decode_bits_repeat_and_rows_stand_alone(gen, D):
+    """Two launches give the same bits, and each row of a batch of 8 gives
+    the bits of the same row run alone (the splits depend on the head dim
+    and the key count only; the combine sums the splits in order)."""
+    B, T, n_p, Hq, Hkv = 8, 700, 16, 14, 2
+    q, k, v, qp, kp, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                               torch.bfloat16, per_row=True)
+    kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv, window=500)
+    got = ops.flash_decode(q, k, v, **kw)
+    again = ops.flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for i in range(B):
+        one = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                               q_pos=qp[i:i + 1], kv_pos=kp[i:i + 1],
+                               prefix_k=pk[i:i + 1], prefix_v=pv[i:i + 1],
+                               window=500)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], got[i]), i
+
+
+def test_flash_decode_back_to_back_shapes(gen):
+    """Calls of different shapes in a row share the split counters (each
+    combine resets its own): each is right, and the first shape called
+    again gives its first bits."""
+    shapes = [(8, 1000, 16, 28, 4, 128), (3, 130, 0, 10, 1, 256),
+              (16, 64, 3, 7, 1, 64), (8, 1000, 16, 28, 4, 128)]
+    outs = []
+    for B, T, n_p, Hq, Hkv, D in shapes:
+        g2 = torch.Generator(device="cuda").manual_seed(T)
+        q, k, v, qp, kp, pk, pv = _decode_operands(
+            g2, B, T, n_p, Hq, Hkv, D, torch.bfloat16)
+        kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv)
+        got = ops.flash_decode(q, k, v, **kw)
+        with ops.backend("torch"):
+            close(got, ops.flash_decode(q, k, v, **kw), torch.bfloat16)
+        outs.append(got)
+    assert torch.equal(outs[0], outs[-1])
+
+
+@pytest.mark.parametrize("D,copies", [(36, True), (100, True), (200, False),
+                                      (64, False)])
+def test_flash_decode_pads_only_what_tma_refuses(gen, D, copies):
+    """A bf16 head dim that is not a multiple of 8 takes one counted
+    zero-padding copy, dense and paged, and agrees with the plain version;
+    aligned head dims launch with none. f32 never pads."""
+    for dtype in DTYPES:
+        q, k, v, qp, kp, pk, pv = _decode_operands(gen, 2, 70, 3, 4, 2, D,
+                                                   dtype)
+        kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv)
+        n0 = fd.pad_copies
+        got = ops.flash_decode(q, k, v, **kw)
+        assert fd.pad_copies - n0 == int(copies and dtype == torch.bfloat16)
+        with ops.backend("torch"):
+            close(got, ops.flash_decode(q, k, v, **kw), dtype)
+        if D > fd.PAGED_DMAX:
+            continue
+        q, kpool, vpool, table, qp, pk, pv = _paged_operands(
+            gen, 2, 5, 16, 3, 4, 2, D, dtype, False)
+        kw = dict(q_pos=qp, prefix_k=pk, prefix_v=pv)
+        n0 = fd.pad_copies
+        got = ops.flash_decode_paged(q, kpool, vpool, table, **kw)
+        assert fd.pad_copies - n0 == int(copies and dtype == torch.bfloat16)
+        with ops.backend("torch"):
+            close(got, ops.flash_decode_paged(q, kpool, vpool, table, **kw),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_bank_by_id_gives_the_bits_of_gathered_slots(gen,
+                                                                  dtype):
+    """A multi-tenant bank's stacked prefix slots (n_slots, n_p, Hkv, D)
+    read by the rows' ids (repeating, some slots unread) give the bits of
+    the same slots gathered per row, dense and paged, one launch a call;
+    agree with the plain version; and in bf16 a second call with other
+    ids encodes no TMA map (the bank's maps do not depend on the ids)."""
+    B, T, n_p, Hq, Hkv, D, n_slots = 6, 200, 16, 14, 2, 128, 5
+    q, k, v, qp, kp, _, _ = _decode_operands(gen, B, T, 0, Hq, Hkv, D, dtype)
+    bk = randn(gen, n_slots, n_p, Hkv, D, dtype=dtype)
+    bv = randn(gen, n_slots, n_p, Hkv, D, dtype=dtype)
+    ids = torch.tensor([4, 0, 4, 2, 0, 4], dtype=torch.int32, device="cuda")
+    n0 = fd.launches
+    got = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp, prefix_k=bk,
+                           prefix_v=bv, prefix_ids=ids)
+    assert fd.launches == n0 + 1
+    rows = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp,
+                            prefix_k=bk[ids.long()], prefix_v=bv[ids.long()])
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows), (got.float() - rows.float()).abs().max()
+    with ops.backend("torch"):
+        close(got, ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp,
+                                    prefix_k=bk, prefix_v=bv,
+                                    prefix_ids=ids), dtype)
+    other = ids.flip(0).contiguous()
+    e0 = fd.map_encodes
+    ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp, prefix_k=bk, prefix_v=bv,
+                     prefix_ids=other)
+    assert fd.map_encodes == e0
+
+    q, kpool, vpool, table, qp, _, _ = _paged_operands(
+        gen, B, 12, 16, 0, Hq, Hkv, D, dtype, False)
+    n0 = fd.paged_launches
+    got = ops.flash_decode_paged(q, kpool, vpool, table, q_pos=qp,
+                                 prefix_k=bk, prefix_v=bv, prefix_ids=ids)
+    assert fd.paged_launches == n0 + 1
+    rows = ops.flash_decode_paged(q, kpool, vpool, table, q_pos=qp,
+                                  prefix_k=bk[ids.long()],
+                                  prefix_v=bv[ids.long()])
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows), (got.float() - rows.float()).abs().max()
+    with ops.backend("torch"):
+        close(got, ops.flash_decode_paged(q, kpool, vpool, table, q_pos=qp,
+                                          prefix_k=bk, prefix_v=bv,
+                                          prefix_ids=ids), dtype)
+
+
+def test_a_full_map_cache_frees_no_map_of_a_launch(gen):
+    """The TMA map cache is cleared when it holds 1,024 maps. Filled to
+    1,023, a dense call with a prefix bank (4 maps) and then a paged call
+    with one (4 maps) clear it in the middle of their lookups: the maps
+    already looked up must stay intact through the launch, and both calls
+    agree with their plain versions."""
+    B, T, n_p, Hq, Hkv, D = 4, 300, 16, 14, 2, 128
+    q, k, v, qp, kp, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                               torch.bfloat16)
+    fd._MAPS.clear()
+    for i in range(1023):
+        fd._MAPS[("filler", i)] = ctypes.create_string_buffer(128)
+    e0 = fd.map_encodes
+    got = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp, prefix_k=pk,
+                           prefix_v=pv)
+    assert fd.map_encodes - e0 == 4 and len(fd._MAPS) < 1023
+    with ops.backend("torch"):
+        close(got, ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp,
+                                    prefix_k=pk, prefix_v=pv),
+              torch.bfloat16)
+    q, kpool, vpool, table, qp, pk, pv = _paged_operands(
+        gen, B, 20, 16, n_p, Hq, Hkv, D, torch.bfloat16, True)
+    for i in range(1023 - len(fd._MAPS)):
+        fd._MAPS[("filler", -i)] = ctypes.create_string_buffer(128)
+    got = ops.flash_decode_paged(q, kpool, vpool, table, q_pos=qp,
+                                 prefix_k=pk, prefix_v=pv)
+    assert len(fd._MAPS) < 1023
+    with ops.backend("torch"):
+        close(got, ops.flash_decode_paged(q, kpool, vpool, table, q_pos=qp,
+                                          prefix_k=pk, prefix_v=pv),
+              torch.bfloat16)
+    fd._MAPS.clear()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -660,7 +919,10 @@ def _paged_operands(gen, B, maxb, bs, n_p, Hq, Hkv, D, dtype, per_row):
 @pytest.mark.parametrize("case", [(1, 2, 16, 0, 1, 1, 8),
                                   (2, 4, 8, 4, 4, 2, 32),
                                   (3, 5, 4, 16, 7, 1, 64),
-                                  (8, 64, 16, 16, 28, 4, 128)])
+                                  (8, 64, 16, 16, 28, 4, 128),
+                                  (2, 3, 128, 3, 7, 1, 128),
+                                  (3, 20, 8, 70, 10, 2, 64),
+                                  (2, 40, 4, 0, 16, 1, 64)])
 @pytest.mark.parametrize("per_row", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_decode_paged_kernel(gen, case, per_row, dtype):
@@ -685,6 +947,44 @@ def test_flash_decode_paged_kernel(gen, case, per_row, dtype):
     assert fd.launches == n1 + 1
     torch.cuda.synchronize()
     assert torch.equal(got, dense), (got.float() - dense.float()).abs().max()
+
+
+# (B, maxb, bs, n_prefix, Hq, Hkv, D): block sizes 4, 16 and 128 (a tile
+# of 16 boxes, of 4, half a block); prefix 0, 3, 16 and 70
+@pytest.mark.parametrize("case", [(4, 40, 4, 3, 7, 1, 64),
+                                  (8, 64, 16, 16, 28, 4, 128),
+                                  (3, 4, 128, 70, 10, 2, 128),
+                                  (5, 10, 16, 0, 16, 1, 64)])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_flash_decode_three_ways_give_the_same_bits(gen, case, per_row):
+    """bf16: the paged kernel, the dense kernel with the prefix bank read
+    in place, and the dense kernel on ``with_prefix``'s concatenation of
+    the bank and the gathered pool (no bank: its leading slots at -1 are
+    cut into tiles as the bank's are) give the same bits; each is one
+    launch."""
+    B, maxb, bs, n_p, Hq, Hkv, D = case
+    q, kp, vp, table, qp, pk, pv = _paged_operands(
+        gen, B, maxb, bs, n_p, Hq, Hkv, D, torch.bfloat16, per_row)
+    n0, n1 = fd.paged_launches, fd.launches
+    paged = fd.flash_decode_paged(q, kp, vp, table, q_pos=qp, prefix_k=pk,
+                                  prefix_v=pv)
+    k, v = fd.gather_pool(kp, vp, table)
+    slots = torch.arange(k.shape[1], dtype=torch.int32,
+                         device="cuda")[None].expand(B, -1).contiguous()
+    in_place = fd.flash_decode(q, k, v, q_pos=qp, kv_pos=slots, prefix_k=pk,
+                               prefix_v=pv)
+    kc, vc, kpc = fd.with_prefix(k, v, slots, pk, pv)
+    concat = fd.flash_decode(q, kc.contiguous(), vc.contiguous(), q_pos=qp,
+                             kv_pos=kpc.contiguous())
+    torch.cuda.synchronize()
+    assert (fd.paged_launches - n0, fd.launches - n1) == (1, 2)
+    assert torch.equal(paged, in_place), \
+        (paged.float() - in_place.float()).abs().max()
+    assert torch.equal(paged, concat), \
+        (paged.float() - concat.float()).abs().max()
+    want = fd.flash_decode_paged(q, kp, vp, table, q_pos=qp, prefix_k=pk,
+                                 prefix_v=pv, backend="torch")
+    close(paged, want, torch.bfloat16)
 
 
 def test_paged_drain_on_the_card(gen):
