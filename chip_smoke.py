@@ -13,7 +13,10 @@ Phases, each of which exits nonzero on a failed check:
    ``UTMALDG`` (TMA) loads, in the ``flash_decode`` and
    ``flash_decode_paged`` libraries every bf16 split-KV tile (head dims
    64, 128, 256 dense; 64, 128 paged) ``HMMA`` (mma.sync) on ``UTMALDG``
-   loads, and every f32 tile none of them;
+   loads, and every f32 tile none of them; the two bf16 tensor-core rank
+   passes of ``lora_matmul_bwd`` must run ``HMMA`` and the three bf16
+   ``selective_scan`` instances ``MUFU.EX2`` (one instruction an
+   exponential); ptxas's registers and spills of every kernel are printed;
 3. kernels: at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
@@ -56,7 +59,9 @@ Phases, each of which exits nonzero on a failed check:
    bf16 tolerance of each domain's own ``classify``;
 8. training kernels (timed beside phase 3): ``lora_matmul_bwd`` against
    its plain version at the HFSL round's shapes (M 1024, K 3584, N 3584
-   and 512, r 8, bf16 and f32), ``lora_matmul`` at the backward's ``dx``
+   and 512, r 8, bf16 and f32), its bits repeated by a second call, with
+   its ``path`` (the rank pass's route, the sweep's tiles and M splits),
+   beside the library call and the bound; ``lora_matmul`` at the backward's ``dx``
    shape (dy against Wᵀ) and the Wᵀ copy; the autograd ``lora_matmul``
    (dx, dA, dB, dbias, and dW only when w requires grad) and the
    flash-attention backward on the card against autograd through their
@@ -106,7 +111,8 @@ Phases, each of which exits nonzero on a failed check:
 16. the selective scan kernel against its plain version at falcon-mamba-7b's
    prefill shape (B 8, S 512, Di 8192, N 16; bf16 and f32, with and
    without a per-row initial state, B and C as strided views of the
-   x_proj output), an odd shape (S 37, Di 200), and a ragged case: a
+   x_proj output), a one-row refill (B 1, S 512, timed), an odd shape
+   (S 37, Di 200), and a ragged case: a
    right-padded row with dt = 0 must end in the state of the same row run
    alone at its own length, bit for bit, through the kernel; times beside
    the plain version and the bound (the exponentials through the
@@ -345,26 +351,34 @@ SASS_TILES = {
                            1, {"HMMA", "UTMALDG"})}
 
 
+def sass_functions(build, name: str, ops) -> dict:
+    """Each function of library ``name``'s SASS (``cuobjdump -sass``): how
+    many instructions it holds of each of ``ops``."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build._target(name))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs[m.group(1)] = dict.fromkeys(ops, 0)
+        elif cur is not None:
+            for op in ops:
+                if re.search(rf"\b{re.escape(op)}\b", line):
+                    cur[op] += 1
+    return funcs
+
+
 def sass_check(build) -> dict:
     """Phase 2: per LoRA library and the attention and decode libraries,
     the kernels whose SASS holds ``HGMMA`` (wgmma), ``HMMA`` (mma.sync)
     and ``UTMALDG`` (TMA loads). Every bf16 tile must hold exactly its
     library's set, every f32 tile none."""
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     rec = {}
     for name, (tc_name, cc_name, n_tc, n_cc, want) in SASS_TILES.items():
-        sass = subprocess.run(
-            [str(cuobjdump), "-sass", str(build._target(name))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        ops_of, cur = {}, None
-        for line in sass.splitlines():
-            m = re.match(r"\s*Function : (\S+)", line)
-            if m:
-                cur = m.group(1)
-                ops_of[cur] = set()
-            elif cur is not None:
-                ops_of[cur].update(op for op in SASS_OPS
-                                   if re.search(rf"\b{op}\b", line))
+        ops_of = {f: {op for op, n in c.items() if n}
+                  for f, c in sass_functions(build, name, SASS_OPS).items()}
         tc = [f for f in ops_of if tc_name in f]
         cc = [f for f in ops_of if cc_name in f]
         check(len(tc) == n_tc and all(ops_of[f] == want for f in tc),
@@ -379,6 +393,49 @@ def sass_check(build) -> dict:
             f"{' and '.join(sorted(want))}; f32 tile {len(cc)} kernel(s) "
             "with neither")
     return rec
+
+
+# per library: kernels (by a piece of their name) whose SASS must hold an
+# instruction: the bf16 rank pass of lora_matmul_bwd runs on the tensor
+# cores (HMMA, r <= 8 and r <= 16 instances), and the bf16 selective scan
+# takes each exponential as one MUFU.EX2
+SASS_NEEDS = {
+    "lora_matmul_bwd": ("lora_bwd_ug_mma_kernel", 2, "HMMA"),
+    "selective_scan": ("selective_scan_kernelI13__nv_bfloat16", 3,
+                       "MUFU.EX2")}
+
+
+def sass_needs(build) -> dict:
+    """Phase 2, the redesigned kernels: each listed kernel's SASS holds its
+    instruction."""
+    rec = {}
+    for name, (piece, count, op) in SASS_NEEDS.items():
+        has = {f: c[op] for f, c in sass_functions(build, name, (op,)).items()
+               if piece in f}
+        check(len(has) == count and all(has.values()),
+              f"{name}: {count} kernels named {piece} with {op} expected, "
+              f"found {has}")
+        rec[name] = {"kernels": len(has), "op": op,
+                     "per_kernel": list(has.values())}
+        log(f"sass {name}: {len(has)} {piece} kernel(s), each with {op} "
+            f"({min(has.values())}-{max(has.values())} a kernel)")
+    return rec
+
+
+def ptxas_entry(line: str) -> str:
+    """A short name for the kernel of a ptxas "Compiling entry function"
+    line: its name and template arguments (dtype, integers), read from the
+    mangled name."""
+    i = line.find("_kernelI")
+    if i < 0:
+        return ""
+    j = i
+    while j > 0 and (line[j - 1].isalpha() or line[j - 1] == "_"):
+        j -= 1
+    args = line[i + 8:line.find("EE", i)]
+    dtype = "bf16" if "bfloat16" in args else \
+        "f32" if args.startswith("f") else ""
+    return f"{line[j:i + 7]}<{','.join(filter(None, [dtype] + re.findall(r'Li(\d+)', args)))}>"
 
 
 def compare(name: str, got, want, dtype) -> float:
@@ -1291,9 +1348,18 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
                 g = dy @ b.t()
                 return scale * (x.t() @ g), scale * ((x @ a).t() @ dy)
 
+            plan = lm.bwd_plan(M, K, N, r, _build_sms(), dtype)
+            again = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="cuda")
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, h) for g, h in zip(got, again)),
+                  f"lora_matmul_bwd N={N} {dtype}: a second call gave "
+                  "other bits")
             cases["lora_matmul_bwd"].append(dict(
                 shape=f"M={M} K={K} N={N} r={r} {str(dtype)[6:]}",
-                path="cuda-core", max_abs_err=err, tol=tol,
+                path=f"rank pass {plan['rank']}, sweep "
+                     f"{plan['n_k'] + plan['n_n']} tiles x "
+                     f"{plan['splits']} splits of {plan['rows']} rows",
+                max_abs_err=err, tol=tol, bits_repeat=True,
                 ms=timer(lambda: lm.lora_matmul_bwd(x, dy, a, b, scale,
                                                     backend="cuda")),
                 plain_ms=timer(lambda: lm.lora_matmul_bwd(
@@ -1408,6 +1474,11 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
         f"(B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D}): {fa_errs}")
     return dict(wt_copy=copies, autograd_lora_max_abs_err=errs,
                 attention_bwd_max_abs_err=fa_errs)
+
+
+def _build_sms() -> int:
+    """The card's SMs, as the wrappers read them."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 class plain_calls:
@@ -1804,9 +1875,9 @@ def paper_loop(seed: int) -> dict:
 
 def scan_kernel_cases(gen: torch.Generator, timer: Timer,
                       cases: dict) -> None:
-    """Phase 16: selective_scan at falcon-mamba-7b's prefill shape against
-    its plain version, an odd shape, and the ragged bit-for-bit case (into
-    ``cases``)."""
+    """Phase 16: selective_scan at falcon-mamba-7b's prefill shape and at a
+    one-row refill against its plain version, an odd shape, and the ragged
+    bit-for-bit case (into ``cases``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import selective_scan as ss
 
@@ -1839,7 +1910,9 @@ def scan_kernel_cases(gen: torch.Generator, timer: Timer,
               f"selective_scan {label}: h_final max_abs_err {herr} beyond "
               f"the scan tolerance 1e-3")
         c = dict(shape=label + ", B and C strided views", max_abs_err=err,
-                 tol=TOL[dtype], h_final_max_abs_err=herr, h_final_tol=1e-3)
+                 tol=TOL[dtype], h_final_max_abs_err=herr, h_final_tol=1e-3,
+                 path="a channel's states over 4 warps, ex2.approx, 16-step "
+                      "tiles through a 4-stage cp.async ring")
         if timed:
             elt = args[0].element_size()
             n_h = B * Di * N
@@ -1867,6 +1940,7 @@ def scan_kernel_cases(gen: torch.Generator, timer: Timer,
     for dtype in (torch.bfloat16, torch.float32):
         for with_h0 in (True, False):
             one(8, 512, cfg.d_inner, dtype, with_h0, True)
+    one(1, 512, cfg.d_inner, torch.bfloat16, True, True)   # a one-row refill
     for dtype in (torch.bfloat16, torch.float32):
         one(3, 37, 200, dtype, True, False)
 
@@ -2671,12 +2745,15 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"build: {len(nvcc)} kernels in {build_s:.1f}s")
     for name, text in nvcc.items():
+        entry = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = ptxas_entry(line)
             if "registers" in line or "spill" in line or "wgmma" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
     rec = {"gpu": smi, "kind": kind, "clocks": clocks, "build_s": build_s,
-           "sass": sass_check(_build)}
+           "sass": sass_check(_build), "sass_needs": sass_needs(_build)}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
     cases = kernel_cases(gen, timer)

@@ -27,10 +27,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 CLUSTERS, TOP = 2, 20
-PORT_KERNELS = ("lora_matmul_kernel", "lora_bwd_rank_kernel",
-                "lora_bwd_sweep_kernel", "flash_attention_kernel",
-                "flash_decode_kernel", "lora_bgmv_rows_kernel",
-                "lora_bgmv_seq_kernel")
+PORT_KERNELS = ("lora_matmul_kernel", "lora_u_kernel", "lora_wgmma_kernel",
+                "lora_bwd_ug_mma_kernel", "lora_bwd_ug_kernel",
+                "lora_bwd_split_kernel", "flash_attention_kernel",
+                "attn_wgmma_kernel", "flash_decode_kernel",
+                "lora_bgmv_rows_kernel", "lora_bgmv_seq_kernel")
 
 
 def group(name: str) -> str:

@@ -3,13 +3,14 @@
 GPU, through that tree's own ``chip_smoke.py``.
 
     PYTHONPATH=<tree>/src python3 scripts/time_drains.py --tree <tree> \\
-        [--label NAME] [--seed 0]
+        [--label NAME] [--seed 0] [--paths main,mamba,hybrid,train]
 
 Runs the tree's ``main_path`` (phases 4, 5, 13 and 19: qwen2-7b at its
 published size single-tenant, from a 4-domain bank, paged from the bank,
-speculative), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
+speculative), ``mamba_path`` (phase 17: falcon-mamba-7b single-tenant and
+from a bank), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
 and from a bank) and ``train_phases`` (phases 9 to 11: the HFSL rounds),
-checks included, and prints the card's name and power limit, then one
+or those of them ``--paths`` names, checks included, and prints the card's name and power limit, then one
 JSON line with each drain's tok/s, TTFT p50 / p99 and per-token
 latency p50, and each round's seconds a step. The tree's kernels are built before the first drain, so
 that no drain waits for ``nvcc``. These drains are host-bound, and their
@@ -48,7 +49,10 @@ def main(argv=None) -> int:
                     help="root of the checkout whose chip_smoke.py runs")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", default="main,mamba,hybrid,train",
+                    help="comma-separated: main, mamba, hybrid, train")
     args = ap.parse_args(argv)
+    paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
         print("time_drains: needs a CUDA device", file=sys.stderr)
         return 2
@@ -65,15 +69,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
-    main, bank, paged, spec_rec = smoke.main_path(args.seed)
-    hybrid, hybrid_bank = smoke.hybrid_path(args.seed)
-    train = smoke.train_phases(args.seed)
-    out = {"label": args.label, "source": str(path),
-           "main": numbers(main), "bank": numbers(bank),
-           "paged": numbers(paged), "spec": numbers(spec_rec),
-           "hybrid": numbers(hybrid), "hybrid_bank": numbers(hybrid_bank),
-           "train": {k: numbers(v) for k, v in train.items()
-                     if isinstance(v, dict) and "step_s" in v}}
+    out = {"label": args.label, "source": str(path)}
+    if "main" in paths:
+        main, bank, paged, spec_rec = smoke.main_path(args.seed)
+        out.update(main=numbers(main), bank=numbers(bank),
+                   paged=numbers(paged), spec=numbers(spec_rec))
+    if "mamba" in paths:
+        mamba, mamba_bank = smoke.mamba_path(args.seed)
+        out.update(mamba=numbers(mamba), mamba_bank=numbers(mamba_bank))
+    if "hybrid" in paths:
+        hybrid, hybrid_bank = smoke.hybrid_path(args.seed)
+        out.update(hybrid=numbers(hybrid), hybrid_bank=numbers(hybrid_bank))
+    if "train" in paths:
+        train = smoke.train_phases(args.seed)
+        out["train"] = {k: numbers(v) for k, v in train.items()
+                        if isinstance(v, dict) and "step_s" in v}
     print(json.dumps(out), flush=True)
     return 0
 

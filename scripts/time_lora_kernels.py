@@ -8,7 +8,9 @@ Times, at qwen2-7b's q (N 3584) and v (N 512) projections with K 3584,
 r 8 and a bias: ``lora_matmul`` at decode (M 8) and prefill (M 4096), bf16;
 ``lora_bgmv_rows`` at M 8 and ``lora_bgmv_seq`` at B 8 x S 512 over 4
 slots, bf16; the HFSL backward's ``dx`` shape (dy M 1024 against Wᵀ) in
-bf16; and f32 ``lora_matmul`` at M 4096, N 3584. Each with
+bf16; ``lora_matmul_bwd`` at the round's shapes (M 1024, both N, bf16 and
+f32) beside the library call computing the same (``dy Bᵀ``, ``xᵀ g``,
+``x A``, ``uᵀ dy``); and f32 ``lora_matmul`` at M 4096, N 3584. Each with
 ``chip_smoke.Timer`` (median of CUDA-event timings, L2 flushed before each
 launch) on inputs drawn from a fixed seed, so that runs of two trees see
 the same inputs; then each call's device time per kernel (``torch.profiler``
@@ -56,6 +58,12 @@ def _kernel_name(key: str) -> str:
     return re.split(r"[<(]", key, maxsplit=1)[0]
 
 
+def _library_bwd(x, dy, a, b, scale):
+    """The adapter gradients in four PyTorch products."""
+    g = dy @ b.t()
+    return scale * (x.t() @ g), scale * ((x @ a).t() @ dy)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
@@ -100,6 +108,16 @@ def main(argv=None) -> int:
         cases[f"lora_bgmv_seq_B8xS512_N{N}"] = partial(
             bg.lora_bgmv_seq, randn(8, 512, K), w, sa, sb, ids, scale, bias)
     f32 = dict(dtype=torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        for N in (3584, 512):
+            x, dy = randn(1024, K, dtype=dtype), randn(1024, N, dtype=dtype)
+            a = randn(K, r, dtype=dtype, s=K ** -0.5)
+            b = randn(r, N, dtype=dtype, s=0.1)
+            tag = f"M1024_N{N}_{str(dtype)[6:]}"
+            cases[f"lora_matmul_bwd_{tag}"] = partial(
+                lm.lora_matmul_bwd, x, dy, a, b, scale)
+            cases[f"library_bwd_{tag}"] = partial(_library_bwd, x, dy, a, b,
+                                                  scale)
     cases["lora_matmul_f32_M4096_N3584"] = partial(
         lm.lora_matmul, randn(4096, K, **f32),
         randn(K, 3584, s=K ** -0.5, **f32), randn(K, r, s=K ** -0.5, **f32),

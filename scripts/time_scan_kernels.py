@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time the port's scan kernels of one source tree on the GPU.
+
+    PYTHONPATH=<tree>/src python3 scripts/time_scan_kernels.py \\
+        [--label NAME] [--reps 41]
+
+Times ``selective_scan`` at falcon-mamba-7b's prefill shape (B 8, S 512,
+d_inner 8192, N 16, an initial state per row, B and C as strided views of
+the x_proj output) in bf16 and f32, and at a one-row refill (B 1, S 512,
+bf16); and ``rglru_scan`` at recurrentgemma-2b's (B 8, S 512, W 2560, an
+initial state per row, bf16). Each with ``chip_smoke.Timer`` (median of
+CUDA-event timings, L2 flushed before each launch) on inputs drawn from a
+fixed seed, so that runs of two trees see the same inputs; then each
+call's device time (``torch.profiler`` over 10 calls, L2 flushed before
+each, the flush left out). ``repro_torch`` comes from ``PYTHONPATH``: run it
+once per tree, alternating trees (parent, change, change, parent) within
+one call to the card. Prints the card's name and power limit, then one
+JSON line. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from functools import partial
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--reps", type=int, default=41)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_scan_kernels: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import Timer
+    from scripts.time_lora_kernels import device_us
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import selective_scan as ss
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = Timer(reps=args.reps)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    mamba = get_config("falcon-mamba-7b")
+    Di, dr, N = mamba.d_inner, mamba.dt_rank, mamba.ssm.d_state
+
+    def scan_args(B, S, dtype):
+        xdbc = rn(B, S, dr + 2 * N, s=0.5).to(dtype)    # the x_proj output
+        return (rn(B, S, Di, s=0.5).to(dtype),
+                (F.softplus(rn(B, S, Di)) * 0.1).to(dtype),
+                -torch.exp(rn(Di, N, s=0.3)), xdbc[..., dr:dr + N],
+                xdbc[..., dr + N:], rn(Di), rn(B, Di, N, s=0.1))
+
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cases[f"selective_scan_B8_S512_{str(dtype)[6:]}"] = partial(
+            ss.selective_scan, *scan_args(8, 512, dtype))
+    cases["selective_scan_B1_S512_bfloat16"] = partial(
+        ss.selective_scan, *scan_args(1, 512, torch.bfloat16))
+    W = get_config("recurrentgemma-2b").lru_width
+    cases["rglru_scan_B8_S512_bfloat16"] = partial(
+        rg.rglru, rn(8, 512, W, s=0.5).bfloat16(), rn(8, 512, W).bfloat16(),
+        rn(8, 512, W).bfloat16(), rn(W), rn(8, W, s=0.1))
+    out = {"label": args.label, "source": ss.__file__, "device_us": {}}
+    for name, fn in cases.items():
+        out[f"{name}_ms"] = timer(fn)
+    for name, fn in cases.items():
+        out["device_us"][name] = device_us(fn, timer.flush)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -146,3 +146,16 @@ def stream(t: torch.Tensor) -> int:
     ``torch.cuda.Stream`` is built: a few microseconds less host time a
     launch)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The number of SMs of ``t``'s device (read once a device)."""
+    dev = t.get_device()
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n

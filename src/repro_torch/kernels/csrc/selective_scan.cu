@@ -10,22 +10,47 @@
 // What bounds it on an H100: the B S Di N exponentials, through the
 // special-function units at 16 per clock per SM (compute capability 9.0;
 // 537 M at B 8, S 512, Di 8192, N 16, about 0.13 ms), more than its bytes
-// (x and dt read and y written once, about 0.06 ms). The recurrence is a
-// chain over time, so a first version is latency-bound on that chain.
+// (x and dt read and y written once, about 0.06 ms) and its ~4 f32
+// operations a state and step (about 0.03 ms at 67 TFLOP/s).
 //
 // What the design does about it. The TPU kernel keeps a (block_d, N)
-// state in VMEM scratch across a sequential grid axis of time chunks;
-// here one thread owns one (b, c) pair and keeps its N state values in
-// registers for the whole sequence, so the state never reaches device
-// memory between steps, and the chunk axis becomes a loop over time
-// inside the thread. Neighbouring threads take neighbouring channels, so
-// the loads of x and dt and the stores of y are coalesced. B[b, t, :] and
-// C[b, t, :] are shared by every channel of a row: each tile of TS time
-// steps stages them once in shared memory, as f32. Each thread loads its
-// tile's x and dt into registers before the tile's steps, which puts
-// those loads in flight together. The step order is the TPU kernel's, so
-// a step with dt = 0 (a padded column of a ragged wave) multiplies the
-// state by exp(0) = 1 and adds 0: the state passes through bit for bit.
+// state in VMEM scratch across a sequential grid axis of time chunks; here
+// the state stays in registers for the whole sequence and the chunk axis
+// becomes a loop over tiles of TS steps inside the block. The exponentials
+// are independent of the state, so the units that compute them can be kept
+// busy if enough warps are on the card and none waits on a load:
+//
+// (a) the N states of a channel split over 4 warps (LPC): warp q of a
+//     block owns states q NPL .. q NPL + NPL - 1 (NPL = NM / 4: 4 at N 16)
+//     of the block's 32 channels, one channel a lane: 4x the threads of one
+//     thread a channel, 262,144 at B 8, Di 8192; blocks of 128 threads,
+//     the grid (Di / 32, B). A step's B and C values are then the same for
+//     the whole warp (one broadcast read of shared memory each), and x and
+//     dt are 32 neighbouring channels. Each warp writes its states' sum
+//     h C (rising n) a step to shared memory; after the tile,
+//     y = ((p0 + p1) + (p2 + p3)) + d x, in that fixed order.
+// (b) each tile's x, dt, B and C are copied into a 4-stage ring in shared
+//     memory by cp.async, two tiles ahead of the steps that use them (rows
+//     past S zero-filled by the copy), so no step waits on device memory;
+//     each warp converts its own B and C slice to f32, and one
+//     __syncthreads a tile separates the stages. Within a tile each step's
+//     operands are read from shared memory one step ahead. At N 16 in
+//     bf16 a block takes 69 registers a thread and 30 KB: 7 blocks an SM.
+// (c) one MUFU.EX2 an exponential: exp(dt A) = 2^(dt A log2 e) with A
+//     scaled by log2 e once, ex2.approx.ftz (relative error ~2^-22). dt = 0
+//     gives 2^0 = 1 exactly.
+// Earlier versions of this kernel, timed on an H100 (700 W) at B 8, S 512,
+// Di 8192, N 16, bf16 (device time), show what each step bought: 4 lanes
+// of one warp a channel with shuffles, 0.37 ms (each step's 16-byte B and
+// C reads split into quarter-warps); states over 4 warps, 0.39 (a branch a
+// step kept the steps from overlapping); the tile unguarded, 0.29;
+// operands a step ahead, 0.275; without device-memory traffic the same
+// steps took 0.197, and x and dt fetched one tile ahead into registers
+// left ~0.05 of the loads exposed.
+//
+// The step order is the TPU kernel's: h = h dA + (dt x) B in time order,
+// so a step with dt = 0 (a padded column of a ragged wave) multiplies the
+// state by exactly 1 and adds 0: the state passes through bit for bit.
 // Any S and any Di are taken (the last channel block is masked); N <= 16.
 //
 // B and C arrive as strided views of the x_proj output (B, S, dt_rank +
@@ -36,13 +61,37 @@
 
 namespace {
 
-constexpr int NT = 128;     // channels per block, one per thread
-constexpr int TS = 16;      // time steps per shared-memory tile
-constexpr int NMAX = 16;    // largest state width
+constexpr int LPC = 4;              // warps (state groups) a channel
+constexpr int CB = 32;              // channels a block, one a lane
+constexpr int NT = CB * LPC;        // threads a block
+constexpr int TS = 16;              // time steps a tile
+constexpr int ST = 4;               // stages of the shared-memory ring
+constexpr int NMAX = 16;            // largest state width
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // NC > 0: the state width is the compile-time NC; NC == 0: n_rt <= NMAX
 template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                       const float* __restrict__ A, const T* __restrict__ Bm,
                       const T* __restrict__ Cm, const float* __restrict__ D,
@@ -50,76 +99,169 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                       float* __restrict__ hT, int S, int Di, int n_rt,
                       long long bc_sb, long long bc_st, long long h0_sb) {
   constexpr int NM = NC > 0 ? NC : NMAX;
+  constexpr int NPL = NM / LPC;               // states a warp
+  constexpr int VEC = 16 / (int)sizeof(T);    // elements a 16-byte chunk
+  constexpr int CHK = CB / VEC;               // x chunks a tile row
+  constexpr int XC = TS * CHK;                // x (and dt) chunks a tile
+  constexpr int BCH = NM / VEC;               // B (and C) chunks a step
+  constexpr int BC = TS * BCH;                // B (and C) chunks a tile
+  static_assert(NM % LPC == 0 && NM % VEC == 0, "state split");
+  __shared__ __align__(16) T xs[ST][TS][CB];
+  __shared__ __align__(16) T ds[ST][TS][CB];
+  __shared__ __align__(16) T bcs[ST][2][TS][NM];      // B, C as loaded
+  __shared__ __align__(16) float wbc[LPC][2][TS][NPL]; // a warp's, in f32
+  __shared__ float ps[2][LPC][TS][CB];        // y's partials by warp
+
   const int N = NC > 0 ? NC : n_rt;
-  __shared__ float sB[TS][NM];
-  __shared__ float sC[TS][NM];
-
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * NT + threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, ch = tid % CB, q = tid / CB;
+  const int b = blockIdx.y, c0 = blockIdx.x * CB, c = c0 + ch;
   const bool live = c < Di;
-
-  float h[NM], a[NM];
-#pragma unroll
-  for (int n = 0; n < NM; ++n) {
-    const bool on = live && n < N;
-    a[n] = on ? A[(size_t)c * N + n] : 0.f;
-    h[n] = (on && h0 != nullptr)
-               ? h0[(size_t)b * h0_sb + (size_t)c * N + n] : 0.f;
-  }
-  const float d = live ? D[c] : 0.f;
+  const bool wide = Di % VEC == 0 && c0 + CB <= Di && aligned16(x) &&
+                    aligned16(dt);
   const size_t row0 = (size_t)b * S;
   const T* Bb = Bm + (size_t)b * bc_sb;
   const T* Cb = Cm + (size_t)b * bc_sb;
+  const bool bcwide = N == NM && bc_st % VEC == 0 && aligned16(Bb) &&
+                      aligned16(Cb);
+  const T zero = from_f32<T>(0.f);
 
-  for (int t0 = 0; t0 < S; t0 += TS) {
+  float h[NPL], a2[NPL];
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int n = q * NPL + i;
+    const bool on = live && n < N;
+    a2[i] = on ? A[(size_t)c * N + n] * LOG2E : 0.f;
+    h[i] = (on && h0 != nullptr)
+               ? h0[(size_t)b * h0_sb + (size_t)c * N + n] : 0.f;
+  }
+  const float d = live ? D[c] : 0.f;
+
+  // tile t0's x, dt, B and C into stage st: 16-byte cp.async copies (rows
+  // past S filled with zeros) where whole and aligned, else element by
+  // element; one commit group a tile
+  auto issue = [&](int st, int t0) {
     const int nt = min(TS, S - t0);
-    __syncthreads();                 // the previous tile's B, C are used
-    for (int i = threadIdx.x; i < TS * NM; i += NT) {
-      const int tt = i / NM, n = i % NM;
-      float bv = 0.f, cv = 0.f;
-      if (tt < nt && n < N) {
-        const size_t o = (size_t)(t0 + tt) * bc_st + n;
-        bv = to_f32(Bb[o]);
-        cv = to_f32(Cb[o]);
+    const size_t base = (row0 + t0) * Di + c0;
+    for (int k = tid; k < 2 * XC; k += NT) {
+      const int kk = k % XC, tt = kk / CHK, cv = kk % CHK * VEC;
+      const T* src = (k < XC ? x : dt) + base + (size_t)tt * Di + cv;
+      T* dst = k < XC ? &xs[st][tt][cv] : &ds[st][tt][cv];
+      if (wide) {
+        cp_async16(dst, tt < nt ? src : x, tt < nt ? 16 : 0);
+      } else {
+        for (int v = 0; v < VEC; ++v)
+          dst[v] = tt < nt && c0 + cv + v < Di ? src[v] : zero;
       }
-      sB[tt][n] = bv;
-      sC[tt][n] = cv;
     }
-    __syncthreads();
-    if (!live) continue;
+    for (int k = tid; k < 2 * BC; k += NT) {
+      const int kk = k % BC, tt = kk / BCH, nv = kk % BCH * VEC;
+      const T* src = (k < BC ? Bb : Cb) + (size_t)(t0 + tt) * bc_st + nv;
+      T* dst = &bcs[st][k < BC ? 0 : 1][tt][nv];
+      if (bcwide) {
+        cp_async16(dst, tt < nt ? src : Bb, tt < nt ? 16 : 0);
+      } else {
+        for (int v = 0; v < VEC; ++v)
+          dst[v] = tt < nt && nv + v < N ? src[v] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+  // y of a finished tile from its partials and x; thread tid emits steps
+  // q, q + 4, ... of its own channel (d is its D)
+  auto emit = [&](int pbuf, int st, int t0) {
+    const int nt = min(TS, S - t0);
+    T* yt = y + (row0 + t0) * Di + c;
+    constexpr int PL = TS * CB;               // one partial's plane
+#pragma unroll
+    for (int tt = q; tt < TS; tt += LPC) {
+      const float* pp = &ps[pbuf][0][tt][ch];
+      const float v = ((pp[0] + pp[PL]) + (pp[2 * PL] + pp[3 * PL])) +
+                      d * to_f32(xs[st][tt][ch]);
+      if (tt < nt && live) yt[tt * Di] = from_f32<T>(v);
+    }
+  };
 
-    float xv[TS], dv[TS];
-#pragma unroll
-    for (int tt = 0; tt < TS; ++tt) {
-      xv[tt] = 0.f;
-      dv[tt] = 0.f;
-      if (tt < nt) {
-        const size_t o = (row0 + t0 + tt) * Di + c;
-        xv[tt] = to_f32(x[o]);
-        dv[tt] = to_f32(dt[o]);
-      }
+  issue(0, 0);
+  if (TS < S) issue(1, TS); else cp_async_commit();
+  int t_last = 0;
+  for (int i = 0, t0 = 0; t0 < S; ++i, t0 += TS) {
+    const int st = i % ST;
+    cp_async_wait<1>();                       // tile i has landed
+    __syncthreads();
+    if (t0 + 2 * TS < S)                      // two tiles ahead
+      issue((i + 2) % ST, t0 + 2 * TS);
+    else
+      cp_async_commit();
+    if (i > 0) emit((i - 1) & 1, (i + ST - 1) % ST, t0 - TS);
+    // this warp's B and C of the tile, as f32
+    for (int e = lane; e < 2 * TS * NPL; e += 32) {
+      const int which = e / (TS * NPL), tt = e / NPL % TS, j = e % NPL;
+      wbc[q][which][tt][j] = to_f32(bcs[st][which][tt][q * NPL + j]);
     }
+    __syncwarp();
+    // steps past S read x = dt = 0 (zero-filled): 2^0 = 1 and (0 x) B = 0
+    // leave h as it was, so the tile runs unguarded; emit drops their y.
+    // Each step's operands are read one step ahead (software pipelining).
+    const T* xb = &xs[st][0][ch];
+    const T* db = &ds[st][0][ch];
+    const float* bb = &wbc[q][0][0][0];
+    const float* cb = &wbc[q][1][0][0];
+    float* pb = &ps[i & 1][q][0][ch];
+    auto bc = [&](int tt, float (&bv)[NPL], float (&cv)[NPL]) {
+      if constexpr (NPL == 4) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bb + tt * NPL);
+        const float4 c4 = *reinterpret_cast<const float4*>(cb + tt * NPL);
+        bv[0] = b4.x; bv[1] = b4.y; bv[2] = b4.z; bv[3] = b4.w;
+        cv[0] = c4.x; cv[1] = c4.y; cv[2] = c4.z; cv[3] = c4.w;
+      } else {
 #pragma unroll
-    for (int tt = 0; tt < TS; ++tt) {
-      if (tt < nt) {
-        const float dtx = dv[tt] * xv[tt];
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < NM; ++n) {
-          if (n < N) {
-            const float dA = expf(dv[tt] * a[n]);
-            h[n] = h[n] * dA + dtx * sB[tt][n];
-            acc += h[n] * sC[tt][n];
-          }
+        for (int j = 0; j < NPL; ++j) {
+          bv[j] = bb[tt * NPL + j];
+          cv[j] = cb[tt * NPL + j];
         }
-        y[(row0 + t0 + tt) * Di + c] = from_f32<T>(acc + d * xv[tt]);
       }
+    };
+    T xn = xb[0], dn = db[0];
+    float bn[NPL], cn[NPL];
+    bc(0, bn, cn);
+#pragma unroll
+    for (int tt = 0; tt < TS; ++tt) {
+      const float xv = to_f32(xn), dv = to_f32(dn);
+      float bt[NPL], ct[NPL];
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        bt[j] = bn[j];
+        ct[j] = cn[j];
+      }
+      if (tt + 1 < TS) {
+        xn = xb[(tt + 1) * CB];
+        dn = db[(tt + 1) * CB];
+        bc(tt + 1, bn, cn);
+      }
+      const float dtx = dv * xv;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const float dA = ex2_approx(dv * a2[j]);
+        h[j] = h[j] * dA + dtx * bt[j];
+        acc += h[j] * ct[j];
+      }
+      pb[tt * CB] = acc;
     }
+    t_last = t0;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (S > 0) {
+    const int last = t_last / TS;
+    emit(last & 1, last % ST, t_last);
   }
   if (live) {
 #pragma unroll
-    for (int n = 0; n < NM; ++n)
-      if (n < N) hT[((size_t)b * Di + c) * N + n] = h[n];
+    for (int j = 0; j < NPL; ++j) {
+      const int n = q * NPL + j;
+      if (n < N) hT[((size_t)b * Di + c) * N + n] = h[j];
+    }
   }
 }
 
@@ -129,7 +271,7 @@ cudaError_t launch_n(const void* x, const void* dt, const float* A,
                      const float* h0, void* y, float* hT, int batch, int S,
                      int Di, int N, long long bc_sb, long long bc_st,
                      long long h0_sb, cudaStream_t stream) {
-  dim3 grid((Di + NT - 1) / NT, batch);
+  dim3 grid((Di + CB - 1) / CB, batch);
   selective_scan_kernel<T, NC><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), A,
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), D, h0,

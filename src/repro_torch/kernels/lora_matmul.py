@@ -11,10 +11,12 @@ note in ``csrc/lora_matmul.cu``.
 
 The backward kernel replaces
 ``repro/kernels/lora_matmul.py::lora_matmul_bwd_pallas`` (body
-``_bwd_kernel``): ``dA = s xᵀ(dy Bᵀ)`` and ``dB = s (x A)ᵀ dy`` in f32 from
-one read of x and dy, never ``dW``; the rank-r intermediates stay f32 as
-in the TPU kernel. Design: see the source note in
-``csrc/lora_matmul_bwd.cu``.
+``_bwd_kernel``): ``dA = s xᵀ(dy Bᵀ)`` and ``dB = s (x A)ᵀ dy`` in f32,
+never ``dW``; the rank-r intermediates stay f32 as in the TPU kernel. A
+call launches a rank pass (u = x A, g = s dy Bᵀ) and a sweep split over M
+(:func:`bwd_plan`) whose last block of each column tile adds the splits'
+partials in order, on a ticket from a counter kept per device and stream.
+Design: see the source note in ``csrc/lora_matmul_bwd.cu``.
 
 In bf16 the forward runs on the tensor cores: a pass writes ``u = x A``
 to an (M, r) f32 scratch, then a TMA-fed ``wgmma`` tile computes ``x W``
@@ -45,7 +47,13 @@ pad_copies = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 7 + [_I] * 4 + [_F, _I, _P]
-_BWD_ARGS = [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 4 + [_F] + [_I] * 3 + [_P]
+# the backward sweep's blocks an SM (bwd_plan): one wave of two an SM
+BWD_BLOCKS_PER_SM = 2
+# Per (device, stream): the sweep's tile counters (zeros, reset by
+# the kernel). Launches on one stream run in order, so one buffer
+# serves calls of every shape.
+_COUNTERS: dict = {}
 
 
 # The plain versions are the oracle itself: the kernels' arithmetic is the
@@ -135,6 +143,43 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return _launch(x, w, a, b, scale, bias)
 
 
+def bwd_plan(M: int, K: int, N: int, r: int, n_sm: int = 132,
+             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How ``csrc/lora_matmul_bwd.cu`` splits a call: the rank pass's
+    ``rank`` route (``"mma"``: bf16, r <= 16, K and N multiples of 8, A^T
+    and B within 200 KB of shared memory, and 16-byte aligned x, dy and b,
+    which contiguous tensors of these shapes are; else ``"cuda-core"``), the
+    rank bucket ``rt`` (8, 16 or 32), the sweep's column tile
+    ``tc = 512 // rt``, the tiles of dA (``n_k``) and of dB (``n_n``), the
+    rows of a split (a multiple of the sweep's 32 row groups) and the
+    splits: as many splits as keep the sweep's grid within
+    ``BWD_BLOCKS_PER_SM`` blocks for each of ``n_sm`` SMs (one wave), and
+    at least one."""
+    rt = 8 if r <= 8 else 16 if r <= 16 else 32
+    tc = 512 // rt
+    n_k, n_n = -(-K // tc), -(-N // tc)
+    want = max(1, BWD_BLOCKS_PER_SM * n_sm // max(1, n_k + n_n))
+    per = -(-M // want)
+    rows = max(32, -(-per // 32) * 32)
+    def staged(n):                           # a padded staged row
+        return -(-n // 64) * 64 + 32
+    mma = dtype == torch.bfloat16 and rt <= 16 and K % 8 == 0 and \
+        N % 8 == 0 and 2 * rt * (staged(K) + staged(N)) <= 200 * 1024
+    return dict(rank="mma" if mma else "cuda-core", rt=rt, tc=tc, n_k=n_k,
+                n_n=n_n, rows=rows, splits=max(1, -(-M // rows)))
+
+
+def _counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tile counters for a launch on ``t``'s device
+    and current stream."""
+    key = (t.get_device(), _build.stream(t))
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=t.device)
+    return cnt
+
+
 def _launch_bwd(x, dy, a, b, scale):
     global bwd_launches
     M, K = x.shape
@@ -149,13 +194,19 @@ def _launch_bwd(x, dy, a, b, scale):
     code = _build.checked_args("lora_matmul_bwd",
                                {"x": x, "dy": dy, "a": a, "b": b}, x.dtype)
     lib = _build.bind("lora_matmul_bwd", _BWD_ARGS)
+    plan = bwd_plan(M, K, N, r, _build.sm_count(x), x.dtype)
+    tiles = plan["n_k"] + plan["n_n"]
     f32 = dict(dtype=torch.float32, device=x.device)
     u, g = torch.empty((M, r), **f32), torch.empty((M, r), **f32)
     da, db = torch.empty((K, r), **f32), torch.empty((r, N), **f32)
+    part = torch.empty(plan["splits"] * tiles * plan["tc"] * plan["rt"],
+                       **f32)
+    cnt = _counters(x, tiles)
     err = lib.lora_matmul_bwd_launch(
         x.data_ptr(), dy.data_ptr(), a.data_ptr(), b.data_ptr(),
         u.data_ptr(), g.data_ptr(), da.data_ptr(), db.data_ptr(),
-        M, N, K, r, float(scale), code, _build.stream(x))
+        part.data_ptr(), cnt.data_ptr(), M, N, K, r, float(scale),
+        plan["rows"], plan["splits"], code, _build.stream(x))
     _build.check(lib, "lora_matmul_bwd", err)
     bwd_launches += 1
     return da, db

@@ -8,7 +8,9 @@ and no fallback when their library is missing; the multi-LoRA
 kernels with 1 to 8 slots, ranks 1 to 32, and ids all the same, all
 different and repeating, and bit for bit against ``lora_matmul`` per row
 (a prefill case at K 3584 included);
-the adapter-gradient kernel, the autograd ``lora_matmul`` and the
+the adapter-gradient kernel (both rank-pass routes, M split or not,
+bits that repeat across calls and across shapes sharing the tile
+counters), the autograd ``lora_matmul`` and the
 flash-attention backward on the card against autograd through the plain
 versions, and a reduced HFSL round through the kernels against the same
 round through the plain versions; the bf16 decode tile's S = Q Kᵀ and P V
@@ -24,7 +26,7 @@ plain version (block sizes 4 to 128, sentinel table entries, shared and
 per-row prefix slots) and bit for bit against the dense kernel with the
 prefix read in place and on the concatenated gathered layout, and a 2-layer paged drain through the kernels against
 the plain versions and the dense drain; the selective scan against its
-plain version (odd S and Di, state widths 4 to 16, B and C as strided
+plain version (odd S and Di, state widths 1 to 16, B and C as strided
 views, no, per-row and shared initial states), a padded row's state bit
 for bit the solo row's, and 2-layer falcon-mamba and speculative drains
 through the kernels against the plain versions; the RG-LRU kernel against
@@ -751,9 +753,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
                            kv_pos=torch.arange(2, device="cuda"))
 
 
-@pytest.mark.parametrize("M,K,N,r", [(1, 7, 5, 1), (65, 130, 97, 8),
-                                     (1024, 3584, 512, 8), (130, 67, 200, 32),
-                                     (0, 16, 8, 4)])
+@pytest.mark.parametrize("M,K,N,r", [
+    (1, 7, 5, 1), (65, 130, 97, 8), (1024, 3584, 512, 8), (130, 67, 200, 32),
+    (0, 16, 8, 4),
+    # the HFSL round's q shape (2 splits of 512 rows), M not a multiple of
+    # a split, M below one split, no rows at the round's widths, ranks 1
+    # and 32 and a rank between the buckets at the v shape (bf16 r 32 and
+    # the odd widths above take the CUDA-core rank pass, the rest bf16 the
+    # tensor-core one)
+    (1024, 3584, 3584, 8), (1000, 3584, 512, 8), (20, 3584, 3584, 8),
+    (0, 3584, 512, 8), (1024, 3584, 512, 1), (1024, 3584, 512, 32),
+    (777, 3584, 512, 12)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_lora_matmul_bwd_kernel(gen, M, K, N, r, dtype):
     x = randn(gen, M, K, dtype=dtype)
@@ -772,8 +782,34 @@ def test_lora_matmul_bwd_kernel(gen, M, K, N, r, dtype):
         t = 1e-4 * max(1.0, want.abs().max().item())
         assert torch.allclose(got, want, atol=t, rtol=1e-4), \
             (got - want).abs().max().item()
-    again = lm.lora_matmul_bwd(x, dy, a, b, 2.0)       # no atomics
+    again = lm.lora_matmul_bwd(x, dy, a, b, 2.0)       # no float atomics
     assert torch.equal(again[0], da) and torch.equal(again[1], db)
+
+
+def test_lora_matmul_bwd_back_to_back_shapes(gen):
+    """Calls of three shapes, each with its own split count, alternate on
+    one stream and so on one set of tile counters: each call gives the
+    bits of its shape's first call (the last block of a tile resets its
+    counter)."""
+    cases = []
+    for M, K, N, r in ((1024, 3584, 3584, 8), (1024, 3584, 512, 8),
+                       (300, 130, 97, 32)):
+        x, dy = randn(gen, M, K, dtype=torch.bfloat16), \
+            randn(gen, M, N, dtype=torch.bfloat16)
+        a = randn(gen, K, r, dtype=torch.bfloat16, s=K ** -0.5)
+        b = randn(gen, r, N, dtype=torch.bfloat16, s=0.1)
+        cases.append(((x, dy, a, b), lm.lora_matmul_bwd(x, dy, a, b, 2.0)))
+    assert len({lm.bwd_plan(*c[0][0].shape, c[0][1].shape[1],
+                            c[0][2].shape[1])["splits"]
+                for c in cases}) == 3
+    for _ in range(3):
+        for ins, first in cases:
+            got = lm.lora_matmul_bwd(*ins, 2.0)
+            assert torch.equal(got[0], first[0])
+            assert torch.equal(got[1], first[1])
+    cnt = lm._counters(cases[0][0][0], 1)
+    torch.cuda.synchronize()
+    assert int(cnt.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1043,9 +1079,13 @@ def _scan_operands(gen, B, S, Di, N, dtype, h0_kind):
     return x, dt, A, Bm, C, D, h0
 
 
-@pytest.mark.parametrize("B,S,Di,N", [(1, 32, 128, 8), (2, 64, 256, 16),
-                                      (2, 128, 512, 16), (3, 37, 200, 16),
-                                      (2, 5, 33, 4), (1, 1, 7, 16)])
+@pytest.mark.parametrize("B,S,Di,N", [
+    (1, 32, 128, 8), (2, 64, 256, 16), (2, 128, 512, 16), (3, 37, 200, 16),
+    (2, 5, 33, 4), (1, 1, 7, 16),
+    # more tiles than one (S 512), Di no multiple of a block's 32 channels
+    # (nor, at 70, of a 16-byte chunk), state widths 1 and 5, one step
+    # across falcon-mamba-7b's width
+    (2, 512, 200, 16), (1, 37, 70, 1), (2, 37, 100, 5), (1, 1, 8192, 16)])
 @pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_selective_scan_kernel(gen, B, S, Di, N, h0_kind, dtype):
