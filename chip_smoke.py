@@ -14,9 +14,11 @@ Phases, each of which exits nonzero on a failed check:
    ``flash_decode_paged`` libraries every bf16 split-KV tile (head dims
    64, 128, 256 dense; 64, 128 paged) ``HMMA`` (mma.sync) on ``UTMALDG``
    loads, and every f32 tile none of them; the two bf16 tensor-core rank
-   passes of ``lora_matmul_bwd`` must run ``HMMA`` and the three bf16
-   ``selective_scan`` instances ``MUFU.EX2`` (one instruction an
-   exponential); ptxas's registers and spills of every kernel are printed;
+   passes of ``lora_matmul_bwd`` must run ``HMMA``, and the three bf16
+   ``selective_scan`` instances and the two bf16 ``rglru_scan`` ones
+   ``MUFU.EX2`` (one instruction an exponential); ptxas's registers and
+   spills of every kernel (each ``rglru_scan`` plan among them) are
+   printed;
 3. kernels: at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs, with its time (CUDA events, median,
    L2 flushed between launches), the plain version's time, one PyTorch
@@ -143,9 +145,12 @@ Phases, each of which exits nonzero on a failed check:
    per-row initial state, and one (W,) state shared by the rows), an odd
    shape (S 37, W 200), and a ragged case: a right-padded row with r_gate
    = -1e9 must end in the state of the same row run alone, bit for bit,
-   through the kernel (rows of 1 to 512 tokens); times beside the plain
-   version and the bound (the bytes, or the special-function operations);
-   no library call computes the recurrence;
+   through the kernel (rows of 1 to 512 tokens); times, at B 8 and at a
+   one-row refill (B 1), beside the plain version and the bound, whose
+   terms are named apart: the bytes, the special-function operations, the
+   f32 operations, and the serial chain (S dependent multiply-adds, not
+   part of ``bound_ms``); each case names its ``plan``; no library call
+   computes the recurrence;
 22. the head-dim-256 instances of flash_attention (B 8, S 512, 16 prefix
    slots, 10 query heads over 1 KV head, window 2048) and flash_decode (8
    rows against a 2048-slot rolling buffer behind 16 prefix slots, group
@@ -218,10 +223,11 @@ N_DOMAINS = 4
 PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
            "lora_matmul_bwd": "train", "flash_decode_paged": "paged",
            "selective_scan": "mamba", "rglru_scan": "hybrid"}
-# exponentials per second through the special-function units: 16 per
-# clock per SM (compute capability 9.0) x 132 SMs x 1,980 MHz (H100 SXM
-# boost clock)
-PEAK_EXP = 16 * 132 * 1.98e9
+# the H100 SXM boost clock, and exponentials per second through the
+# special-function units: 16 per clock per SM (compute capability 9.0) x
+# 132 SMs
+SM_CLOCK = 1.98e9
+PEAK_EXP = 16 * 132 * SM_CLOCK
 # kernels of the attention, LoRA and RG-LRU paths, none of which an ssm
 # model runs
 NOT_SSM = ("lora_matmul", "flash_attention", "flash_decode",
@@ -398,11 +404,12 @@ def sass_check(build) -> dict:
 # per library: kernels (by a piece of their name) whose SASS must hold an
 # instruction: the bf16 rank pass of lora_matmul_bwd runs on the tensor
 # cores (HMMA, r <= 8 and r <= 16 instances), and the bf16 selective scan
-# takes each exponential as one MUFU.EX2
+# and RG-LRU (4- and 16-warp plans) take each exponential as one MUFU.EX2
 SASS_NEEDS = {
     "lora_matmul_bwd": ("lora_bwd_ug_mma_kernel", 2, "HMMA"),
     "selective_scan": ("selective_scan_kernelI13__nv_bfloat16", 3,
-                       "MUFU.EX2")}
+                       "MUFU.EX2"),
+    "rglru_scan": ("rglru_scan_kernelI13__nv_bfloat16", 2, "MUFU.EX2")}
 
 
 def sass_needs(build) -> dict:
@@ -2323,8 +2330,9 @@ def spec_loop(seed: int) -> dict:
 def lru_kernel_cases(gen: torch.Generator, timer: Timer,
                      cases: dict) -> None:
     """Phase 21: rglru_scan at recurrentgemma-2b's prefill shape (B 8, S
-    512, W 2560) against its plain version, a shared (W,) initial state,
-    an odd shape, and the ragged bit-for-bit case (into ``cases``)."""
+    512, W 2560) and at a one-row refill against its plain version, a
+    shared (W,) initial state, an odd shape, and the ragged bit-for-bit
+    case (into ``cases``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import rglru_scan as rg
 
@@ -2345,6 +2353,7 @@ def lru_kernel_cases(gen: torch.Generator, timer: Timer,
         args = operands(B, S, W, dtype, h0_kind)
         label = f"B={B} S={S} W={W} h0 {h0_kind} {str(dtype)[6:]}"
         hs, hT = rg.rglru(*args)
+        p = rg.last_plan                  # the plan that launch ran
         hsw, hTw = rg.rglru(*args, backend="torch")
         torch.cuda.synchronize()
         err = compare(f"rglru_scan {label}", hs, hsw, dtype)
@@ -2353,23 +2362,28 @@ def lru_kernel_cases(gen: torch.Generator, timer: Timer,
               f"rglru_scan {label}: h_final max_abs_err {herr} beyond the "
               f"scan tolerance 1e-3")
         c = dict(shape=label, max_abs_err=err, tol=TOL[dtype],
-                 h_final_max_abs_err=herr, h_final_tol=1e-3)
+                 h_final_max_abs_err=herr, h_final_tol=1e-3,
+                 plan=f"{p['warps']} warps, {p['tile']}-step tiles "
+                      f"{p['ahead']} ahead, {p['blocks']} blocks, "
+                      f"{p['route']}")
         if timed:
             n = B * S * W
             elt = args[0].element_size()
             nbytes = 4 * elt * n + 4 * W + 4 * B * W * (
                 1 if h0_kind == "none" else 2)
-            # per element through the special-function units: an
-            # exponential and a reciprocal for each sigmoid, the
-            # exponential of a_t, the square root
+            # per element through the special-function units: a power of
+            # 2 and a reciprocal for each sigmoid, the power of 2 of a_t,
+            # the square root
             mufu = 6 * n
-            # per element on the f32 cores: two sigmoid adds, r log_a,
-            # a_t², 1 - a_t², its max with 0, two products, the chain's
-            # multiply and add
-            flops = 10 * n
+            # per element on the f32 cores: a product and an add for each
+            # sigmoid, r log_a, a_t², 1 - a_t², its max with 0, two
+            # products, the chain's multiply and add
+            flops = 12 * n
             t_b, t_f, t_e = (nbytes / PEAK_BYTES,
                              flops / PEAK_FLOPS[torch.float32],
                              mufu / PEAK_EXP)
+            # the serial chain: S dependent FMUL + FADD, 4 clocks each
+            t_c = S * 8 / SM_CLOCK
             c.update(
                 ms=timer(lambda: rg.rglru(*args)),
                 plain_ms=timer(lambda: rg.rglru(*args, backend="torch")),
@@ -2378,13 +2392,15 @@ def lru_kernel_cases(gen: torch.Generator, timer: Timer,
                         "scan",
                 bound_ms=max(t_b, t_f, t_e) * 1e3,
                 bound_by="bytes" if t_b >= max(t_f, t_e) else "operations",
-                bytes_ms=t_b * 1e3, mufu_ms=t_e * 1e3, flops_ms=t_f * 1e3)
+                bytes_ms=t_b * 1e3, mufu_ms=t_e * 1e3, flops_ms=t_f * 1e3,
+                chain_ms=t_c * 1e3)
         cases["rglru_scan"].append(c)
         log(f"kernel rglru_scan {c}")
 
     for dtype in (torch.bfloat16, torch.float32):
         for h0_kind in ("per row", "none"):
             one(8, 512, W, dtype, h0_kind, True)
+    one(1, 512, W, torch.bfloat16, "per row", True)   # a one-row refill
     one(8, 512, W, torch.bfloat16, "shared (W,)", False)
     for dtype in (torch.bfloat16, torch.float32):
         one(3, 37, 200, dtype, "per row", False)
@@ -2737,7 +2753,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     log(f"max clocks (sm, memory): {clocks}; bounds use "
-        f"{PEAK_EXP / (16 * 132) / 1e6:.0f} MHz and "
+        f"{SM_CLOCK / 1e6:.0f} MHz and "
         f"{PEAK_BYTES / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()

@@ -8,11 +8,12 @@ Times ``selective_scan`` at falcon-mamba-7b's prefill shape (B 8, S 512,
 d_inner 8192, N 16, an initial state per row, B and C as strided views of
 the x_proj output) in bf16 and f32, and at a one-row refill (B 1, S 512,
 bf16); and ``rglru_scan`` at recurrentgemma-2b's (B 8, S 512, W 2560, an
-initial state per row, bf16). Each with ``chip_smoke.Timer`` (median of
-CUDA-event timings, L2 flushed before each launch) on inputs drawn from a
-fixed seed, so that runs of two trees see the same inputs; then each
-call's device time (``torch.profiler`` over 10 calls, L2 flushed before
-each, the flush left out). ``repro_torch`` comes from ``PYTHONPATH``: run it
+initial state per row) in bf16 and f32, and at a one-row refill (B 1, S
+512, bf16). Each with ``chip_smoke.Timer`` (median of CUDA-event
+timings, L2 flushed before each launch) on inputs drawn from a fixed
+seed, so that runs of two trees see the same inputs; then each call's
+device time (``torch.profiler`` over 10 calls, L2 flushed before each,
+the flush left out). ``repro_torch`` comes from ``PYTHONPATH``: run it
 once per tree, alternating trees (parent, change, change, parent) within
 one call to the card. Prints the card's name and power limit, then one
 JSON line. Needs a CUDA device.
@@ -73,9 +74,16 @@ def main(argv=None) -> int:
     cases["selective_scan_B1_S512_bfloat16"] = partial(
         ss.selective_scan, *scan_args(1, 512, torch.bfloat16))
     W = get_config("recurrentgemma-2b").lru_width
-    cases["rglru_scan_B8_S512_bfloat16"] = partial(
-        rg.rglru, rn(8, 512, W, s=0.5).bfloat16(), rn(8, 512, W).bfloat16(),
-        rn(8, 512, W).bfloat16(), rn(W), rn(8, W, s=0.1))
+
+    def lru_args(B, S, dtype):
+        return (rn(B, S, W, s=0.5).to(dtype), rn(B, S, W).to(dtype),
+                rn(B, S, W).to(dtype), rn(W), rn(B, W, s=0.1))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        cases[f"rglru_scan_B8_S512_{str(dtype)[6:]}"] = partial(
+            rg.rglru, *lru_args(8, 512, dtype))
+    cases["rglru_scan_B1_S512_bfloat16"] = partial(
+        rg.rglru, *lru_args(1, 512, torch.bfloat16))
     out = {"label": args.label, "source": ss.__file__, "device_us": {}}
     for name, fn in cases.items():
         out[f"{name}_ms"] = timer(fn)

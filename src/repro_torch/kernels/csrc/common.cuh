@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions,
-// warp reductions, and the C-visible error-string hook.
+// ex2.approx, cp.async, warp reductions, and the C-visible error-string
+// hook.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +31,31 @@ from_f32<__nv_bfloat16>(float v) {
 // whether p is 16-byte aligned, as a 16-byte vector load or copy needs
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// 2^v through the special-function unit (MUFU.EX2; relative error
+// ~2^-22, subnormals flushed): 2^0 is exactly 1
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// cp.async of a 16-byte chunk into shared memory, bypassing L1; the
+// bytes past `bytes` (0 or 16) are filled with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float v) {

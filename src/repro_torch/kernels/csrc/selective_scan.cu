@@ -69,26 +69,6 @@ constexpr int ST = 4;               // stages of the shared-memory ring
 constexpr int NMAX = 16;            // largest state width
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float ex2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // NC > 0: the state width is the compile-time NC; NC == 0: n_rt <= NMAX
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT, 4)

@@ -30,8 +30,11 @@ plain version (odd S and Di, state widths 1 to 16, B and C as strided
 views, no, per-row and shared initial states), a padded row's state bit
 for bit the solo row's, and 2-layer falcon-mamba and speculative drains
 through the kernels against the plain versions; the RG-LRU kernel against
-its plain version (odd S and W, no, per-row and shared initial states), a
-padded row's state bit for bit the solo row's, and a 3-layer
+its plain version (odd S and W, no, per-row and shared initial states, a
+one-row refill, S across the tile and the ring, h_final after a partial
+tile, an unaligned row pitch), its two copy routes bit for bit, bits that
+repeat across launches and shapes, a padded row's state bit for bit the
+solo row's, and a 3-layer
 recurrentgemma drain through the kernels (the attention kernels at head
 dim 256 included) against the plain versions. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
@@ -1202,7 +1205,12 @@ def _lru_operands(gen, B, S, W, dtype, h0_kind):
 
 @pytest.mark.parametrize("B,S,W", [(1, 32, 128), (2, 64, 256), (2, 96, 512),
                                    (3, 37, 200), (2, 5, 33), (1, 1, 7),
-                                   (8, 512, 2560)])
+                                   (8, 512, 2560),
+                                   # a one-row refill; S across the tile (32
+                                   # steps in bf16, 16 in f32) and the ring;
+                                   # a row pitch no multiple of 16 bytes
+                                   (1, 512, 2560), (2, 17, 160), (2, 33, 96),
+                                   (2, 40, 2561)])
 @pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rglru_kernel(gen, B, S, W, h0_kind, dtype):
@@ -1232,6 +1240,57 @@ def test_rglru_padded_row_state_is_bitwise(gen, dtype):
                          r[b:b + 1, :n].contiguous(),
                          i[b:b + 1, :n].contiguous(), a, h0[b:b + 1])
         assert torch.equal(h[b], hb[0]), b
+
+
+def test_rglru_bits_repeat_across_launches_and_shapes(gen):
+    """The same inputs give the same bits on every launch, with calls of
+    other shapes (and so other plans) in between."""
+    small = _lru_operands(gen, 3, 70, 300, torch.bfloat16, "row")
+    big = _lru_operands(gen, 8, 512, 2560, torch.bfloat16, "shared")
+    refill = _lru_operands(gen, 1, 512, 2560, torch.float32, "none")
+    assert rg.plan(8, 2560)["warps"] != rg.plan(1, 2560)["warps"]
+    want = {id(small): rg.rglru(*small), id(big): rg.rglru(*big)}
+    for args in (big, refill, small, big, small):
+        hs, hT = rg.rglru(*args)
+        if args is not refill:
+            assert torch.equal(hs, want[id(args)][0])
+            assert torch.equal(hT, want[id(args)][1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_h_final_after_a_partial_tile(gen, dtype):
+    """An S that is not a multiple of the tile: the steps past S neither
+    decay nor move h, so h_final is the plain version's within 1e-3."""
+    ts = rg.plan(2, 256, dtype)["tile"]
+    for S in (ts + 1, 2 * ts - 1, 3 * ts + 5):
+        args = _lru_operands(gen, 2, S, 256, dtype, "row")
+        hs, hT = rg.rglru(*args)
+        hsw, hTw = rg.rglru_torch(*args)
+        close(hs, hsw, dtype)
+        assert torch.allclose(hT, hTw, atol=1e-3, rtol=1e-3), \
+            (S, (hT - hTw).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_routes_give_the_same_bits(gen, dtype):
+    """Operands one element off 16-byte alignment take the element route;
+    it gives the cp.async route's bits."""
+    x, r, i, a, h0 = _lru_operands(gen, 2, 40, 2560, dtype, "row")
+    assert rg.plan(2, 2560, dtype)["route"] == "cp.async"
+    assert rg.plan(2, 2560, dtype, aligned=False)["route"] == "element"
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    n0 = rg.launches
+    want = rg.rglru(x, r, i, a, h0)
+    got = rg.rglru(shifted(x), shifted(r), shifted(i), a, h0)
+    assert rg.launches == n0 + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_rglru_refuses_what_it_does_not_take(gen):
