@@ -6,11 +6,11 @@
 Phases, each of which exits nonzero on a failed check:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``kernels/csrc``; in
-   the SASS (``cuobjdump -sass``) of each LoRA library and of the
-   ``flash_attention`` library, every bf16 tile (the three attention
-   instances, head dims 64, 128 and 256) must run ``HGMMA`` (wgmma) on
-   ``UTMALDG`` (TMA) loads, in the ``flash_decode`` and
+2. build every CUDA kernel of the serving and training paths from
+   ``kernels/csrc``; in the SASS (``cuobjdump -sass``) of each LoRA
+   library and of the ``flash_attention`` library, every bf16 tile (the
+   three attention instances, head dims 64, 128 and 256) must run
+   ``HGMMA`` (wgmma) on ``UTMALDG`` (TMA) loads, in the ``flash_decode`` and
    ``flash_decode_paged`` libraries every bf16 split-KV tile (head dims
    64, 128, 256 dense; 64, 128 paged) ``HMMA`` (mma.sync) on ``UTMALDG``
    loads, and every f32 tile none of them; the two bf16 tensor-core rank
@@ -173,9 +173,42 @@ Phases, each of which exits nonzero on a failed check:
    and the same greedy tokens (kernels == plain == solo rows), again with
    the window cut to 8 so that the rolling buffer wraps, and a speculative
    drain (default drafter, k 4) inside the window giving the plain
-   tokens.
+   tokens;
+25. the two backward kernels (``selective_scan_bwd``, ``rglru_scan_bwd``)
+   against their plain versions at the HFSL rounds' shapes (falcon-mamba
+   B 4, S 256, Di 8192, N 16; recurrentgemma B 4, S 256, W 2560; bf16 and
+   f32; h0 per row, shared, none) and an odd shape (S 37, Di / W 200):
+   every gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest value,
+   the bits repeated by a second call, the kernel's rerun of the forward
+   ending in the forward kernel's h_final bit for bit; a ragged row's
+   gradients bit for bit the solo row's; the RG-LRU's saturated gate
+   (r = -1e9): dr_gate and da_param non-finite exactly where the plain
+   backward's are, everything else within tolerance; the autograd
+   Functions on the card against autograd through the plain versions,
+   running no plain version; times (events, L2 flushed, and
+   ``torch.profiler`` device microseconds) beside the plain version and
+   the bound, whose terms are named apart; no library call computes
+   either VJP. Beside them, ``lora_matmul_bwd`` at recurrentgemma-2b's q
+   and v shapes (K 2560, N 2560 and 256) against its plain version;
+26. one HFSL round of falcon-mamba-7b at its published size (64 layers,
+   d 4096, d_inner 8192, bf16, random weights from the seed) as phase 9
+   runs qwen2-7b (a 5-class head, 2 clusters, 4 steps, batch 4, seq 256,
+   FedAvg every 2 steps, AdamW): the replicas equal right after each
+   sync and apart after step 1, finite losses, the adapters moved; the
+   predicted launches exactly (selective_scan and its backward 64 x 8,
+   no attention, LoRA or RG-LRU kernel) and no plain version; step time,
+   examples/s and peak memory;
+27. the same round of recurrentgemma-2b at its published size: rglru_scan
+   and its backward 18 x 8, flash_attention 8 x 8, lora_matmul_bwd 2 x 8
+   x 8, no plain version;
+28. training exactness: a 2-layer full-width f32 falcon-mamba-7b and a
+   5-layer full-width f32 recurrentgemma-2b, 2 clusters, 3 steps of SGD
+   with momentum, through the kernels and through ``backend="torch"``:
+   adapters and losses within 1e-4, each leaf's update within 1e-3 of
+   its largest update.
 
-Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 17, 23)
+Every full-size drain and round (phases 4, 5, 9, 10, 13, 15, 17, 23, 26,
+27)
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -217,12 +250,17 @@ REPLACES = {
     "lora_bgmv_seq": "src/repro/kernels/lora_bgmv.py:168",
     "selective_scan": "src/repro/kernels/selective_scan.py:56",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:51",
+    # no TPU kernel: the reference differentiates both scans through XLA
+    "selective_scan_bwd": "src/repro/kernels/ops.py:391",
+    "rglru_scan_bwd": "src/repro/kernels/ops.py:470",
 }
 N_DOMAINS = 4
 # the path whose launches a kernel's record reports
 PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
            "lora_matmul_bwd": "train", "flash_decode_paged": "paged",
-           "selective_scan": "mamba", "rglru_scan": "hybrid"}
+           "selective_scan": "mamba", "rglru_scan": "hybrid",
+           "selective_scan_bwd": "train-ssm",
+           "rglru_scan_bwd": "train-hybrid"}
 # the H100 SXM boost clock, and exponentials per second through the
 # special-function units: 16 per clock per SM (compute capability 9.0) x
 # 132 SMs
@@ -1312,6 +1350,55 @@ def classify_phase(seed: int) -> dict:
 # phase 8: the training kernels
 # ---------------------------------------------------------------------------
 
+def lora_bwd_case(randn, timer: Timer, M: int, K: int, N: int, r: int,
+                  dtype, what: str = "") -> dict:
+    """lora_matmul_bwd at one shape against its plain version: the
+    error, bits repeated by a second call, the kernel's, plain and
+    library times and the bound."""
+    from repro_torch.kernels import lora_matmul as lm
+    scale = 16.0 / r
+    x, dy = randn(M, K, dtype=dtype), randn(M, N, dtype=dtype)
+    a = randn(K, r, dtype=dtype, s=K ** -0.5)
+    b = randn(r, N, dtype=dtype, s=0.1)
+    got = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="cuda")
+    want = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="torch")
+    torch.cuda.synchronize()
+    # both sum in f32 from the same inputs, in other orders: each output
+    # is a sum over M rows of terms up to ~10 in size, so the f32
+    # tolerance is taken relative to the largest output (a normwise 1e-4)
+    tol = TOL[torch.float32] * max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    label = f"M={M} K={K} N={N} r={r} {str(dtype)[6:]}{what}"
+    check(np.isfinite(err) and err <= tol,
+          f"lora_matmul_bwd {label}: kernel vs plain max_abs_err {err} "
+          f"beyond tol {tol}")
+    elt = x.element_size()
+    bms, by = bound(elt * (M * K + M * N + K * r + r * N)
+                    + 4 * (K * r + r * N), 4 * M * r * (K + N), dtype)
+
+    def library():
+        g = dy @ b.t()
+        return scale * (x.t() @ g), scale * ((x @ a).t() @ dy)
+
+    plan = lm.bwd_plan(M, K, N, r, _build_sms(), dtype)
+    again = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="cuda")
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, h) for g, h in zip(got, again)),
+          f"lora_matmul_bwd {label}: a second call gave other bits")
+    c = dict(shape=label,
+             path=f"rank pass {plan['rank']}, sweep "
+                  f"{plan['n_k'] + plan['n_n']} tiles x "
+                  f"{plan['splits']} splits of {plan['rows']} rows",
+             max_abs_err=err, tol=tol, bits_repeat=True,
+             ms=timer(lambda: lm.lora_matmul_bwd(x, dy, a, b, scale,
+                                                 backend="cuda")),
+             plain_ms=timer(lambda: lm.lora_matmul_bwd(
+                 x, dy, a, b, scale, backend="torch")),
+             library_ms=timer(library), bound_ms=bms, bound_by=by)
+    log(f"kernel lora_matmul_bwd {c}")
+    return c
+
+
 def train_kernel_cases(gen: torch.Generator, timer: Timer,
                        cases: dict) -> dict:
     """lora_matmul_bwd cases (into ``cases``), the dx-shape lora_matmul
@@ -1327,52 +1414,9 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
     # the HFSL round's projections: M = 4 x 256 tokens, K = d_model, q
     # (N 3584) and v (N 512), r = 8
     M, K, r, scale = 1024, 3584, 8, 16.0 / 8
-    cases["lora_matmul_bwd"] = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for N in (3584, 512):
-            x, dy = randn(M, K, dtype=dtype), randn(M, N, dtype=dtype)
-            a = randn(K, r, dtype=dtype, s=K ** -0.5)
-            b = randn(r, N, dtype=dtype, s=0.1)
-            got = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="cuda")
-            want = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="torch")
-            torch.cuda.synchronize()
-            # both sum in f32 from the same inputs, in other orders: each
-            # output is a sum over M = 1024 rows of terms up to ~10 in
-            # size, so the f32 tolerance is taken relative to the largest
-            # output (a normwise 1e-4)
-            tol = TOL[torch.float32] * max(w.abs().max().item()
-                                           for w in want)
-            err = max((g - w).abs().max().item() for g, w in zip(got, want))
-            check(np.isfinite(err) and err <= tol,
-                  f"lora_matmul_bwd N={N} {dtype}: kernel vs plain "
-                  f"max_abs_err {err} beyond tol {tol}")
-            elt = x.element_size()
-            bms, by = bound(elt * (M * K + M * N + K * r + r * N)
-                            + 4 * (K * r + r * N),
-                            4 * M * r * (K + N), dtype)
-
-            def library():
-                g = dy @ b.t()
-                return scale * (x.t() @ g), scale * ((x @ a).t() @ dy)
-
-            plan = lm.bwd_plan(M, K, N, r, _build_sms(), dtype)
-            again = lm.lora_matmul_bwd(x, dy, a, b, scale, backend="cuda")
-            torch.cuda.synchronize()
-            check(all(torch.equal(g, h) for g, h in zip(got, again)),
-                  f"lora_matmul_bwd N={N} {dtype}: a second call gave "
-                  "other bits")
-            cases["lora_matmul_bwd"].append(dict(
-                shape=f"M={M} K={K} N={N} r={r} {str(dtype)[6:]}",
-                path=f"rank pass {plan['rank']}, sweep "
-                     f"{plan['n_k'] + plan['n_n']} tiles x "
-                     f"{plan['splits']} splits of {plan['rows']} rows",
-                max_abs_err=err, tol=tol, bits_repeat=True,
-                ms=timer(lambda: lm.lora_matmul_bwd(x, dy, a, b, scale,
-                                                    backend="cuda")),
-                plain_ms=timer(lambda: lm.lora_matmul_bwd(
-                    x, dy, a, b, scale, backend="torch")),
-                library_ms=timer(library), bound_ms=bms, bound_by=by))
-            log(f"kernel lora_matmul_bwd {cases['lora_matmul_bwd'][-1]}")
+    cases["lora_matmul_bwd"] = [
+        lora_bwd_case(randn, timer, M, K, N, r, dtype)
+        for dtype in (torch.bfloat16, torch.float32) for N in (3584, 512)]
 
     # dx = dy Wᵀ + s (dy Bᵀ) Aᵀ through the forward kernel, and the copy
     # of the frozen W into Wᵀ that each backward call makes
@@ -1490,11 +1534,12 @@ def _build_sms() -> int:
 
 class plain_calls:
     """Counts calls of the plain versions on the training path (and, with
-    ``serving``, on the serving path) while active: a round or a drain on
-    the card must run none of them."""
+    ``serving``, on the serving path; with ``scans``, the two scans'
+    forward and backward) while active: a round or a drain on the card
+    must run none of them."""
 
-    def __init__(self, serving: bool = False):
-        self.serving = serving
+    def __init__(self, serving: bool = False, scans: bool = False):
+        self.serving, self.scans = serving, scans
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
@@ -1512,9 +1557,14 @@ class plain_calls:
             targets += [(bg, "lora_bgmv_torch", "lora_bgmv"),
                         (fd, "flash_decode_torch", "flash_decode"),
                         (fd, "flash_decode_paged_torch",
-                         "flash_decode_paged"),
-                        (ss, "selective_scan_torch", "selective_scan"),
+                         "flash_decode_paged")]
+        if self.serving or self.scans:
+            targets += [(ss, "selective_scan_torch", "selective_scan"),
                         (rg, "rglru_torch", "rglru_scan")]
+        if self.scans:
+            targets += [(ss, "selective_scan_bwd_torch",
+                         "selective_scan_bwd"),
+                        (rg, "rglru_bwd_torch", "rglru_scan_bwd")]
         for mod, attr, key in targets:
             fn = getattr(mod, attr)
             self.counts[key] = 0
@@ -1560,12 +1610,44 @@ def spread(state) -> float:
                for x in _leaves(state["adapters_c"]))
 
 
+def round_launches(cfg, n_clusters: int, steps: int) -> dict:
+    """The launches an HFSL round of ``cfg`` (classify_loss) must make,
+    kernel by kernel (None: at least one): classify_loss runs no remat, so
+    each scan's forward and backward kernel launch once a sub-layer a
+    step, and flash_attention once an attention sub-layer a step (its
+    backward is torch); lora_matmul_bwd once a LoRA target an attention
+    sub-layer a step; lora_matmul at least once where there is
+    attention; no serving kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import groups_for
+    cs = n_clusters * steps
+    count = {k: sum(kinds.count(k) * n for _, kinds, n in groups_for(cfg))
+             for k in ("ssm", "rglru", "attn")}
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(selective_scan=count["ssm"] * cs,
+                selective_scan_bwd=count["ssm"] * cs,
+                rglru_scan=count["rglru"] * cs,
+                rglru_scan_bwd=count["rglru"] * cs,
+                flash_attention=count["attn"] * cs,
+                lora_matmul_bwd=len(cfg.peft.lora_targets) * count["attn"]
+                * cs)
+    if count["attn"]:
+        want["lora_matmul"] = None
+    return want
+
+
+def launches_as_predicted(launches: dict, want: dict) -> bool:
+    return all(launches[k] > 0 if n is None else launches[k] == n
+               for k, n in want.items())
+
+
 def train_round(name: str, cfg, *, n_clusters: int, steps: int, batch: int,
                 sync_every: int, task_args: tuple, seed: int) -> dict:
     """One HFSL round of ``steps`` steps at ``cfg``'s full width: first
     ``steps`` one-step rounds (the sync pattern, and a warm-up), then the
-    timed ``steps``-step round from the same state, whose launches are
-    counted and which must run no plain version."""
+    timed ``steps``-step round from the same state, whose launches must
+    be :func:`round_launches`' prediction and which must run no plain
+    version."""
     from repro_torch.core import hfsl
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -1600,8 +1682,12 @@ def train_round(name: str, cfg, *, n_clusters: int, steps: int, batch: int,
                                sync_every=sync_every)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    want = round_launches(cfg, n_clusters, steps)
+    log(f"{name}: predicted launches of the timed round "
+        f"{ {k: v for k, v in want.items() if v != 0} } (None: at least "
+        "one), every other kernel 0")
     ops.reset_launch_counts()
-    with plain_calls() as plain:
+    with plain_calls(scans=True) as plain:
         t0 = time.perf_counter()
         out, metrics = rnd(state, bank.arrays, 0)
         torch.cuda.synchronize()
@@ -1618,13 +1704,8 @@ def train_round(name: str, cfg, *, n_clusters: int, steps: int, batch: int,
     vs_steps = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(_leaves(out["adapters_c"]),
                                    _leaves(s["adapters_c"])))
-    lora = len(cfg.peft.lora_targets)
-    want_bwd = lora * cfg.n_layers * n_clusters * steps
-    check(launches["lora_matmul_bwd"] == want_bwd
-          and launches["flash_attention"] == cfg.n_layers * n_clusters
-          * steps and launches["lora_matmul"] > 0,
-          f"{name}: launches {launches}, predicted lora_matmul_bwd "
-          f"{want_bwd}")
+    check(launches_as_predicted(launches, want),
+          f"{name}: launches {launches}, predicted {want}")
     check(all(v == 0 for v in plain.values()),
           f"{name}: a plain version ran on the card: {plain}")
     examples = steps * n_clusters * batch
@@ -1633,6 +1714,7 @@ def train_round(name: str, cfg, *, n_clusters: int, steps: int, batch: int,
                batch=batch, seq=task_args[2], sync_every=sync_every,
                wall_s=wall, step_s=wall / steps, examples_per_s=examples / wall,
                peak_mem_gib=peak / 2 ** 30, launches=launches,
+               predicted_launches=want,
                losses=losses.tolist(), spreads=spreads,
                adapter_change=moved, round_vs_one_step_rounds=vs_steps)
     log(f"{name}: {steps} steps x {n_clusters} clusters x batch {batch} "
@@ -1644,6 +1726,32 @@ def train_round(name: str, cfg, *, n_clusters: int, steps: int, batch: int,
     del state, out, s, bank
     torch.cuda.empty_cache()
     return rec
+
+
+def round_exactness(ks, km, ps, pm, state) -> dict:
+    """A round through the kernels (``ks``, metrics ``km``) against the
+    same round through the plain versions (``ps``, ``pm``) from
+    ``state``: the losses' and adapters' largest differences, and each
+    leaf's largest update difference relative to the leaf's largest
+    update (an absolute 1e-4 is blind on leaves whose updates are
+    smaller than that)."""
+    trip = list(zip(_leaves(ks["adapters_c"]), _leaves(ps["adapters_c"]),
+                    _leaves(state["adapters_c"])))
+    return dict(
+        loss_max_abs_err=(km["loss"] - pm["loss"]).abs().max().item(),
+        adapters_max_abs_err=max((a - b).abs().max().item()
+                                 for a, b, _ in trip),
+        update_max_rel_err=max(
+            (a - b).abs().max().item()
+            / max((b - c).abs().max().item(), 1e-30) for a, b, c in trip),
+        update_max=max((b - c).abs().max().item() for _, b, c in trip))
+
+
+def exact_enough(r: dict) -> bool:
+    """Phase 11's criteria: losses and adapters within 1e-4, each leaf's
+    update within 1e-3 of its largest."""
+    return r["loss_max_abs_err"] <= 1e-4 and \
+        r["adapters_max_abs_err"] <= 1e-4 and r["update_max_rel_err"] <= 1e-3
 
 
 def train_phases(seed: int) -> dict:
@@ -1715,21 +1823,9 @@ def train_phases(seed: int) -> dict:
         check(all(v > 0 for v in plain.values()),
               f"the plain round did not run the plain versions: {plain}")
         torch.cuda.synchronize()
-        trip = list(zip(_leaves(ks["adapters_c"]), _leaves(ps["adapters_c"]),
-                        _leaves(state["adapters_c"])))
-        out[name] = dict(
-            loss_max_abs_err=(km["loss"] - pm["loss"]).abs().max().item(),
-            adapters_max_abs_err=max((a - b).abs().max().item()
-                                     for a, b, _ in trip),
-            update_max_rel_err=max(
-                (a - b).abs().max().item()
-                / max((b - c).abs().max().item(), 1e-30)
-                for a, b, c in trip),
-            update_max=max((b - c).abs().max().item() for _, b, c in trip))
+        out[name] = round_exactness(ks, km, ps, pm, state)
     r = out["sgd"]
-    ok = r["loss_max_abs_err"] <= 1e-4 and r["adapters_max_abs_err"] <= 1e-4 \
-        and r["update_max_rel_err"] <= 1e-3
-    check(ok, f"e2e train f32 (sgd): kernels vs plain {r}")
+    check(exact_enough(r), f"e2e train f32 (sgd): kernels vs plain {r}")
     log(f"e2e train: 2-layer f32 qwen2-7b round (2 clusters, 3 steps, sgd "
         f"0.1 momentum 0.9): kernels vs plain adapters max_abs_err "
         f"{r['adapters_max_abs_err']:.3e}, losses "
@@ -2711,6 +2807,455 @@ def hybrid_exactness(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25 to 28: ssm and hybrid training
+# ---------------------------------------------------------------------------
+
+# the backward kernels against the plain backwards: each output within the
+# dtype's tolerance of its largest value (sums over up to a few thousand
+# terms in other orders; bf16 outputs rounded once)
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+LRU_GRADS = ("dx", "dr", "di", "da_param", "dh0")
+
+
+def grads_close(what: str, got, want, dtype, names) -> dict:
+    """Each gradient within ``GRAD_TOL`` of its largest value, finite,
+    of the plain backward's dtype and shape; returns the errors."""
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            check(g is None, f"{what}: {name} computed though not asked")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: {name} {g.dtype} {tuple(g.shape)} vs plain "
+              f"{w.dtype} {tuple(w.shape)}")
+        err = (g.float() - w.float()).abs().max().item()
+        tol = GRAD_TOL[dtype] * max(1.0, w.float().abs().max().item())
+        check(np.isfinite(err) and err <= tol,
+              f"{what}: {name} kernel vs plain max_abs_err {err} beyond "
+              f"{tol}")
+        errs[name] = err
+    return errs
+
+
+def timed(c: dict, timer: Timer, kernel: str, fn, plain, terms: dict,
+          bound_kind: dict) -> None:
+    """Times ``fn`` (events, and device microseconds by kernel from
+    ``scripts/time_lora_kernels.py::device_us``) and ``plain`` into case
+    ``c``, with the bound from ``terms`` (ms each)."""
+    from scripts.time_lora_kernels import device_us
+    dev = device_us(fn, timer.flush)
+    k_us = sum(v for k, v in dev.items() if kernel in k)
+    c.update(ms=timer(fn), plain_ms=timer(plain), library_ms=None,
+             library="none: no single PyTorch call computes this VJP",
+             device_us=dev, kernel_device_us=k_us or None,
+             bound_ms=max(terms.values()),
+             bound_by=bound_kind[max(terms, key=terms.get)],
+             **{f"{k}_ms": v for k, v in terms.items()})
+
+
+def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
+    """Phase 25: the two backward kernels against their plain versions at
+    the HFSL rounds' shapes (falcon-mamba-7b: B 4, S 256, Di 8192, N 16;
+    recurrentgemma-2b: B 4, S 256, W 2560), bf16 and f32, h0 per row /
+    shared / None; an odd shape; bits repeated by a second call; the
+    kernels' rerun of the forward ending in the forward kernel's h_final
+    bit for bit; a ragged row's gradients bit for bit the solo row's; the
+    RG-LRU's saturated gate; the autograd Functions on the card against
+    autograd through the plain versions (into ``cases``). Returns the
+    record of the checks that are not cases."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import selective_scan as ss
+
+    mcfg, hcfg = get_config("falcon-mamba-7b"), get_config("recurrentgemma-2b")
+    dr, N, Di, W = mcfg.dt_rank, mcfg.ssm.d_state, mcfg.d_inner, \
+        hcfg.lru_width
+    rec = {}
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    def scan_ops(B, S, Di, dtype, h0_kind):
+        x = rn(B, S, Di, s=0.5).to(dtype)
+        dt = (F.softplus(rn(B, S, Di)) * 0.1).to(dtype)
+        A = -torch.exp(rn(Di, N, s=0.3))
+        xdbc = rn(B, S, dr + 2 * N, s=0.5).to(dtype)
+        D = rn(Di)
+        h0 = {"none": None, "per row": rn(B, Di, N, s=0.1),
+              "shared": rn(Di, N, s=0.1).expand(B, Di, N)}[h0_kind]
+        return [x, dt, A, xdbc[..., dr:dr + N], xdbc[..., dr + N:], D, h0]
+
+    def lru_ops(B, S, W, dtype, h0_kind):
+        x = rn(B, S, W, s=0.5).to(dtype)
+        r, i = rn(B, S, W).to(dtype), rn(B, S, W).to(dtype)
+        h0 = {"none": None, "per row": rn(B, W, s=0.1),
+              "shared": rn(W, s=0.1).expand(B, W)}[h0_kind]
+        return [x, r, i, rn(W), h0]
+
+    # selective_scan_bwd
+    cases["selective_scan_bwd"] = []
+    for B, S, D_, dtype, h0_kind, timed_ in (
+            (4, 256, Di, torch.bfloat16, "per row", True),
+            (4, 256, Di, torch.bfloat16, "shared", False),
+            (4, 256, Di, torch.bfloat16, "none", False),
+            (4, 256, Di, torch.float32, "per row", True),
+            (3, 37, 200, torch.bfloat16, "per row", False),
+            (3, 37, 200, torch.float32, "shared", False)):
+        args = scan_ops(B, S, D_, dtype, h0_kind)
+        dy = rn(B, S, D_).to(dtype)
+        # the round's call: no dh_final, dA and dD not asked (frozen);
+        # the other cases with dh_final and every gradient
+        full = not timed_
+        dh = rn(B, D_, N) if full else None
+        kw = dict(need_A=full, need_D=full)
+        label = (f"B={B} S={S} Di={D_} N={N} h0 {h0_kind} "
+                 f"{str(dtype)[6:]}" + ("" if full else
+                                        ", no dh_final, dA/dD not asked"))
+        hT = torch.empty((B, D_, N), dtype=torch.float32, device="cuda")
+        got = ss._launch_bwd(*args, dy, dh, h_final_out=hT, **kw)
+        want = ss.selective_scan_bwd_torch(*args, dy, dh, **kw)
+        errs = grads_close(f"selective_scan_bwd {label}", got, want, dtype,
+                           SCAN_GRADS)
+        again = ss._launch_bwd(*args, dy, dh, **kw)
+        torch.cuda.synchronize()
+        check(all(a is None and b is None or torch.equal(a, b)
+                  for a, b in zip(got, again)),
+              f"selective_scan_bwd {label}: a second call gave other bits")
+        _, hf = ss.selective_scan(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(hT, hf), f"selective_scan_bwd {label}: the rerun "
+              f"ended {(hT - hf).abs().max().item()} from the forward "
+              "kernel's h_final")
+        c = dict(shape=label + ", B and C strided views",
+                 max_abs_err=max(errs.values()), errs=errs,
+                 tol=GRAD_TOL[dtype], tol_of="each output's largest value",
+                 bits_repeat=True,
+                 rerun_h_final_bit_equal=True,
+                 path="the forward's blocks; checkpoints every 16 steps, "
+                      "each chunk's states recomputed into shared memory")
+        if timed_:
+            elt = args[0].element_size()
+            n, n_h = B * S * D_, B * D_ * N
+            nbytes = elt * (5 * n + 4 * B * S * N) + 4 * (
+                D_ * N + D_ + n_h * (2 if h0_kind != "none" else 1))
+            exps = n * N
+            # per (b, t, c, n): the forward's step for the states (dt A,
+            # h dA, (dt x) B, the add) and the reverse step (g += dy C, g
+            # B, the ddt term, the dB and dC terms, g dA)
+            flops = 18 * exps
+            timed(c, timer, "selective_scan_bwd_kernel",
+                  lambda: ss._launch_bwd(*args, dy, **kw),
+                  lambda: ss.selective_scan_bwd_torch(*args, dy, **kw),
+                  dict(bytes=nbytes / PEAK_BYTES * 1e3,
+                       exp=exps / PEAK_EXP * 1e3,
+                       flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
+                  dict(bytes="bytes", exp="operations", flops="operations"))
+        cases["selective_scan_bwd"].append(c)
+        log(f"kernel selective_scan_bwd {c}")
+
+    # ragged: dt = 0 and dy = 0 over a padded row's tail
+    x, dt, A, Bm, C, D, h0 = scan_ops(8, 256, Di, torch.bfloat16, "per row")
+    dy = rn(8, 256, Di).to(torch.bfloat16)
+    lens = [256, 37, 200, 255, 1, 128, 150, 129]
+    dtp, dyp = dt.clone(), dy.clone()
+    for b, n in enumerate(lens):
+        dtp[b, n:] = 0
+        dyp[b, n:] = 0
+    pad = ss._launch_bwd(x, dtp, A, Bm, C, D, h0, dyp, need_A=False,
+                         need_D=False)
+    same = []
+    for b, n in enumerate(lens):
+        solo = ss._launch_bwd(
+            x[b:b + 1, :n].contiguous(), dt[b:b + 1, :n].contiguous(), A,
+            Bm[b:b + 1, :n], C[b:b + 1, :n], D, h0[b:b + 1],
+            dy[b:b + 1, :n].contiguous(), need_A=False, need_D=False)
+        same.append(all(torch.equal(pad[k][b, :n], solo[k][0])
+                        for k in (0, 1, 3, 4))
+                    and torch.equal(pad[6][b], solo[6][0]))
+    check(all(same), f"selective_scan_bwd ragged: padded rows' gradients "
+                     f"bit-equal to the solo rows' {same}")
+    cases["selective_scan_bwd"][0]["ragged_rows_bit_equal"] = same
+    log(f"kernel selective_scan_bwd ragged B=8 S=256 lens {lens}: the "
+        "valid part's gradients == the solo rows', bit for bit")
+
+    # rglru_scan_bwd
+    cases["rglru_scan_bwd"] = []
+    for B, S, W_, dtype, h0_kind, timed_ in (
+            (4, 256, W, torch.bfloat16, "shared", True),
+            (4, 256, W, torch.bfloat16, "per row", False),
+            (4, 256, W, torch.bfloat16, "none", False),
+            (4, 256, W, torch.float32, "shared", True),
+            (3, 37, 200, torch.bfloat16, "per row", False),
+            (3, 37, 200, torch.float32, "none", False)):
+        args = lru_ops(B, S, W_, dtype, h0_kind)
+        dhs = rn(B, S, W_).to(dtype)
+        full = not timed_
+        dh = rn(B, W_) if full else None
+        label = (f"B={B} S={S} W={W_} h0 {h0_kind} {str(dtype)[6:]}"
+                 + ("" if full else ", no dh_final, da_param not asked"))
+        hT = torch.empty((B, W_), dtype=torch.float32, device="cuda")
+        got = rg._launch_bwd(*args, dhs, dh, need_a=full, h_final_out=hT)
+        want = rg.rglru_bwd_torch(*args, dhs, dh, need_a=full)
+        errs = grads_close(f"rglru_scan_bwd {label}", got, want, dtype,
+                           LRU_GRADS)
+        again = rg._launch_bwd(*args, dhs, dh, need_a=full)
+        torch.cuda.synchronize()
+        check(all(a is None and b is None or torch.equal(a, b)
+                  for a, b in zip(got, again)),
+              f"rglru_scan_bwd {label}: a second call gave other bits")
+        _, hf = rg.rglru(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(hT, hf), f"rglru_scan_bwd {label}: the rerun "
+              f"ended {(hT - hf).abs().max().item()} from the forward "
+              "kernel's h_final")
+        c = dict(shape=label, max_abs_err=max(errs.values()), errs=errs,
+                 tol=GRAD_TOL[dtype], tol_of="each output's largest value",
+                 bits_repeat=True,
+                 rerun_h_final_bit_equal=True,
+                 path="one thread a chain, 32 channels a block; "
+                      "checkpoints every 32 steps, each chunk's states "
+                      "recomputed into shared memory")
+        if timed_:
+            n = B * S * W_
+            elt = args[0].element_size()
+            nbytes = 7 * elt * n + 4 * (W_ + (W_ if h0_kind == "shared"
+                                              else 0 if h0_kind == "none"
+                                              else B * W_) + B * W_)
+            # per element through the special-function units: the two
+            # sigmoids (2 each), a_t, the square root, 1 / s
+            mufu = 7 * n
+            # per element on the f32 cores: the gates (8), the chain (2),
+            # the reverse step (g += dhs, g s, dx, di, da, dr, g a: 16)
+            flops = 26 * n
+            timed(c, timer, "rglru_scan_bwd_kernel",
+                  lambda: rg._launch_bwd(*args, dhs, need_a=False),
+                  lambda: rg.rglru_bwd_torch(*args, dhs, need_a=False),
+                  dict(bytes=nbytes / PEAK_BYTES * 1e3,
+                       mufu=mufu / PEAK_EXP * 1e3,
+                       flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
+                  dict(bytes="bytes", mufu="operations", flops="operations"))
+        cases["rglru_scan_bwd"].append(c)
+        log(f"kernel rglru_scan_bwd {c}")
+
+    # ragged: r = -1e9 and dhs = 0 over a padded row's tail
+    x, r, i, a, h0 = lru_ops(8, 256, W, torch.bfloat16, "per row")
+    dhs = rn(8, 256, W).to(torch.bfloat16)
+    rp, dhp = r.clone(), dhs.clone()
+    for b, n in enumerate(lens):
+        rp[b, n:] = -1e9
+        dhp[b, n:] = 0
+    pad = rg._launch_bwd(x, rp, i, a, h0, dhp, need_a=False)
+    same = []
+    for b, n in enumerate(lens):
+        solo = rg._launch_bwd(
+            x[b:b + 1, :n].contiguous(), r[b:b + 1, :n].contiguous(),
+            i[b:b + 1, :n].contiguous(), a, h0[b:b + 1],
+            dhs[b:b + 1, :n].contiguous(), need_a=False)
+        same.append(all(torch.equal(pad[k][b, :n], solo[k][0])
+                        for k in range(3))
+                    and torch.equal(pad[4][b], solo[4][0]))
+    check(all(same), f"rglru_scan_bwd ragged: padded rows' gradients "
+                     f"bit-equal to the solo rows' {same}")
+    cases["rglru_scan_bwd"][0]["ragged_rows_bit_equal"] = same
+    log(f"kernel rglru_scan_bwd ragged B=8 S=256 lens {lens}: the valid "
+        "part's gradients == the solo rows', bit for bit")
+
+    # a saturated gate: non-finite dr_gate and da_param where the plain
+    # backward's are, agreement elsewhere, finite dx, di and dh0
+    for dtype in (torch.bfloat16, torch.float32):
+        x, r, i, a, h0 = lru_ops(4, 256, W, dtype, "per row")
+        r = r.clone()
+        r[1, 246:] = -1e9                      # 10 steps x W channels
+        dhs = rn(4, 256, W).to(dtype)
+        got = rg._launch_bwd(x, r, i, a, h0, dhs)
+        want = rg.rglru_bwd_torch(x, r, i, a, h0, dhs)
+        torch.cuda.synchronize()
+        masked = ([], [])
+        for name, g, w in zip(LRU_GRADS, got, want):
+            bad = ~torch.isfinite(w)
+            check(torch.equal(~torch.isfinite(g), bad),
+                  f"rglru_scan_bwd saturated {dtype}: {name} non-finite "
+                  "elsewhere than the plain backward's")
+            n_bad = int(bad.sum())
+            check(n_bad == {"dr": 10 * W, "da_param": W}.get(name, 0),
+                  f"rglru_scan_bwd saturated {dtype}: {n_bad} non-finite "
+                  f"{name}")
+            masked[0].append(torch.where(bad, 0, g.float()))
+            masked[1].append(torch.where(bad, 0, w.float()))
+        errs = grads_close(f"rglru_scan_bwd saturated {dtype}", *masked,
+                           dtype, LRU_GRADS)
+        rec[f"rglru_saturated_{str(dtype)[6:]}"] = dict(
+            nonfinite_dr=10 * W, nonfinite_da_param=W, errs_elsewhere=errs)
+        log(f"kernel rglru_scan_bwd saturated gate ({dtype}, 10 steps of "
+            f"row 1): dr_gate non-finite on those {10 * W} entries and "
+            f"da_param on all {W} channels, as the plain backward; "
+            f"elsewhere {errs}")
+
+    # the autograd Functions on the card against autograd through the
+    # plain versions, as the layers call them (B and C views of one leaf,
+    # shared state prompts expanded over the rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, _, _, D, _ = scan_ops(2, 64, 512, dtype, "none")
+        xdbc = rn(2, 64, dr + 2 * N, s=0.5).to(dtype)
+        s0 = rn(512, N, s=0.1)
+        dy = rn(2, 64, 512).to(dtype)
+
+        def sgrads(backend):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (x, dt, xdbc, s0)]
+            xx, dd, xd, h = leaves
+            y, _ = ss.selective_scan(xx, dd, A, xd[..., dr:dr + N],
+                                     xd[..., dr + N:], D,
+                                     h[None].expand(2, 512, N),
+                                     backend=backend)
+            (y.float() * dy.float()).sum().backward()
+            return [t.grad for t in leaves]
+
+        with plain_calls(scans=True) as plain:
+            got = sgrads(None)
+        check(plain["selective_scan"] == plain["selective_scan_bwd"] == 0,
+              f"autograd selective_scan ran a plain version: {plain}")
+        serr = grads_close(f"autograd selective_scan {dtype}", got,
+                           sgrads("torch"), dtype,
+                           ("dx", "ddt", "dxdbc", "dstate0"))
+        x, r, i, a, _ = lru_ops(2, 64, W, dtype, "none")
+        s0 = rn(W, s=0.1)
+        dhs = rn(2, 64, W).to(dtype)
+
+        def lgrads(backend):
+            leaves = [t.clone().requires_grad_(True) for t in (x, r, i, s0)]
+            hs, _ = rg.rglru(*leaves[:3], a, leaves[3], backend=backend)
+            (hs.float() * dhs.float()).sum().backward()
+            return [t.grad for t in leaves]
+
+        with plain_calls(scans=True) as plain:
+            got = lgrads(None)
+        check(plain["rglru_scan"] == plain["rglru_scan_bwd"] == 0,
+              f"autograd rglru ran a plain version: {plain}")
+        lerr = grads_close(f"autograd rglru {dtype}", got, lgrads("torch"),
+                           dtype, ("dx", "dr", "di", "dstate0"))
+        rec[f"autograd_{str(dtype)[6:]}"] = dict(selective_scan=serr,
+                                                 rglru=lerr)
+        log(f"autograd selective_scan / rglru on the card vs autograd "
+            f"through the plain versions ({dtype}): {serr} / {lerr}")
+    return rec
+
+
+def lora_bwd_hybrid_cases(gen: torch.Generator, timer: Timer,
+                          cases: dict) -> None:
+    """Phase 27's kernel check: lora_matmul_bwd at recurrentgemma-2b's q
+    (N 2560) and v (N 256) projections of the round (M 1024, K 2560, r 8)
+    against its plain version, beside phase 8's qwen2-7b shapes (into
+    ``cases``)."""
+    def randn(*shape, dtype=torch.bfloat16, s=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
+
+    for N, proj in ((2560, "q"), (256, "v")):
+        cases["lora_matmul_bwd"].append(lora_bwd_case(
+            randn, timer, 1024, 2560, N, 8, torch.bfloat16,
+            f" (recurrentgemma-2b's {proj})"))
+
+
+def scan_train_phases(seed: int) -> dict:
+    """Phases 26 and 27: one HFSL round of falcon-mamba-7b and of
+    recurrentgemma-2b at their published sizes, as phase 9 runs qwen2-7b:
+    a 5-class head, a ClassificationTask bank, 2 clusters, 4 steps, batch
+    4, seq 256, FedAvg every 2 steps, AdamW 5e-3."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    rec = {}
+    for key, arch, shape in (
+            ("train-ssm", "falcon-mamba-7b",
+             lambda c: (c.n_layers, c.d_model, c.d_inner, c.ssm.d_state) ==
+             (64, 4096, 8192, 16)),
+            ("train-hybrid", "recurrentgemma-2b",
+             lambda c: (c.n_layers, c.d_model, c.lru_width, c.n_heads,
+                        c.head_dim_) == (26, 2560, 2560, 10, 256))):
+        cfg = get_config(arch)
+        cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+        check(shape(cfg) and cfg.dtype == "bfloat16",
+              f"{arch} is not at its published size")
+        rec[key] = train_round(
+            key, cfg, n_clusters=2, steps=4, batch=4, sync_every=2,
+            task_args=(5, 1000, 256, 0.5), seed=seed)
+        no_pad_copies(f"phase {26 if key == 'train-ssm' else 27}")
+    return rec
+
+
+def scan_train_exactness(seed: int) -> dict:
+    """Phase 28: a 2-layer full-width f32 falcon-mamba-7b and a 5-layer
+    full-width f32 recurrentgemma-2b (one (rglru, rglru, attn) group and
+    the tail), 2 clusters, 3 steps of SGD with momentum, through the
+    kernels and through ``backend="torch"``, held as phase 11 holds
+    qwen2-7b: adapters and losses within 1e-4, each leaf's update within
+    1e-3 of the leaf's largest update."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import hfsl
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim.optimizers import sgd
+
+    out = {}
+    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 5)):
+        cfg = get_config(arch)
+        cfg = cfg.with_(n_layers=layers, dtype="float32",
+                        peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+        opt = sgd(0.1, momentum=0.9)
+        state = hfsl.init_hfsl_state(seed, cfg, 2, opt, M.init,
+                                     device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+        # state prompts and LoRA b init to zeros; seeded, every adapter's
+        # gradient is reached
+        for path, t in tree_paths(state["adapters_c"]):
+            if "state0" in path or path[-1] == "b" and "lora" in path:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda")
+                        * 0.1)
+        bank = classify_bank((5, 1000, 256, 0.5), 2, 4, 3, seed,
+                             cfg.peft.head_dim_out)
+        rnd = hfsl.make_hfsl_round(cfg, opt, M.classify_loss, steps=3,
+                                   sync_every=2)
+        want = round_launches(cfg, 2, 3)
+        ops.reset_launch_counts()
+        with plain_calls(scans=True) as plain:
+            ks, km = rnd(state, bank.arrays, 0)
+        n = ops.launch_counts()
+        check(launches_as_predicted(n, want) and not any(plain.values()),
+              f"{arch} e2e train: launches {n}, predicted {want}; plain "
+              f"calls {plain}")
+        with ops.backend("torch"):
+            with plain_calls(scans=True) as plain:
+                ps, pm = rnd(state, bank.arrays, 0)
+        scan = "selective_scan" if cfg.family == "ssm" else "rglru_scan"
+        check(plain[scan] > 0 and plain[scan + "_bwd"] > 0,
+              f"{arch}: the plain round did not run the plain scans: "
+              f"{plain}")
+        torch.cuda.synchronize()
+        r = dict(round_exactness(ks, km, ps, pm, state),
+                 losses=km["loss"].tolist())
+        check(exact_enough(r),
+              f"{arch} e2e train f32 (sgd): kernels vs plain {r}")
+        log(f"e2e train: {layers}-layer f32 {arch} round (2 clusters, 3 "
+            f"steps, sgd 0.1 momentum 0.9): kernels vs plain adapters "
+            f"max_abs_err {r['adapters_max_abs_err']:.3e}, losses "
+            f"{r['loss_max_abs_err']:.3e} (tol 1e-4); largest per-leaf "
+            f"update difference {r['update_max_rel_err']:.3e} of the "
+            f"leaf's largest update (tol 1e-3; largest update "
+            f"{r['update_max']:.3e}); launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        out[arch] = dict(r, layers=layers, launches=n)
+        del state, ks, ps
+        torch.cuda.empty_cache()
+    return dict(out, tol=1e-4, update_rel_tol=1e-3)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2778,6 +3323,8 @@ def main(argv=None) -> int:
     scan_kernel_cases(gen, timer, cases)
     lru_kernel_cases(gen, timer, cases)
     attn256_cases(gen, timer, cases)
+    rec["scan_bwd"] = scan_bwd_cases(gen, timer, cases)
+    lora_bwd_hybrid_cases(gen, timer, cases)
     rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -2791,6 +3338,8 @@ def main(argv=None) -> int:
     rec["spec_loop"] = spec_loop(args.seed)
     rec["hybrid"], rec["hybrid_bank"] = hybrid_path(args.seed)
     rec["hybrid_e2e"] = hybrid_exactness(args.seed)
+    rec.update(scan_train_phases(args.seed))
+    rec["train_scan_e2e"] = scan_train_exactness(args.seed)
 
     kernels = []
     for name, cs in cases.items():

@@ -45,10 +45,6 @@ from repro_torch.optim.optimizers import (Optimizer, apply_updates,
 
 _TRAIN_KEYS = ("adapters_c", "opt", "step")    # donated; backbone never is
 _MULTI_GPU = "later, multi-GPU"
-# the selective_scan and rglru_scan kernels have no backward yet (nor have
-# the reference's TPU kernels: it differentiates both recurrences through
-# XLA); the ROADMAP item covers both
-_SSM_TRAINING = "later, ssm training: a backward for selective_scan"
 
 
 def _cluster(tree, c: int):
@@ -206,9 +202,6 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
     as the plain body's, and every guard is a select, so with an all-ones
     mask and no corruption the outputs equal the plain body's bit for
     bit."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise unported(f"HFSL fine-tuning of the {cfg.family!r} family",
-                       _SSM_TRAINING)
     one_cluster = _make_cluster_update(cfg, optimizer, loss_fn, clip_norm,
                                        microbatches)
 

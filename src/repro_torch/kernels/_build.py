@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("lora_matmul", "lora_matmul_bwd", "flash_attention",
            "flash_decode", "flash_decode_paged", "lora_bgmv_rows",
-           "lora_bgmv_seq", "selective_scan", "rglru_scan")
+           "lora_bgmv_seq", "selective_scan", "rglru_scan",
+           "selective_scan_bwd", "rglru_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

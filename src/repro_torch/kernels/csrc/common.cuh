@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions,
-// ex2.approx, cp.async, warp reductions, and the C-visible error-string
-// hook.
+// ex2 / rcp / sqrt .approx and the RG-LRU's gate functions, cp.async,
+// warp reductions, and the C-visible error-string hook.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +39,32 @@ __device__ __forceinline__ float ex2_approx(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
+}
+
+// 1 / v and sqrt(v) through the special-function unit (MUFU.RCP,
+// MUFU.SQRT; subnormals flushed): rcp_approx(inf) = 0, rcp_approx(0) = inf
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float sqrt_approx(float v) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// The RG-LRU's gate functions (csrc/rglru_scan.cu and its backward).
+// sigmoid: 1 / (1 + 2^(-v log2 e)), one MUFU.EX2 and one MUFU.RCP; v =
+// -1e9 gives 1 / inf = 0 exactly
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return rcp_approx(1.f + ex2_approx(v * -1.4426950408889634f));
+}
+
+// torch.nn.functional.softplus (beta 1, threshold 20)
+__device__ __forceinline__ float softplus_f(float v) {
+  return v > 20.f ? v : log1pf(expf(v));
 }
 
 // cp.async of a 16-byte chunk into shared memory, bypassing L1; the

@@ -79,28 +79,8 @@ struct Smem {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float sqrt_approx(float v) {
-  float r;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// 1 / (1 + 2^(-v log2 e)): one MUFU.EX2 and one MUFU.RCP; v = -1e9 gives
-// 1 / inf = 0 exactly
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return rcp_approx(1.f + ex2_approx(v * -LOG2E));
-}
-
-// torch.nn.functional.softplus (beta 1, threshold 20)
-__device__ __forceinline__ float softplus_f(float v) {
-  return v > 20.f ? v : log1pf(expf(v));
-}
+// the gates' special functions (rcp_approx, sqrt_approx, sigmoid_f,
+// softplus_f) are in common.cuh, shared with the backward
 
 template <typename T, int NW, int AHEAD>
 __global__ void __launch_bounds__(NW * 32)

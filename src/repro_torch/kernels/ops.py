@@ -34,7 +34,9 @@ _KERNELS = {"lora_matmul": (lm, "launches"),
             "lora_bgmv_rows": (bg, "rows_launches"),
             "lora_bgmv_seq": (bg, "seq_launches"),
             "selective_scan": (ss, "launches"),
-            "rglru_scan": (rg, "launches")}
+            "rglru_scan": (rg, "launches"),
+            "selective_scan_bwd": (ss, "bwd_launches"),
+            "rglru_scan_bwd": (rg, "bwd_launches")}
 
 
 def set_backend(name: Optional[str]) -> None:
@@ -253,7 +255,10 @@ def selective_scan(x, dt, A, Bm, C, D, h0=None, *,
     """The Mamba-1 scan over a sequence (shapes as
     :func:`ref.selective_scan`). The reference's XLA-only algorithms
     (``_selective_scan_assoc``, ``set_ssm_xla_impl``) compute the same
-    function and are covered by the plain version."""
+    function and are covered by the plain version. Differentiable: the
+    backward is the ``selective_scan_bwd`` kernel on the card (the
+    reference differentiates the scan through XLA); its oracle is
+    autograd through :func:`ref.selective_scan`."""
     return ss.selective_scan(x, dt, A, Bm, C, D, h0, backend=_pick(backend))
 
 
@@ -278,7 +283,9 @@ def rglru(x, r_gate, i_gate, a_param, h0=None, *, c: float = 8.0,
     """The RG-LRU recurrence over a sequence (shapes as :func:`ref.rglru`;
     h0 may also be one shared (W,) state). The reference's XLA-only
     ``_rglru_assoc`` computes the same function and is covered by the
-    plain version."""
+    plain version. Differentiable: the backward is the ``rglru_scan_bwd``
+    kernel on the card; its oracle is autograd through
+    :func:`ref.rglru`."""
     return rg.rglru(x, r_gate, i_gate, a_param, h0, c=c,
                     backend=_pick(backend))
 

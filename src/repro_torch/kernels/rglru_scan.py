@@ -19,12 +19,23 @@ through bit for bit. The kernel takes each power of 2, reciprocal and
 square root of the gates from the special-function units: its outputs
 may differ from the plain version's in the last bits.
 
-The kernel has no backward (nor has the TPU kernel: the reference
-differentiates the recurrence through XLA), so on the card the wrapper
-raises when autograd would need one. ``rglru`` launches the kernel for CUDA
-tensors and takes the plain version only for CPU tensors or when the
-caller passes ``backend="torch"``. ``launches`` counts kernel launches,
-nothing else; ``last_plan`` is the :func:`plan` the last launch ran.
+The TPU kernel has no backward: the reference differentiates the
+recurrence through XLA (``repro/kernels/ops.py::_rglru_assoc``). Here its
+VJP is a kernel of its own (``csrc/rglru_scan_bwd.cu``) with its plain
+version :func:`rglru_bwd_torch`, which follows the kernel's order: the
+chain rerun from h0 with the state kept before every chunk of ``CHUNK``
+steps, then the chunks in reverse, each recomputing its states before the
+reverse recurrence. :class:`_RGLRU` ties the two directions together for
+autograd. At a saturated gate (``r_gate = -1e9``, a ragged row's padding)
+the gradients of ``r_gate`` and ``a_param`` are not finite, in both
+versions as in the reference (``sqrt(1 - a_t²)`` has an infinite slope at
+``a_t = 1``); no training batch is ragged.
+
+``rglru`` launches the kernels for CUDA tensors and takes the plain
+versions only for CPU tensors or when the caller passes
+``backend="torch"``. ``launches`` and ``bwd_launches`` count kernel
+launches, nothing else; ``last_plan`` is the :func:`plan` the last
+forward launch ran.
 """
 from __future__ import annotations
 
@@ -37,12 +48,15 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 launches = 0
+bwd_launches = 0
 last_plan: Optional[dict] = None
 
 CB = 32                    # channels a block of the kernel
+CHUNK = 32                 # steps between the backward's checkpoints
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGS = [_P] * 7 + [_I] * 3 + [_L, _F] + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 14 + [_I] * 3 + [_L, _F, _I, _P]
 
 
 def plan(B: int, W: int, dtype: torch.dtype = torch.bfloat16,
@@ -95,35 +109,91 @@ def rglru_torch(x, r_gate, i_gate, a_param, h0=None, c: float = 8.0):
     return torch.stack(hs, 1).to(x.dtype), h
 
 
-def _launch(x, r_gate, i_gate, a_param, h0, c):
-    global launches, last_plan
+def rglru_bwd_torch(x, r_gate, i_gate, a_param, h0, dhs, dhT=None,
+                    c: float = 8.0, *, need_a: bool = True):
+    """Plain VJP of :func:`rglru_torch` in the kernel's order: the gates
+    (:func:`gates`), the chain rerun from h0 keeping the state before
+    every ``CHUNK`` steps, then, chunk by chunk in reverse, the chunk's
+    states recomputed from its checkpoint and the reverse recurrence with
+    ``g`` (dL/dh, ``dhT`` at the end): ``g += dhs``, ``dx = g s σ(i)``,
+    ``di = g s x σ'(i)``, ``∂a = g h_prev - g σ(i) x a / s``, ``dr = ∂a
+    a log_a σ'(r)``, ``da_param += ∂a a σ(r) c σ(-a_param)``, ``g *= a``.
+    Shapes as :func:`rglru`; dhs (B, S, W), dhT (B, W) f32 or None.
+    Returns (dx, dr, di in x's dtype, da_param (W,) f32 or None, dh0
+    (B, W) f32)."""
+    B, S, W = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    a, u = gates(x, r_gate, i_gate, a_param, c)
+    p = a_param.float()
+    log_a = -c * F.softplus(-p)
+    sr, si = torch.sigmoid(r_gate.float()), torch.sigmoid(i_gate.float())
+    xf, dhf = x.float(), dhs.float()
+    v = 1.0 - a * a
+    s = torch.sqrt(torch.clamp(v, min=0.0))
+    dsda = torch.where(v >= 0, -a / s, torch.zeros((), **f32))
+    h = torch.zeros((B, W), **f32) if h0 is None else h0.float().expand(B, W)
+    cks = []
+    for t in range(S):
+        if t % CHUNK == 0:
+            cks.append(h)
+        h = a[:, t] * h + u[:, t]
+    g = torch.zeros((B, W), **f32) if dhT is None else \
+        dhT.float().expand(B, W)
+    dx, dr, di = (torch.empty((B, S, W), **f32) for _ in range(3))
+    dp = torch.zeros((W,), **f32) if need_a else None
+    for k in reversed(range(len(cks))):
+        t0, t1 = k * CHUNK, min(S, (k + 1) * CHUNK)
+        hs = [cks[k]]
+        for t in range(t0, t1):
+            hs.append(a[:, t] * hs[-1] + u[:, t])
+        for t in reversed(range(t0, t1)):
+            g = g + dhf[:, t]
+            gs = g * s[:, t]
+            da = g * hs[t - t0] + g * (si[:, t] * xf[:, t]) * dsda[:, t]
+            dx[:, t] = gs * si[:, t]
+            di[:, t] = gs * xf[:, t] * (si[:, t] * (1 - si[:, t]))
+            dr[:, t] = da * a[:, t] * log_a * (sr[:, t] * (1 - sr[:, t]))
+            if need_a:
+                dp += (da * a[:, t] * sr[:, t]).sum(0)
+            g = g * a[:, t]
+    da_param = dp * c * torch.sigmoid(-p) if need_a else None
+    return (dx.to(x.dtype), dr.to(r_gate.dtype), di.to(i_gate.dtype),
+            da_param, g)
+
+
+def _checked(name, x, r_gate, i_gate, a_param, h0, extra=None):
+    """Validate a launch's operands (and ``extra``, tensors in x's dtype
+    or, by name, f32); returns the csrc dtype code, h0 as (B, W) or None,
+    and h0's batch stride."""
     B, S, W = x.shape
     if r_gate.shape != x.shape or i_gate.shape != x.shape or \
             a_param.shape != (W,) or \
             (h0 is not None and h0.shape not in ((W,), (B, W))):
         raise ValueError(
-            f"rglru: x {tuple(x.shape)}, r_gate {tuple(r_gate.shape)}, "
+            f"{name}: x {tuple(x.shape)}, r_gate {tuple(r_gate.shape)}, "
             f"i_gate {tuple(i_gate.shape)}, a_param {tuple(a_param.shape)}, "
             f"h0 {None if h0 is None else tuple(h0.shape)} do not match")
-    ins = [x, r_gate, i_gate, a_param] + ([] if h0 is None else [h0])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise RuntimeError(
-            "rglru: the CUDA kernel has no backward; training through the "
-            "recurrence is not ported (ROADMAP: ssm training, a backward "
-            "for selective_scan and rglru)")
     if h0 is not None and h0.dim() == 1:
         h0 = h0.expand(B, W)
     ts = {"x": x, "r_gate": r_gate, "i_gate": i_gate, "a_param": a_param}
     if h0 is not None:
         ts["h0"] = h0
-    code = _build.checked_args("rglru_scan", ts, x.dtype,
-                               f32=("a_param", "h0"), strided=("h0",))
+    ts.update(extra or {})
+    code = _build.checked_args(name, ts, x.dtype,
+                               f32=("a_param", "h0", "dhT"), strided=("h0",))
     h0_sb = 0
     if h0 is not None:
         h0_sb = h0.stride(0)
         if h0_sb not in (0, W) and B > 1:
-            raise ValueError(f"rglru: h0 {tuple(h0.shape)} with strides "
+            raise ValueError(f"{name}: h0 {tuple(h0.shape)} with strides "
                              f"{h0.stride()} must be W-contiguous per row")
+    return code, h0, h0_sb
+
+
+def _launch(x, r_gate, i_gate, a_param, h0, c):
+    global launches, last_plan
+    B, S, W = x.shape
+    code, h0, h0_sb = _checked("rglru", x, r_gate, i_gate, a_param, h0)
     lib = _build.bind("rglru_scan", _ARGS)
     hs = torch.empty_like(x)
     hT = torch.empty((B, W), dtype=torch.float32, device=x.device)
@@ -140,14 +210,94 @@ def _launch(x, r_gate, i_gate, a_param, h0, c):
     return hs, hT
 
 
+def _launch_bwd(x, r_gate, i_gate, a_param, h0, dhs, dhT=None,
+                c: float = 8.0, *, need_a: bool = True, h_final_out=None):
+    """The backward kernel; arguments and results as
+    :func:`rglru_bwd_torch`. a_param's gradient comes from per-row
+    partials summed here over the rows (a fixed order: a second call gives
+    the same bits). ``h_final_out``, a (B, W) f32 tensor, receives the
+    state the kernel's rerun of the chain ends in (the forward kernel's
+    ``h_final``, bit for bit)."""
+    global bwd_launches
+    B, S, W = x.shape
+    extra = {"dhs": dhs}
+    if dhT is not None:
+        extra["dhT"] = dhT
+    if dhs.shape != x.shape or (dhT is not None and dhT.shape != (B, W)):
+        raise ValueError(f"rglru_bwd: dhs {tuple(dhs.shape)}, dhT "
+                         f"{None if dhT is None else tuple(dhT.shape)} do "
+                         f"not match x {tuple(x.shape)}")
+    code, h0, h0_sb = _checked("rglru_bwd", x, r_gate, i_gate, a_param, h0,
+                               extra)
+    if h_final_out is not None and (
+            h_final_out.shape != (B, W) or not h_final_out.is_cuda or
+            h_final_out.dtype != torch.float32 or
+            not h_final_out.is_contiguous()):
+        raise ValueError("rglru_bwd: h_final_out must be a contiguous "
+                         "(B, W) f32 CUDA tensor")
+    lib = _build.bind("rglru_scan_bwd", _BWD_ARGS)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dr, di = (torch.empty_like(x) for _ in range(3))
+    da = torch.empty((B, W), **f32) if need_a else None
+    dh0 = torch.empty((B, W), **f32)
+    ck = torch.empty((B, -(-S // CHUNK), W), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.rglru_scan_bwd_launch(
+        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
+        a_param.data_ptr(), ptr(h0), dhs.data_ptr(), ptr(dhT),
+        dx.data_ptr(), dr.data_ptr(), di.data_ptr(), ptr(da),
+        dh0.data_ptr(), ptr(h_final_out), ck.data_ptr(), B, S, W, h0_sb,
+        float(c), code, _build.stream(x))
+    _build.check(lib, "rglru_scan_bwd", err)
+    bwd_launches += 1
+    return dx, dr, di, None if da is None else da.sum(0), dh0
+
+
+class _RGLRU(torch.autograd.Function):
+    """The recurrence for autograd: the forward kernel and the backward
+    kernel (``impl`` "cuda"), or the plain versions of both ("torch")."""
+
+    @staticmethod
+    def forward(ctx, x, r_gate, i_gate, a_param, h0, c, impl):
+        ctx.save_for_backward(x, r_gate, i_gate, a_param, h0)
+        ctx.c, ctx.impl = c, impl
+        ctx.set_materialize_grads(False)
+        fwd = rglru_torch if impl == "torch" else _launch
+        return fwd(x, r_gate, i_gate, a_param, h0, c)
+
+    @staticmethod
+    def backward(ctx, dhs, dhT):
+        x, r_gate, i_gate, a_param, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dhs = torch.zeros_like(x) if dhs is None else dhs.contiguous()
+        if dhT is not None:
+            dhT = dhT.contiguous()
+        bwd = rglru_bwd_torch if ctx.impl == "torch" else _launch_bwd
+        grads = bwd(x, r_gate, i_gate, a_param, h0, dhs, dhT, ctx.c,
+                    need_a=need[3])
+        return tuple(g if n else None for g, n in zip(grads, need)) + \
+            (None, None)
+
+
 def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
           a_param: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
           c: float = 8.0, backend: Optional[str] = None):
     """x, r_gate, i_gate: (B, S, W); a_param: (W,) f32; h0: None, (B, W)
     or (W,), f32. Returns (h_seq (B, S, W) in x.dtype, h_final (B, W)
-    f32)."""
-    if backend == "torch" or (backend is None and x.device.type == "cpu"):
-        return rglru_torch(x, r_gate, i_gate, a_param, h0, c)
-    if backend not in (None, "cuda"):
+    f32). Differentiable in every tensor argument; a (W,) h0 gets the sum
+    of its rows' gradients."""
+    if backend not in (None, "cuda", "torch"):
         raise ValueError(f"rglru: unknown backend {backend!r}")
-    return _launch(x, r_gate, i_gate, a_param, h0, c)
+    impl = "torch" if backend == "torch" or (
+        backend is None and x.device.type == "cpu") else "cuda"
+    if h0 is not None and h0.dim() == 1:
+        h0 = h0.expand(x.shape[0], -1)
+    ins = (x, r_gate, i_gate, a_param, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ins):
+        return _RGLRU.apply(*ins, float(c), impl)
+    fwd = rglru_torch if impl == "torch" else _launch
+    return fwd(*ins, c)

@@ -36,7 +36,14 @@ tile, an unaligned row pitch), its two copy routes bit for bit, bits that
 repeat across launches and shapes, a padded row's state bit for bit the
 solo row's, and a 3-layer
 recurrentgemma drain through the kernels (the attention kernels at head
-dim 256 included) against the plain versions. A CUDA kernel has
+dim 256 included) against the plain versions; the two backward kernels
+of the scans against the plain backwards (odd shapes, no, per-row and
+shared initial states), their bits across calls, their rerun of the
+forward ending in the forward kernel's h_final bit for bit, a padded
+row's gradients bit for bit the solo row's, the RG-LRU's saturated gate,
+and the autograd Functions on the card against autograd through the
+plain versions; a 2-layer falcon-mamba and a 3-layer recurrentgemma HFSL
+round through the kernels against the plain versions. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -81,6 +88,24 @@ def close(got, want, dtype):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
         (got.float() - want.float()).abs().max().item()
+
+
+# the backward kernels against the plain backwards: each output within
+# the dtype's tolerance of its largest value (sums over up to a few
+# thousand terms in other orders; bf16 outputs rounded once)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def close_grads(got, want, dtype, names):
+    torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = GRAD_TOL[dtype] * max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
 
 
 def test_wgmma_probe_one_tile(gen):
@@ -934,6 +959,49 @@ def test_hfsl_round_kernels_match_plain(gen):
             (a - b).abs().max().item()
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_scan_family_round_kernels_match_plain(gen, arch):
+    """A reduced f32 falcon-mamba (2 layers) and recurrentgemma (3 layers:
+    two rglru and one attention sub-layer) round, 2 clusters x 3 steps of
+    sgd with momentum, through the kernels (each scan's forward and
+    backward once a layer a step, no remat in classify_loss) and through
+    ``backend="torch"``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import hfsl
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.optimizers import sgd
+
+    cfg = get_config(arch).reduced().with_(dtype="float32", vocab_size=512)
+    cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+    opt = sgd(0.1, momentum=0.9)
+    state = hfsl.init_hfsl_state(0, cfg, 2, opt, M.init, device="cuda")
+    for leaf in tree_leaves(state["adapters_c"]):
+        leaf.copy_(randn(gen, *leaf.shape, dtype=leaf.dtype, s=0.1))
+    bank = {"tokens": torch.randint(0, cfg.vocab_size, (3, 2, 4, 24),
+                                    generator=gen, device="cuda"),
+            "label": torch.randint(0, 5, (3, 2, 4), generator=gen,
+                                   device="cuda")}
+    rnd = hfsl.make_hfsl_round(cfg, opt, M.classify_loss, steps=3,
+                               sync_every=2)
+    ops.reset_launch_counts()
+    ks, km = rnd(state, bank)
+    n = ops.launch_counts()
+    scan = "selective_scan" if cfg.family == "ssm" else "rglru_scan"
+    n_rec = cfg.n_layers if cfg.family == "ssm" else 2
+    assert n[scan] == n[scan + "_bwd"] == n_rec * 2 * 3, n
+    with ops.backend("torch"):
+        ps, pm = rnd(state, bank)
+    torch.cuda.synchronize()
+    assert torch.allclose(km["loss"], pm["loss"], atol=1e-4, rtol=1e-4)
+    for a, b in zip(tree_leaves(ks["adapters_c"]),
+                    tree_leaves(ps["adapters_c"])):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4), \
+            (a - b).abs().max().item()
+
+
 def _paged_operands(gen, B, maxb, bs, n_p, Hq, Hkv, D, dtype, per_row):
     """A random pool with per-row tables of distinct blocks, each row's
     entries past its q_pos set to the n_blocks sentinel, ragged q_pos."""
@@ -1122,12 +1190,106 @@ def test_selective_scan_padded_row_state_is_bitwise(gen, dtype):
         assert torch.equal(h[b], hb[0]), b
 
 
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+@pytest.mark.parametrize("B,S,Di,N", [
+    (1, 32, 128, 8), (2, 64, 256, 16), (3, 37, 200, 16), (2, 5, 33, 4),
+    (1, 1, 7, 16), (2, 40, 70, 1), (2, 37, 100, 5), (4, 256, 512, 16)])
+@pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_bwd_kernel(gen, B, S, Di, N, h0_kind, dtype):
+    """The backward kernel against the plain backward (odd S and Di, state
+    widths 1 to 16, B and C strided views, no / per-row / shared h0, S not
+    a multiple of the 16-step checkpoint interval); a second call repeats
+    the bits; the kernel's rerun of the forward ends in the forward
+    kernel's h_final, bit for bit."""
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, B, S, Di, N, dtype,
+                                            h0_kind)
+    if h0 is not None and h0.dim() == 2:
+        h0 = h0.expand(B, Di, N)
+    dy = randn(gen, B, S, Di, dtype=dtype)
+    dh = randn(gen, B, Di, N, dtype=torch.float32)
+    hT = torch.empty((B, Di, N), dtype=torch.float32, device="cuda")
+    n0 = ss.bwd_launches
+    got = ss._launch_bwd(x, dt, A, Bm, C, D, h0, dy, dh, h_final_out=hT)
+    assert ss.bwd_launches == n0 + 1
+    want = ss.selective_scan_bwd_torch(x, dt, A, Bm, C, D, h0, dy, dh)
+    close_grads(got, want, dtype, SCAN_GRADS)
+    again = ss._launch_bwd(x, dt, A, Bm, C, D, h0, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(hT, ss.selective_scan(x, dt, A, Bm, C, D, h0)[1])
+    part = ss._launch_bwd(x, dt, A, Bm, C, D, h0, dy, None, need_A=False,
+                          need_D=False)
+    assert part[2] is None and part[5] is None
+    close_grads(part, ss.selective_scan_bwd_torch(
+        x, dt, A, Bm, C, D, h0, dy, need_A=False, need_D=False), dtype,
+        SCAN_GRADS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_bwd_padded_row_is_bitwise(gen, dtype):
+    """dt = 0 and dy = 0 over a right-padded row's tail: the backward
+    kernel gives the row's valid part the gradients of the row run alone,
+    bit for bit."""
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, 3, 70, 300, 16, dtype,
+                                            "row")
+    dy = randn(gen, 3, 70, 300, dtype=dtype)
+    dh = randn(gen, 3, 300, 16, dtype=torch.float32)
+    lens = [70, 9, 41]
+    dtp, dyp = dt.clone(), dy.clone()
+    for b, n in enumerate(lens):
+        dtp[b, n:] = 0
+        dyp[b, n:] = 0
+    pad = ss._launch_bwd(x, dtp, A, Bm, C, D, h0, dyp, dh)
+    for b, n in enumerate(lens):
+        solo = ss._launch_bwd(
+            x[b:b + 1, :n].contiguous(), dt[b:b + 1, :n].contiguous(), A,
+            Bm[b:b + 1, :n], C[b:b + 1, :n], D, h0[b:b + 1],
+            dy[b:b + 1, :n].contiguous(), dh[b:b + 1].contiguous())
+        for k in (0, 1, 3, 4):
+            assert torch.equal(pad[k][b, :n], solo[k][0]), (b, k)
+        assert torch.equal(pad[6][b], solo[6][0]), b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_autograd_on_the_card(gen, dtype):
+    """The ssm layer's call (B and C views of one leaf, a shared state
+    prompt expanded over the rows) through the autograd Function on the
+    card against autograd through the plain versions."""
+    x, dt, A, _, _, D, s0 = _scan_operands(gen, 2, 40, 96, 16, dtype,
+                                           "shared")
+    xdbc = randn(gen, 2, 40, 5 + 32, dtype=dtype, s=0.5)
+    dy = randn(gen, 2, 40, 96, dtype=dtype)
+
+    def grads(backend):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, xdbc, s0)]
+        xx, dd, xd, h = leaves
+        y, _ = ss.selective_scan(xx, dd, A, xd[..., 5:21], xd[..., 21:], D,
+                                 h[None].expand(2, 96, 16), backend=backend)
+        (y.float() * dy.float()).sum().backward()
+        return [t.grad for t in leaves]
+
+    n0 = ss.bwd_launches
+    got = grads(None)
+    assert ss.bwd_launches == n0 + 1
+    close_grads(got, grads("torch"), dtype, ["dx", "ddt", "dxdbc", "ds0"])
+
+
 def test_selective_scan_refuses_what_it_does_not_take(gen):
     x, dt, A, Bm, C, D, h0 = _scan_operands(gen, 2, 8, 16, 16,
                                             torch.float32, "row")
-    with pytest.raises(RuntimeError, match="no backward"):
-        ss.selective_scan(x.requires_grad_(True), dt, A, Bm, C, D, h0)
-    x = x.detach()
+    # once refused ("no backward"): a gradient now comes from the backward
+    # kernel, as the plain backward gives it
+    xg = x.clone().requires_grad_(True)
+    n0 = (ss.launches, ss.bwd_launches)
+    y, hT = ss.selective_scan(xg, dt, A, Bm, C, D, h0)
+    (y.sum() + hT.sum()).backward()
+    assert (ss.launches, ss.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = ss.selective_scan_bwd_torch(x, dt, A, Bm, C, D, h0,
+                                       torch.ones_like(x),
+                                       torch.ones_like(hT))[0]
+    close_grads([xg.grad], [want], torch.float32, ["dx"])
     with pytest.raises(ValueError, match="state width"):
         wide = randn(gen, 16, 17, dtype=torch.float32)
         ss.selective_scan(x, dt, wide, randn(gen, 2, 8, 17,
@@ -1293,11 +1455,125 @@ def test_rglru_routes_give_the_same_bits(gen, dtype):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+LRU_GRADS = ("dx", "dr", "di", "da_param", "dh0")
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 32, 128), (2, 64, 256), (3, 37, 200),
+                                   (2, 5, 33), (1, 1, 7), (4, 256, 2560),
+                                   (2, 40, 2561)])
+@pytest.mark.parametrize("h0_kind", ["none", "row", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_bwd_kernel(gen, B, S, W, h0_kind, dtype):
+    """The backward kernel against the plain backward (odd S and W, no /
+    per-row / shared h0, S not a multiple of the 32-step checkpoint
+    interval); a second call repeats the bits; the kernel's rerun of the
+    chain ends in the forward kernel's h_final, bit for bit."""
+    x, r, i, a, h0 = _lru_operands(gen, B, S, W, dtype, h0_kind)
+    if h0 is not None and h0.dim() == 1:
+        h0 = h0.expand(B, W)
+    dhs = randn(gen, B, S, W, dtype=dtype)
+    dh = randn(gen, B, W, dtype=torch.float32)
+    hT = torch.empty((B, W), dtype=torch.float32, device="cuda")
+    n0 = rg.bwd_launches
+    got = rg._launch_bwd(x, r, i, a, h0, dhs, dh, h_final_out=hT)
+    assert rg.bwd_launches == n0 + 1
+    want = rg.rglru_bwd_torch(x, r, i, a, h0, dhs, dh)
+    close_grads(got, want, dtype, LRU_GRADS)
+    again = rg._launch_bwd(x, r, i, a, h0, dhs, dh)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    assert torch.equal(hT, rg.rglru(x, r, i, a, h0)[1])
+    part = rg._launch_bwd(x, r, i, a, h0, dhs, None, need_a=False)
+    assert part[3] is None
+    close_grads(part, rg.rglru_bwd_torch(x, r, i, a, h0, dhs, need_a=False),
+                dtype, LRU_GRADS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_bwd_padded_row_is_bitwise(gen, dtype):
+    """r_gate = -1e9 and dhs = 0 over a right-padded row's tail: the
+    backward kernel gives the row's valid part the gradients of the row
+    run alone, bit for bit (dr_gate and da_param are not finite over the
+    padding, as in the reference)."""
+    x, r, i, a, h0 = _lru_operands(gen, 3, 70, 300, dtype, "row")
+    dhs = randn(gen, 3, 70, 300, dtype=dtype)
+    dh = randn(gen, 3, 300, dtype=torch.float32)
+    lens = [70, 9, 41]
+    rp, dhp = r.clone(), dhs.clone()
+    for b, n in enumerate(lens):
+        rp[b, n:] = -1e9
+        dhp[b, n:] = 0
+    pad = rg._launch_bwd(x, rp, i, a, h0, dhp, dh, need_a=False)
+    for b, n in enumerate(lens):
+        solo = rg._launch_bwd(
+            x[b:b + 1, :n].contiguous(), r[b:b + 1, :n].contiguous(),
+            i[b:b + 1, :n].contiguous(), a, h0[b:b + 1],
+            dhs[b:b + 1, :n].contiguous(), dh[b:b + 1].contiguous(),
+            need_a=False)
+        for k in range(3):
+            assert torch.equal(pad[k][b, :n], solo[k][0]), (b, k)
+        assert torch.equal(pad[4][b], solo[4][0]), b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_bwd_saturated_gate(gen, dtype):
+    """r_gate = -1e9 on 10 steps of one row: dr_gate is not finite on
+    exactly those entries and da_param on every channel, in the kernel as
+    in the plain backward; every other entry agrees, and dx, di and dh0
+    stay finite."""
+    x, r, i, a, h0 = _lru_operands(gen, 2, 40, 256, dtype, "row")
+    r = r.clone()
+    r[1, 30:] = -1e9
+    dhs = randn(gen, 2, 40, 256, dtype=dtype)
+    got = rg._launch_bwd(x, r, i, a, h0, dhs)
+    want = rg.rglru_bwd_torch(x, r, i, a, h0, dhs)
+    torch.cuda.synchronize()
+    masked_g, masked_w = [], []
+    for name, g, w in zip(LRU_GRADS, got, want):
+        bad = ~torch.isfinite(w)
+        assert torch.equal(~torch.isfinite(g), bad), name
+        if name == "dr":
+            assert int(bad.sum()) == 10 * 256 and bool(bad[1, 30:].all())
+        elif name == "da_param":
+            assert bool(bad.all())
+        else:
+            assert not bool(bad.any()), name
+        masked_g.append(torch.where(bad, 0, g.float()))
+        masked_w.append(torch.where(bad, 0, w.float()))
+    close_grads(masked_g, masked_w, dtype, LRU_GRADS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_autograd_on_the_card(gen, dtype):
+    """The rglru layer's call (a shared (W,) state prompt) through the
+    autograd Function on the card against autograd through the plain
+    versions."""
+    x, r, i, a, s0 = _lru_operands(gen, 2, 40, 256, dtype, "shared")
+    dhs = randn(gen, 2, 40, 256, dtype=dtype)
+
+    def grads(backend):
+        leaves = [t.clone().requires_grad_(True) for t in (x, r, i, s0)]
+        hs, _ = rg.rglru(*leaves[:3], a, leaves[3], backend=backend)
+        (hs.float() * dhs.float()).sum().backward()
+        return [t.grad for t in leaves]
+
+    n0 = rg.bwd_launches
+    got = grads(None)
+    assert rg.bwd_launches == n0 + 1
+    close_grads(got, grads("torch"), dtype, ["dx", "dr", "di", "ds0"])
+
+
 def test_rglru_refuses_what_it_does_not_take(gen):
     x, r, i, a, h0 = _lru_operands(gen, 2, 8, 16, torch.float32, "row")
-    with pytest.raises(RuntimeError, match="no backward"):
-        rg.rglru(x.requires_grad_(True), r, i, a, h0)
-    x = x.detach()
+    # once refused ("no backward"): a gradient now comes from the backward
+    # kernel, as the plain backward gives it
+    xg = x.clone().requires_grad_(True)
+    n0 = (rg.launches, rg.bwd_launches)
+    hs, hT = rg.rglru(xg, r, i, a, h0)
+    (hs.sum() + hT.sum()).backward()
+    assert (rg.launches, rg.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = rg.rglru_bwd_torch(x, r, i, a, h0, torch.ones_like(x),
+                              torch.ones_like(hT))[0]
+    close_grads([xg.grad], [want], torch.float32, ["dx"])
     with pytest.raises(ValueError, match="float32"):
         rg.rglru(x, r, i, a.bfloat16(), h0)
     with pytest.raises(ValueError, match="do not match"):

@@ -425,11 +425,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                            torch.randn(4, 2, 2, 8),
                            torch.tensor([[0, 3], [2, 4], [1, 1]]),
                            q_pos=torch.tensor([3, 1, 0]))
-    ops.selective_scan(torch.randn(2, 3, 8), torch.rand(2, 3, 8),
+    xs = torch.randn(2, 3, 8, requires_grad=True)
+    ops.selective_scan(xs, torch.rand(2, 3, 8),
                        -torch.rand(8, 4), torch.randn(2, 3, 4),
-                       torch.randn(2, 3, 4), torch.randn(8))
-    ops.rglru(torch.randn(2, 3, 8), torch.randn(2, 3, 8),
-              torch.randn(2, 3, 8), torch.randn(8))
+                       torch.randn(2, 3, 4), torch.randn(8))[0].sum() \
+        .backward()
+    ops.rglru(xs, torch.randn(2, 3, 8),
+              torch.randn(2, 3, 8), torch.randn(8))[0].sum().backward()
     x.requires_grad_(True)
     ops.lora_matmul(x, torch.randn(8, 6), torch.randn(8, 2),
                     torch.randn(2, 6), 1.0).sum().backward()
@@ -437,7 +439,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                    "flash_attention": 0, "flash_decode": 0,
                                    "flash_decode_paged": 0,
                                    "lora_bgmv_rows": 0, "lora_bgmv_seq": 0,
-                                   "selective_scan": 0, "rglru_scan": 0}
+                                   "selective_scan": 0, "rglru_scan": 0,
+                                   "selective_scan_bwd": 0,
+                                   "rglru_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "flash_attention",

@@ -42,6 +42,8 @@ from repro_torch.core import spec_decode as SD
 from repro_torch.core.adapter_bank import AdapterBank
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.data.pipeline import BatchBank
+from repro_torch.data.synthetic import LMStream
 from repro_torch.launch import serve
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import model as M
@@ -163,12 +165,37 @@ def test_rglru_step_matches_jax_and_telescopes():
     np.testing.assert_allclose(h.numpy(), hT.numpy(), atol=1e-5, rtol=1e-5)
 
 
-def test_rglru_refuses_autograd_on_the_card_path():
-    """The kernel has no backward: asked for it on tensors that need a
-    gradient, the wrapper raises before any check of the device."""
-    x, r, i, a, _ = (torch.from_numpy(v) for v in lru_inputs(1, 3, 8))
-    with pytest.raises(RuntimeError, match="no backward"):
-        rg.rglru(x.requires_grad_(True), r, i, a, backend="cuda")
+def test_rglru_refuses_autograd_on_the_card_path(monkeypatch):
+    """Once refused: the card route (``backend="cuda"``) with a tensor
+    that needs a gradient now goes through the autograd Function, whose
+    backward launches the backward kernel (here two stand-ins for the
+    launches, the plain versions, since a CPU has no kernel); a shared
+    (W,) state gets its rows' gradients summed."""
+    calls = []
+
+    def stand_in(fn, name):
+        def launch(*a, **k):
+            calls.append(name)
+            k.pop("h_final_out", None)
+            return fn(*a, **k)
+        return launch
+
+    x, r, i, a, h0 = (torch.from_numpy(v) for v in lru_inputs(2, 3, 8))
+    monkeypatch.setattr(rg, "_launch", stand_in(rg.rglru_torch, "fwd"))
+    monkeypatch.setattr(rg, "_launch_bwd", stand_in(rg.rglru_bwd_torch,
+                                                    "bwd"))
+    xg, s0 = x.clone().requires_grad_(True), h0[0].clone() \
+        .requires_grad_(True)
+    hs, hT = rg.rglru(xg, r, i, a, s0, backend="cuda")
+    assert type(hs.grad_fn).__name__ == "_RGLRUBackward"
+    (hs.sum() + hT.sum()).backward()
+    assert calls == ["fwd", "bwd"]
+    xw, sw = x.clone().requires_grad_(True), h0[0].clone() \
+        .requires_grad_(True)
+    hw, hTw = ref.rglru(xw, r, i, a, sw.expand(2, 8))
+    (hw.sum() + hTw.sum()).backward()
+    torch.testing.assert_close(xg.grad, xw.grad, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s0.grad, sw.grad, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -455,14 +482,30 @@ def test_recurrentgemma_2b_spec_is_the_published_size():
 
 
 def test_hybrid_training_is_not_ported():
-    """An HFSL round or step on a hybrid config names ROADMAP item 6a."""
+    """Once refused: an HFSL round and a step of the hybrid family now run
+    (2 clusters, 2 steps, lm_loss) with finite losses, and the attention
+    layers' LoRA and the recurrent layers' state prompts both move; the
+    round's parity with the reference is in
+    tests/test_torch_scan_train.py."""
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*ssm training: a backward for "
-                             "selective_scan"):
-        hfsl.make_hfsl_round(tcfg, adamw(1e-3), M.lm_loss, steps=1)
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
-        hfsl.make_hfsl_step(tcfg, adamw(1e-3), M.lm_loss)
+    opt = adamw(1e-3)
+    state = hfsl.init_hfsl_state(0, tcfg, 2, opt, M.init, device="cpu")
+    streams = [iter(LMStream(tcfg.vocab_size, 2, 8, seed=i))
+               for i in range(2)]
+    bank = BatchBank.from_iterator(
+        ({k: np.stack([b[k] for b in bs]) for k in bs[0]}
+         for bs in zip(*streams)), 2, device="cpu")
+    out, m = hfsl.make_hfsl_round(tcfg, opt, M.lm_loss, steps=2)(
+        state, bank.arrays, 0)
+    assert np.isfinite(m["loss"].numpy()).all() and int(out["step"]) == 2
+    moved = {p: (a - b).abs().max().item() for p, a, b in zip(
+        [p for p, _ in tree_paths(out["adapters_c"])],
+        tree_leaves(out["adapters_c"]), tree_leaves(state["adapters_c"]))}
+    assert any(v > 0 for p, v in moved.items() if "state0" in p), moved
+    assert any(v > 0 for p, v in moved.items() if "lora" in p), moved
+    _, m = hfsl.make_hfsl_step(tcfg, opt, M.lm_loss)(
+        out, {k: v[0] for k, v in bank.arrays.items()})
+    assert torch.isfinite(m["loss"]).all()
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,8 @@ from repro_torch.core import hfsl
 from repro_torch.core.adapter_bank import AdapterBank
 from repro_torch.core.device import unported
 from repro_torch.core.paged import PagedSpec
-from repro_torch.data.synthetic import ClassificationTask
+from repro_torch.data.pipeline import BatchBank
+from repro_torch.data.synthetic import ClassificationTask, LMStream
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.launch.engine import DecodeEngine
@@ -361,22 +362,58 @@ def test_falcon_mamba_7b_spec_is_the_published_size():
 
 
 def test_ssm_training_is_not_ported():
+    """Once refused: an HFSL round and a step of the ssm family now run
+    (2 clusters, 2 steps, lm_loss) with finite losses; the round's
+    parity with the reference is in tests/test_torch_scan_train.py."""
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*ssm training"):
-        hfsl.make_hfsl_round(tcfg, adamw(1e-3), M.lm_loss, steps=1)
-    with pytest.raises(NotImplementedError, match="ssm training"):
-        hfsl.make_hfsl_step(tcfg, adamw(1e-3), M.lm_loss)
+    opt = adamw(1e-3)
+    state = hfsl.init_hfsl_state(0, tcfg, 2, opt, M.init, device="cpu")
+    streams = [iter(LMStream(tcfg.vocab_size, 2, 8, seed=i))
+               for i in range(2)]
+    bank = BatchBank.from_iterator(
+        ({k: np.stack([b[k] for b in bs]) for k in bs[0]}
+         for bs in zip(*streams)), 2, device="cpu")
+    out, m = hfsl.make_hfsl_round(tcfg, opt, M.lm_loss, steps=2)(
+        state, bank.arrays, 0)
+    assert np.isfinite(m["loss"].numpy()).all() and int(out["step"]) == 2
+    _, m = hfsl.make_hfsl_step(tcfg, opt, M.lm_loss)(
+        out, {k: v[0] for k, v in bank.arrays.items()})
+    assert torch.isfinite(m["loss"]).all()
     assert isinstance(unported("x", "y"), NotImplementedError)
 
 
-def test_scan_refuses_autograd_on_the_card_path():
-    """The kernel has no backward: asked for it on tensors that need a
-    gradient, the wrapper raises before any check of the device."""
-    x, dt, A, Bm, C, D, _ = (torch.from_numpy(a) for a in
-                             scan_inputs(1, 3, 8, 4))
-    with pytest.raises(RuntimeError, match="no backward"):
-        ss.selective_scan(x.requires_grad_(True), dt, A, Bm, C, D,
-                          backend="cuda")
+def test_scan_refuses_autograd_on_the_card_path(monkeypatch):
+    """Once refused: the card route (``backend="cuda"``) with a tensor
+    that needs a gradient now goes through the autograd Function, whose
+    backward launches the backward kernel (here two stand-ins for the
+    launches, the plain versions, since a CPU has no kernel)."""
+    calls = []
+
+    def stand_in(fn, name):
+        def launch(*a, **k):
+            calls.append(name)
+            k.pop("h_final_out", None)
+            return fn(*a, **k)
+        return launch
+
+    x, dt, A, Bm, C, D, h0 = (torch.from_numpy(a) for a in
+                              scan_inputs(1, 3, 8, 4))
+    monkeypatch.setattr(ss, "_launch",
+                        stand_in(ss.selective_scan_torch, "fwd"))
+    monkeypatch.setattr(ss, "_launch_bwd",
+                        stand_in(ss.selective_scan_bwd_torch, "bwd"))
+    xg, s0 = x.clone().requires_grad_(True), h0[0].clone() \
+        .requires_grad_(True)
+    y, hT = ss.selective_scan(xg, dt, A, Bm, C, D, s0, backend="cuda")
+    assert type(y.grad_fn).__name__ == "_SelectiveScanBackward"
+    (y.sum() + hT.sum()).backward()
+    assert calls == ["fwd", "bwd"]
+    xw, sw = x.clone().requires_grad_(True), h0[0].clone() \
+        .requires_grad_(True)
+    yw, hw = ref.selective_scan(xw, dt, A, Bm, C, D, sw[None].expand(1, 8, 4))
+    (yw.sum() + hw.sum()).backward()
+    torch.testing.assert_close(xg.grad, xw.grad, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s0.grad, sw.grad, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
