@@ -14,9 +14,12 @@ Phases, each of which exits nonzero on a failed check:
    ``flash_decode_paged`` libraries every bf16 split-KV tile (head dims
    64, 128, 256 dense; 64, 128 paged) ``HMMA`` (mma.sync) on ``UTMALDG``
    loads, and every f32 tile none of them; the two bf16 tensor-core rank
-   passes of ``lora_matmul_bwd`` must run ``HMMA``, and the three bf16
-   ``selective_scan`` instances and the two bf16 ``rglru_scan`` ones
-   ``MUFU.EX2`` (one instruction an exponential); ptxas's registers and
+   passes of ``lora_matmul_bwd`` must run ``HMMA``, and the six bf16
+   ``selective_scan`` instances and the four bf16 ``rglru_scan`` ones
+   (with and without the checkpoint stores) ``MUFU.EX2`` (one
+   instruction an exponential); each bf16 instance of the two backward
+   kernels holds the ``MUFU.EX2`` count of its design
+   (``mufu_design``); ptxas's registers and
    spills of every kernel (each ``rglru_scan`` plan among them) are
    printed;
 3. kernels: at the main path's shapes, each kernel against its plain
@@ -179,8 +182,10 @@ Phases, each of which exits nonzero on a failed check:
    B 4, S 256, Di 8192, N 16; recurrentgemma B 4, S 256, W 2560; bf16 and
    f32; h0 per row, shared, none) and an odd shape (S 37, Di / W 200):
    every gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest value,
-   the bits repeated by a second call, the kernel's rerun of the forward
-   ending in the forward kernel's h_final bit for bit; a ragged row's
+   fed the forward kernel's checkpoints (the forward's y / h_final bits
+   the same with and without storing them, and its time both ways), the
+   bits repeated by a second call, the kernel's recompute of the last
+   chunk ending in the forward kernel's h_final bit for bit; a ragged row's
    gradients bit for bit the solo row's; the RG-LRU's saturated gate
    (r = -1e9): dr_gate and da_param non-finite exactly where the plain
    backward's are, everything else within tolerance; the autograd
@@ -442,12 +447,13 @@ def sass_check(build) -> dict:
 # per library: kernels (by a piece of their name) whose SASS must hold an
 # instruction: the bf16 rank pass of lora_matmul_bwd runs on the tensor
 # cores (HMMA, r <= 8 and r <= 16 instances), and the bf16 selective scan
-# and RG-LRU (4- and 16-warp plans) take each exponential as one MUFU.EX2
+# (3 state widths) and RG-LRU (4- and 16-warp plans), each with and
+# without its checkpoint stores, take each exponential as one MUFU.EX2
 SASS_NEEDS = {
     "lora_matmul_bwd": ("lora_bwd_ug_mma_kernel", 2, "HMMA"),
-    "selective_scan": ("selective_scan_kernelI13__nv_bfloat16", 3,
+    "selective_scan": ("selective_scan_kernelI13__nv_bfloat16", 6,
                        "MUFU.EX2"),
-    "rglru_scan": ("rglru_scan_kernelI13__nv_bfloat16", 2, "MUFU.EX2")}
+    "rglru_scan": ("rglru_scan_kernelI13__nv_bfloat16", 4, "MUFU.EX2")}
 
 
 def sass_needs(build) -> dict:
@@ -464,6 +470,48 @@ def sass_needs(build) -> dict:
                      "per_kernel": list(has.values())}
         log(f"sass {name}: {len(has)} {piece} kernel(s), each with {op} "
             f"({min(has.values())}-{max(has.values())} a kernel)")
+    return rec
+
+
+def mufu_design(name: str, fn: str) -> int:
+    """The MUFU.EX2 a bf16 backward kernel's SASS holds by design. The
+    selective scan: per state of a thread (NM / 4 of them, NM the
+    instance's state width in the name, 16 for the generic one) one for
+    each of a chunk's 16 steps in the recompute and one for each in the
+    reverse walk but its first, whose exponential is the recompute's
+    last, still in a register (ptxas reuses it). The RG-LRU: 3 per gate
+    element (two sigmoids and a_t) over its steps of a chunk of 32 (32 /
+    NW, NW the warps in the name), and one in each of the two precise
+    expf of a_param's softplus and sigmoid(-a_param)."""
+    m = re.search(r"Li(\d+)E", fn)
+    if name == "selective_scan_bwd":
+        nm = int(m.group(1)) or 16 if m else 16
+        return (2 * 16 - 1) * (nm // 4)
+    return 3 * (32 // int(m.group(1))) + 2
+
+
+# the backward kernels whose bf16 instances must hold mufu_design's count
+MUFU_DESIGN = {
+    "selective_scan_bwd": "selective_scan_bwd_kernelI13__nv_bfloat16",
+    "rglru_scan_bwd": "rglru_scan_bwd_kernelI13__nv_bfloat16"}
+
+
+def sass_mufu(build) -> dict:
+    """Phase 2, the backward kernels: each bf16 instance holds the
+    MUFU.EX2 count of its design (so no exponential is taken more often
+    than the design says, and none is kept where it is to be taken
+    again)."""
+    rec = {}
+    for name, piece in MUFU_DESIGN.items():
+        has = {f: c["MUFU.EX2"]
+               for f, c in sass_functions(build, name, ("MUFU.EX2",)).items()
+               if piece in f}
+        want = {f: mufu_design(name, f) for f in has}
+        check(has and has == want, f"{name}: MUFU.EX2 per kernel {has}, "
+              f"by design {want}")
+        rec[name] = {"kernels": len(has), "per_kernel": sorted(has.values())}
+        log(f"sass {name}: {len(has)} bf16 kernel(s), MUFU.EX2 "
+            f"{sorted(has.values())} as designed")
     return rec
 
 
@@ -2856,13 +2904,27 @@ def timed(c: dict, timer: Timer, kernel: str, fn, plain, terms: dict,
              **{f"{k}_ms": v for k, v in terms.items()})
 
 
+def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd) -> None:
+    """The forward kernel at a backward case's shape, without and with its
+    checkpoint output (events ms and device microseconds), into case
+    ``c``: what storing the checkpoints costs a training forward."""
+    from scripts.time_lora_kernels import device_us
+    for key, fn in (("fwd", plain_fwd), ("fwd_ck", ck_fwd)):
+        dev = device_us(fn, timer.flush)
+        c[f"{key}_ms"] = timer(fn)
+        c[f"{key}_device_us"] = sum(v for k, v in dev.items()
+                                    if kernel in k) or None
+
+
 def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
     """Phase 25: the two backward kernels against their plain versions at
     the HFSL rounds' shapes (falcon-mamba-7b: B 4, S 256, Di 8192, N 16;
     recurrentgemma-2b: B 4, S 256, W 2560), bf16 and f32, h0 per row /
-    shared / None; an odd shape; bits repeated by a second call; the
-    kernels' rerun of the forward ending in the forward kernel's h_final
-    bit for bit; a ragged row's gradients bit for bit the solo row's; the
+    shared / None, fed the forward kernel's checkpoints (the forward's
+    bits the same with and without them, and its time both ways); an
+    odd shape; bits repeated by a second call; the kernels' recompute of
+    the last chunk ending in the forward kernel's h_final bit for bit; a
+    ragged row's gradients bit for bit the solo row's; the
     RG-LRU's saturated gate; the autograd Functions on the card against
     autograd through the plain versions (into ``cases``). Returns the
     record of the checks that are not cases."""
@@ -2915,27 +2977,37 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                  f"{str(dtype)[6:]}" + ("" if full else
                                         ", no dh_final, dA/dD not asked"))
         hT = torch.empty((B, D_, N), dtype=torch.float32, device="cuda")
-        got = ss._launch_bwd(*args, dy, dh, h_final_out=hT, **kw)
+        # the checkpoints from the forward kernel, as autograd keeps them;
+        # the forward's y and h_final keep their bits with the stores
+        ck = ss.checkpoints(args[0], args[2])
+        y_ck, hf_ck = ss._launch(*args, ck=ck)
+        y, hf = ss._launch(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(y_ck, y) and torch.equal(hf_ck, hf),
+              f"selective_scan {label}: the forward with its checkpoint "
+              "output gave other bits")
+        got = ss._launch_bwd(*args, dy, dh, h_final_out=hT, ck=ck, **kw)
         want = ss.selective_scan_bwd_torch(*args, dy, dh, **kw)
         errs = grads_close(f"selective_scan_bwd {label}", got, want, dtype,
                            SCAN_GRADS)
-        again = ss._launch_bwd(*args, dy, dh, **kw)
+        again = ss._launch_bwd(*args, dy, dh, ck=ck, **kw)
         torch.cuda.synchronize()
         check(all(a is None and b is None or torch.equal(a, b)
                   for a, b in zip(got, again)),
               f"selective_scan_bwd {label}: a second call gave other bits")
-        _, hf = ss.selective_scan(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(hT, hf), f"selective_scan_bwd {label}: the rerun "
-              f"ended {(hT - hf).abs().max().item()} from the forward "
-              "kernel's h_final")
+        check(torch.equal(hT, hf), f"selective_scan_bwd {label}: the "
+              f"recompute of the last chunk ended "
+              f"{(hT - hf).abs().max().item()} from the forward kernel's "
+              "h_final")
         c = dict(shape=label + ", B and C strided views",
                  max_abs_err=max(errs.values()), errs=errs,
                  tol=GRAD_TOL[dtype], tol_of="each output's largest value",
-                 bits_repeat=True,
+                 bits_repeat=True, fwd_ck_bits_unchanged=True,
                  rerun_h_final_bit_equal=True,
-                 path="the forward's blocks; checkpoints every 16 steps, "
-                      "each chunk's states recomputed into shared memory")
+                 path="the forward's blocks fed the forward kernel's "
+                      "checkpoints (every 16 steps); a cp.async ring in "
+                      "reverse; each chunk's states recomputed into "
+                      "registers, then walked back")
         if timed_:
             elt = args[0].element_size()
             n, n_h = B * S * D_, B * D_ * N
@@ -2946,13 +3018,18 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
             # h dA, (dt x) B, the add) and the reverse step (g += dy C, g
             # B, the ddt term, the dB and dC terms, g dA)
             flops = 18 * exps
+            # ms: the whole _launch_bwd call (outputs allocated, the
+            # kernel, dB / dC summed over the blocks, casts)
             timed(c, timer, "selective_scan_bwd_kernel",
-                  lambda: ss._launch_bwd(*args, dy, **kw),
+                  lambda: ss._launch_bwd(*args, dy, ck=ck, **kw),
                   lambda: ss.selective_scan_bwd_torch(*args, dy, **kw),
                   dict(bytes=nbytes / PEAK_BYTES * 1e3,
                        exp=exps / PEAK_EXP * 1e3,
                        flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
                   dict(bytes="bytes", exp="operations", flops="operations"))
+            fwd_times(c, timer, "selective_scan_kernel",
+                      lambda: ss._launch(*args),
+                      lambda: ss._launch(*args, ck=ck))
         cases["selective_scan_bwd"].append(c)
         log(f"kernel selective_scan_bwd {c}")
 
@@ -2997,27 +3074,38 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
         label = (f"B={B} S={S} W={W_} h0 {h0_kind} {str(dtype)[6:]}"
                  + ("" if full else ", no dh_final, da_param not asked"))
         hT = torch.empty((B, W_), dtype=torch.float32, device="cuda")
-        got = rg._launch_bwd(*args, dhs, dh, need_a=full, h_final_out=hT)
+        # the checkpoints from the forward kernel, as autograd keeps them;
+        # the forward's h_seq and h_final keep their bits with the stores
+        ck = rg.checkpoints(args[0])
+        hs_ck, hf_ck = rg._launch(*args, 8.0, ck=ck)
+        hs_, hf = rg._launch(*args, 8.0)
+        torch.cuda.synchronize()
+        check(torch.equal(hs_ck, hs_) and torch.equal(hf_ck, hf),
+              f"rglru_scan {label}: the forward with its checkpoint output "
+              "gave other bits")
+        got = rg._launch_bwd(*args, dhs, dh, need_a=full, h_final_out=hT,
+                             ck=ck)
         want = rg.rglru_bwd_torch(*args, dhs, dh, need_a=full)
         errs = grads_close(f"rglru_scan_bwd {label}", got, want, dtype,
                            LRU_GRADS)
-        again = rg._launch_bwd(*args, dhs, dh, need_a=full)
+        again = rg._launch_bwd(*args, dhs, dh, need_a=full, ck=ck)
         torch.cuda.synchronize()
         check(all(a is None and b is None or torch.equal(a, b)
                   for a, b in zip(got, again)),
               f"rglru_scan_bwd {label}: a second call gave other bits")
-        _, hf = rg.rglru(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(hT, hf), f"rglru_scan_bwd {label}: the rerun "
-              f"ended {(hT - hf).abs().max().item()} from the forward "
-              "kernel's h_final")
+        check(torch.equal(hT, hf), f"rglru_scan_bwd {label}: the "
+              f"recompute of the last chunk ended "
+              f"{(hT - hf).abs().max().item()} from the forward kernel's "
+              "h_final")
         c = dict(shape=label, max_abs_err=max(errs.values()), errs=errs,
                  tol=GRAD_TOL[dtype], tol_of="each output's largest value",
-                 bits_repeat=True,
-                 rerun_h_final_bit_equal=True,
-                 path="one thread a chain, 32 channels a block; "
-                      "checkpoints every 32 steps, each chunk's states "
-                      "recomputed into shared memory")
+                 bits_repeat=True, fwd_ck_bits_unchanged=True,
+                 rerun_h_final_bit_equal=True, plan=rg.last_bwd_plan,
+                 path="32 channels of one row a block, chunks of 32 steps "
+                      "in reverse fed the forward kernel's checkpoints: "
+                      "a cp.async ring, the gates by all warps, the h and "
+                      "g chains on two warps, the gradients by all warps "
+                      "in 16-byte vectors")
         if timed_:
             n = B * S * W_
             elt = args[0].element_size()
@@ -3030,13 +3118,18 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
             # per element on the f32 cores: the gates (8), the chain (2),
             # the reverse step (g += dhs, g s, dx, di, da, dr, g a: 16)
             flops = 26 * n
+            # ms: the whole _launch_bwd call (outputs allocated, the
+            # kernel, the rows' da_param partials summed when asked)
             timed(c, timer, "rglru_scan_bwd_kernel",
-                  lambda: rg._launch_bwd(*args, dhs, need_a=False),
+                  lambda: rg._launch_bwd(*args, dhs, need_a=False, ck=ck),
                   lambda: rg.rglru_bwd_torch(*args, dhs, need_a=False),
                   dict(bytes=nbytes / PEAK_BYTES * 1e3,
                        mufu=mufu / PEAK_EXP * 1e3,
                        flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
                   dict(bytes="bytes", mufu="operations", flops="operations"))
+            fwd_times(c, timer, "rglru_scan_kernel",
+                      lambda: rg._launch(*args, 8.0),
+                      lambda: rg._launch(*args, 8.0, ck=ck))
         cases["rglru_scan_bwd"].append(c)
         log(f"kernel rglru_scan_bwd {c}")
 
@@ -3314,7 +3407,8 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name} {entry}: {line.strip()}")
 
     rec = {"gpu": smi, "kind": kind, "clocks": clocks, "build_s": build_s,
-           "sass": sass_check(_build), "sass_needs": sass_needs(_build)}
+           "sass": sass_check(_build), "sass_needs": sass_needs(_build),
+           "sass_mufu": sass_mufu(_build)}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
     cases = kernel_cases(gen, timer)

@@ -3,16 +3,20 @@
 GPU, through that tree's own ``chip_smoke.py``.
 
     PYTHONPATH=<tree>/src python3 scripts/time_drains.py --tree <tree> \\
-        [--label NAME] [--seed 0] [--paths main,mamba,hybrid,train]
+        [--label NAME] [--seed 0] \\
+        [--paths main,mamba,hybrid,train,scantrain]
 
 Runs the tree's ``main_path`` (phases 4, 5, 13 and 19: qwen2-7b at its
 published size single-tenant, from a 4-domain bank, paged from the bank,
 speculative), ``mamba_path`` (phase 17: falcon-mamba-7b single-tenant and
 from a bank), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
-and from a bank) and ``train_phases`` (phases 9 to 11: the HFSL rounds),
-or those of them ``--paths`` names, checks included, and prints the card's name and power limit, then one
-JSON line with each drain's tok/s, TTFT p50 / p99 and per-token
-latency p50, and each round's seconds a step. The tree's kernels are built before the first drain, so
+and from a bank), ``train_phases`` (phases 9 to 11: the HFSL rounds) and
+``scan_train_phases`` (phases 26 and 27: the falcon-mamba-7b and
+recurrentgemma-2b HFSL rounds; only with ``--paths scantrain``), or those
+of them ``--paths`` names, checks included, and prints the card's name
+and power limit, then one JSON line with each drain's tok/s, TTFT p50 /
+p99 and per-token latency p50, and each round's seconds a step (the
+scan families' also examples a second and peak memory). The tree's kernels are built before the first drain, so
 that no drain waits for ``nvcc``. These drains are host-bound, and their
 numbers spread between calls to the card, so compare two trees only
 within one call: run this once per tree, alternating trees (parent,
@@ -31,7 +35,7 @@ from pathlib import Path
 import torch
 
 KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "tok_latency_p50_s",
-        "step_s")
+        "step_s", "examples_per_s", "peak_mem_gib")
 
 
 def numbers(rec: dict) -> dict:
@@ -50,7 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", default="main,mamba,hybrid,train",
-                    help="comma-separated: main, mamba, hybrid, train")
+                    help="comma-separated: main, mamba, hybrid, train, "
+                         "scantrain")
     args = ap.parse_args(argv)
     paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
@@ -84,6 +89,9 @@ def main(argv=None) -> int:
         train = smoke.train_phases(args.seed)
         out["train"] = {k: numbers(v) for k, v in train.items()
                         if isinstance(v, dict) and "step_s" in v}
+    if "scantrain" in paths:
+        out["scantrain"] = {k: numbers(v) for k, v in
+                            smoke.scan_train_phases(args.seed).items()}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -2,14 +2,20 @@
 """Time the port's scan kernels of one source tree on the GPU.
 
     PYTHONPATH=<tree>/src python3 scripts/time_scan_kernels.py \\
-        [--label NAME] [--reps 41]
+        [--label NAME] [--reps 41] [--only PIECE[,PIECE...]]
 
 Times ``selective_scan`` at falcon-mamba-7b's prefill shape (B 8, S 512,
 d_inner 8192, N 16, an initial state per row, B and C as strided views of
 the x_proj output) in bf16 and f32, and at a one-row refill (B 1, S 512,
 bf16); and ``rglru_scan`` at recurrentgemma-2b's (B 8, S 512, W 2560, an
 initial state per row) in bf16 and f32, and at a one-row refill (B 1, S
-512, bf16). Each with ``chip_smoke.Timer`` (median of CUDA-event
+512, bf16). The training calls of the HFSL rounds (B 4, S 256, bf16):
+each scan's forward without and with its checkpoint output, and its
+backward kernel as ``_launch_bwd`` is called (no dh_final, the frozen
+parameters' gradients not asked), fed the forward kernel's checkpoints
+where the tree's forward stores them (a tree whose backward reruns the
+forward takes no checkpoints). ``--only`` keeps the cases whose name
+holds one of the pieces. Each with ``chip_smoke.Timer`` (median of CUDA-event
 timings, L2 flushed before each launch) on inputs drawn from a fixed
 seed, so that runs of two trees see the same inputs; then each call's
 device time (``torch.profiler`` over 10 calls, L2 flushed before each,
@@ -21,6 +27,7 @@ JSON line. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -37,6 +44,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=41)
+    ap.add_argument("--only", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_scan_kernels: needs a CUDA device", file=sys.stderr)
@@ -84,6 +92,33 @@ def main(argv=None) -> int:
             rg.rglru, *lru_args(8, 512, dtype))
     cases["rglru_scan_B1_S512_bfloat16"] = partial(
         rg.rglru, *lru_args(1, 512, torch.bfloat16))
+
+    # the training calls; a tree whose forwards store checkpoints feeds
+    # them to its backwards, as autograd does
+    def train_cases(name, fwd, fargs, bwd, bargs, make_ck, **kw):
+        cases[f"{name}_fwd_B4_S256_bfloat16"] = partial(fwd, *fargs)
+        if "ck" in inspect.signature(fwd).parameters:
+            ck = make_ck()
+            fwd(*fargs, ck=ck)
+            cases[f"{name}_fwd_ck_B4_S256_bfloat16"] = partial(fwd, *fargs,
+                                                               ck=ck)
+            kw["ck"] = ck
+        cases[f"{name}_bwd_B4_S256_bfloat16"] = partial(bwd, *bargs, **kw)
+
+    sargs = scan_args(4, 256, torch.bfloat16)
+    train_cases("selective_scan", ss._launch, sargs, ss._launch_bwd,
+                (*sargs, rn(4, 256, Di).to(torch.bfloat16)),
+                lambda: ss.checkpoints(sargs[0], sargs[2]), need_A=False,
+                need_D=False)
+    x, r, i, a, _ = lru_args(4, 256, torch.bfloat16)
+    largs = (x, r, i, a, rn(W, s=0.1).expand(4, W))     # a shared state
+    train_cases("rglru_scan", rg._launch, (*largs, 8.0), rg._launch_bwd,
+                (*largs, rn(4, 256, W).to(torch.bfloat16)),
+                lambda: rg.checkpoints(x), need_a=False)
+    if args.only:
+        keep = args.only.split(",")
+        cases = {k: v for k, v in cases.items()
+                 if any(piece in k for piece in keep)}
     out = {"label": args.label, "source": ss.__file__, "device_us": {}}
     for name, fn in cases.items():
         out[f"{name}_ms"] = timer(fn)

@@ -41,6 +41,23 @@ __device__ __forceinline__ float ex2_approx(float v) {
   return r;
 }
 
+// ex2_approx taken anew where it is written: the compiler may not reuse
+// an earlier result for the same input, and so keep it in a register
+__device__ __forceinline__ float ex2_approx_anew(float v) {
+  float r;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// One state's step of the selective scan, h e + (dt x) B, with e = exp(dt
+// A): the forward kernel and the backward's recompute of its states take
+// it alike (one rounded product, then one fused multiply-add), so the
+// recompute ends in the forward's states bit for bit.
+__device__ __forceinline__ float ssm_step(float h, float e, float dtx,
+                                          float b) {
+  return __fmaf_rn(h, e, __fmul_rn(dtx, b));
+}
+
 // 1 / v and sqrt(v) through the special-function unit (MUFU.RCP,
 // MUFU.SQRT; subnormals flushed): rcp_approx(inf) = 0, rcp_approx(0) = inf
 __device__ __forceinline__ float rcp_approx(float v) {

@@ -55,6 +55,13 @@
 //     tile j - 1's h and compute tile j + 1's gates (a and u, and the h
 //     staging, are double-buffered).
 //
+// (e) training: with a checkpoint buffer (B, ceil(S / 32), W) f32 the
+//     chain warp also stores the state before every 32 steps (at the start
+//     of a tile: every tile in bf16, every other one in f32), which the
+//     backward (csrc/rglru_scan_bwd.cu) recomputes each chunk's states
+//     from; a separate instance (CK) does so, and serving's (no buffer) is
+//     the kernel without the stores.
+//
 // A padded column (r = -1e9: sigmoid 1 / inf = 0, a_t = 2^0 = 1, u_t = 0)
 // multiplies by exactly 1 and adds exactly 0, so a padded row ends in its
 // solo state bit for bit. Any S and any W are taken (the last channel
@@ -66,6 +73,7 @@ namespace {
 
 constexpr int CB = 32;      // channels a block, one a lane of the chain
 constexpr int GRP = 8;      // chain steps whose operands are read together
+constexpr int CK_STEPS = 32;  // steps between the checkpoints
 
 template <typename T, int ST>
 struct Smem {
@@ -82,13 +90,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 // the gates' special functions (rcp_approx, sqrt_approx, sigmoid_f,
 // softplus_f) are in common.cuh, shared with the backward
 
-template <typename T, int NW, int AHEAD>
+// CK: store the state before every CK_STEPS steps into ck (B, ceil(S /
+// CK_STEPS), W)
+template <typename T, int NW, int AHEAD, bool CK>
 __global__ void __launch_bounds__(NW * 32)
 rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ r,
                   const T* __restrict__ ig, const float* __restrict__ a_param,
                   const float* __restrict__ h0, T* __restrict__ hs,
-                  float* __restrict__ hT, int S, int W, long long h0_sb,
-                  float c, bool wide) {
+                  float* __restrict__ hT, float* __restrict__ ck, int S,
+                  int W, long long h0_sb, float c, bool wide) {
   constexpr int NT = NW * 32, ST = AHEAD + 1;
   using Sm = Smem<T, ST>;
   constexpr int TS = Sm::TS;
@@ -155,6 +165,11 @@ rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ r,
   auto chain = [&](int j) {
     const int buf = j & 1;
     float h = sm.h[lane];
+    if constexpr (CK) {
+      if (j * TS % CK_STEPS == 0 && live)
+        ck[((size_t)b * ((S + CK_STEPS - 1) / CK_STEPS) + j * TS / CK_STEPS)
+           * W + w] = h;
+    }
     float an[GRP], un[GRP];
 #pragma unroll
     for (int k = 0; k < GRP; ++k) {
@@ -229,32 +244,34 @@ rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ r,
 template <typename T, int NW, int AHEAD>
 cudaError_t launch(const void* x, const void* r, const void* ig,
                    const float* a_param, const float* h0, void* hs,
-                   float* hT, int batch, int S, int W, long long h0_sb,
-                   float c, bool wide, cudaStream_t stream) {
+                   float* hT, float* ck, int batch, int S, int W,
+                   long long h0_sb, float c, bool wide, cudaStream_t stream) {
   static_assert(sizeof(Smem<T, AHEAD + 1>) <= 48 * 1024,
                 "static shared memory");
   dim3 grid((W + CB - 1) / CB, batch);
-  rglru_scan_kernel<T, NW, AHEAD><<<grid, NW * 32, 0, stream>>>(
+  auto kernel = ck != nullptr ? rglru_scan_kernel<T, NW, AHEAD, true>
+                              : rglru_scan_kernel<T, NW, AHEAD, false>;
+  kernel<<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(ig), a_param, h0, static_cast<T*>(hs), hT, S, W,
-      h0_sb, c, wide);
+      static_cast<const T*>(ig), a_param, h0, static_cast<T*>(hs), hT, ck, S,
+      W, h0_sb, c, wide);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_plan(const void* x, const void* r, const void* ig,
                         const float* a_param, const float* h0, void* hs,
-                        float* hT, int batch, int S, int W, long long h0_sb,
-                        float c, int warps, int ahead, bool wide,
-                        cudaStream_t st) {
+                        float* hT, float* ck, int batch, int S, int W,
+                        long long h0_sb, float c, int warps, int ahead,
+                        bool wide, cudaStream_t st) {
   if (wide && !(W * sizeof(T) % 16 == 0 && aligned16(x) && aligned16(r) &&
                 aligned16(ig) && aligned16(hs)))
     return cudaErrorMisalignedAddress;
   if (warps == 4 && ahead == 2)
-    return launch<T, 4, 2>(x, r, ig, a_param, h0, hs, hT, batch, S, W,
+    return launch<T, 4, 2>(x, r, ig, a_param, h0, hs, hT, ck, batch, S, W,
                            h0_sb, c, wide, st);
   if (warps == 16 && ahead == 3)
-    return launch<T, 16, 3>(x, r, ig, a_param, h0, hs, hT, batch, S, W,
+    return launch<T, 16, 3>(x, r, ig, a_param, h0, hs, hT, ck, batch, S, W,
                             h0_sb, c, wide, st);
   return cudaErrorInvalidValue;
 }
@@ -263,12 +280,14 @@ cudaError_t launch_plan(const void* x, const void* r, const void* ig,
 
 // x, r, ig (batch, S, W) contiguous in one dtype; a_param (W,) f32; h0 f32
 // W-contiguous at batch stride h0_sb, or null; hs (batch, S, W) in x's
-// dtype, hT (batch, W) f32; warps, ahead and the route (wide: cp.async,
-// else element loads) from rglru_scan.plan.
+// dtype, hT (batch, W) f32; ck (batch, ceil(S / 32), W) f32, the state
+// before every 32 steps, or null (not stored); warps, ahead and the route
+// (wide: cp.async, else element loads) from rglru_scan.plan.
 extern "C" int rglru_scan_launch(const void* x, const void* r,
                                  const void* ig, const void* a_param,
                                  const void* h0, void* hs, void* hT,
-                                 int batch, int S, int W, long long h0_sb,
+                                 void* ck, int batch, int S, int W,
+                                 long long h0_sb,
                                  float c, int warps, int ahead, int wide,
                                  int dtype, void* stream) {
   if (batch == 0 || W == 0) return cudaSuccess;
@@ -276,13 +295,14 @@ extern "C" int rglru_scan_launch(const void* x, const void* r,
   const float* af = static_cast<const float*>(a_param);
   const float* h0f = static_cast<const float*>(h0);
   float* hTf = static_cast<float*>(hT);
+  float* ckf = static_cast<float*>(ck);
   if (dtype == DT_F32)
-    return launch_plan<float>(x, r, ig, af, h0f, hs, hTf, batch, S, W,
+    return launch_plan<float>(x, r, ig, af, h0f, hs, hTf, ckf, batch, S, W,
                               h0_sb, c, warps, ahead, wide != 0, st);
   if (dtype == DT_BF16)
-    return launch_plan<__nv_bfloat16>(x, r, ig, af, h0f, hs, hTf, batch, S,
-                                      W, h0_sb, c, warps, ahead, wide != 0,
-                                      st);
+    return launch_plan<__nv_bfloat16>(x, r, ig, af, h0f, hs, hTf, ckf, batch,
+                                      S, W, h0_sb, c, warps, ahead,
+                                      wide != 0, st);
   return cudaErrorInvalidValue;
 }
 

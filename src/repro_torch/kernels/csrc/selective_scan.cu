@@ -48,6 +48,13 @@
 // steps took 0.197, and x and dt fetched one tile ahead into registers
 // left ~0.05 of the loads exposed.
 //
+// (d) training: with a checkpoint buffer (B, ceil(S / TS), N, Di) f32 the
+//     kernel also stores, at each tile boundary, the state before the tile
+//     (from registers, one store a state), which the backward
+//     (csrc/selective_scan_bwd.cu) recomputes each tile's states from; a
+//     separate instance (CK) does so, and serving's (no buffer) is the
+//     kernel without the stores.
+//
 // The step order is the TPU kernel's: h = h dA + (dt x) B in time order,
 // so a step with dt = 0 (a padded column of a ragged wave) multiplies the
 // state by exactly 1 and adds 0: the state passes through bit for bit.
@@ -69,15 +76,17 @@ constexpr int ST = 4;               // stages of the shared-memory ring
 constexpr int NMAX = 16;            // largest state width
 constexpr float LOG2E = 1.4426950408889634f;
 
-// NC > 0: the state width is the compile-time NC; NC == 0: n_rt <= NMAX
-template <typename T, int NC>
+// NC > 0: the state width is the compile-time NC; NC == 0: n_rt <= NMAX.
+// CK: store the state before each tile into ck (B, ceil(S / TS), N, Di).
+template <typename T, int NC, bool CK>
 __global__ void __launch_bounds__(NT, 4)
 selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                       const float* __restrict__ A, const T* __restrict__ Bm,
                       const T* __restrict__ Cm, const float* __restrict__ D,
                       const float* __restrict__ h0, T* __restrict__ y,
-                      float* __restrict__ hT, int S, int Di, int n_rt,
-                      long long bc_sb, long long bc_st, long long h0_sb) {
+                      float* __restrict__ hT, float* __restrict__ ck, int S,
+                      int Di, int n_rt, long long bc_sb, long long bc_st,
+                      long long h0_sb) {
   constexpr int NM = NC > 0 ? NC : NMAX;
   constexpr int NPL = NM / LPC;               // states a warp
   constexpr int VEC = 16 / (int)sizeof(T);    // elements a 16-byte chunk
@@ -173,6 +182,15 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     else
       cp_async_commit();
     if (i > 0) emit((i - 1) & 1, (i + ST - 1) % ST, t0 - TS);
+    if constexpr (CK) {
+      if (live) {
+        const int nck = (S + TS - 1) / TS;
+        float* ckt = ck + ((size_t)b * nck + i) * N * Di + c;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j)
+          if (q * NPL + j < N) ckt[(size_t)(q * NPL + j) * Di] = h[j];
+      }
+    }
     // this warp's B and C of the tile, as f32
     for (int e = lane; e < 2 * TS * NPL; e += 32) {
       const int which = e / (TS * NPL), tt = e / NPL % TS, j = e % NPL;
@@ -222,8 +240,7 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < NPL; ++j) {
-        const float dA = ex2_approx(dv * a2[j]);
-        h[j] = h[j] * dA + dtx * bt[j];
+        h[j] = ssm_step(h[j], ex2_approx(dv * a2[j]), dtx, bt[j]);
         acc += h[j] * ct[j];
       }
       pb[tt * CB] = acc;
@@ -248,30 +265,32 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 template <typename T, int NC>
 cudaError_t launch_n(const void* x, const void* dt, const float* A,
                      const void* Bm, const void* Cm, const float* D,
-                     const float* h0, void* y, float* hT, int batch, int S,
-                     int Di, int N, long long bc_sb, long long bc_st,
-                     long long h0_sb, cudaStream_t stream) {
+                     const float* h0, void* y, float* hT, float* ck,
+                     int batch, int S, int Di, int N, long long bc_sb,
+                     long long bc_st, long long h0_sb, cudaStream_t stream) {
   dim3 grid((Di + CB - 1) / CB, batch);
-  selective_scan_kernel<T, NC><<<grid, NT, 0, stream>>>(
+  auto kernel = ck != nullptr ? selective_scan_kernel<T, NC, true>
+                              : selective_scan_kernel<T, NC, false>;
+  kernel<<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), A,
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), D, h0,
-      static_cast<T*>(y), hT, S, Di, N, bc_sb, bc_st, h0_sb);
+      static_cast<T*>(y), hT, ck, S, Di, N, bc_sb, bc_st, h0_sb);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const float* A,
                    const void* Bm, const void* Cm, const float* D,
-                   const float* h0, void* y, float* hT, int batch, int S,
-                   int Di, int N, long long bc_sb, long long bc_st,
+                   const float* h0, void* y, float* hT, float* ck, int batch,
+                   int S, int Di, int N, long long bc_sb, long long bc_st,
                    long long h0_sb, cudaStream_t st) {
   if (N == 16)
-    return launch_n<T, 16>(x, dt, A, Bm, Cm, D, h0, y, hT, batch, S, Di, N,
-                           bc_sb, bc_st, h0_sb, st);
+    return launch_n<T, 16>(x, dt, A, Bm, Cm, D, h0, y, hT, ck, batch, S, Di,
+                           N, bc_sb, bc_st, h0_sb, st);
   if (N == 8)
-    return launch_n<T, 8>(x, dt, A, Bm, Cm, D, h0, y, hT, batch, S, Di, N,
-                          bc_sb, bc_st, h0_sb, st);
-  return launch_n<T, 0>(x, dt, A, Bm, Cm, D, h0, y, hT, batch, S, Di, N,
+    return launch_n<T, 8>(x, dt, A, Bm, Cm, D, h0, y, hT, ck, batch, S, Di,
+                          N, bc_sb, bc_st, h0_sb, st);
+  return launch_n<T, 0>(x, dt, A, Bm, Cm, D, h0, y, hT, ck, batch, S, Di, N,
                         bc_sb, bc_st, h0_sb, st);
 }
 
@@ -280,13 +299,15 @@ cudaError_t launch(const void* x, const void* dt, const float* A,
 // x, dt (batch, S, Di) contiguous in one dtype; A (Di, N), D (Di,) f32
 // contiguous; Bm, Cm in x's dtype with element (b, t, n) at
 // b * bc_sb + t * bc_st + n; h0 f32 (Di, N)-contiguous at batch stride
-// h0_sb, or null; y (batch, S, Di) in x's dtype, hT (batch, Di, N) f32.
-// 1 <= N <= 16.
+// h0_sb, or null; y (batch, S, Di) in x's dtype, hT (batch, Di, N) f32;
+// ck (batch, ceil(S / 16), N, Di) f32, the state before every 16 steps,
+// or null (not stored). 1 <= N <= 16.
 extern "C" int selective_scan_launch(const void* x, const void* dt,
                                      const void* A, const void* Bm,
                                      const void* Cm, const void* D,
                                      const void* h0, void* y, void* hT,
-                                     int batch, int S, int Di, int N,
+                                     void* ck, int batch, int S, int Di,
+                                     int N,
                                      long long bc_sb, long long bc_st,
                                      long long h0_sb, int dtype,
                                      void* stream) {
@@ -297,12 +318,13 @@ extern "C" int selective_scan_launch(const void* x, const void* dt,
   const float* Df = static_cast<const float*>(D);
   const float* h0f = static_cast<const float*>(h0);
   float* hTf = static_cast<float*>(hT);
+  float* ckf = static_cast<float*>(ck);
   if (dtype == DT_F32)
-    return launch<float>(x, dt, Af, Bm, Cm, Df, h0f, y, hTf, batch, S, Di,
-                         N, bc_sb, bc_st, h0_sb, st);
+    return launch<float>(x, dt, Af, Bm, Cm, Df, h0f, y, hTf, ckf, batch, S,
+                         Di, N, bc_sb, bc_st, h0_sb, st);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(x, dt, Af, Bm, Cm, Df, h0f, y, hTf, batch,
-                                 S, Di, N, bc_sb, bc_st, h0_sb, st);
+    return launch<__nv_bfloat16>(x, dt, Af, Bm, Cm, Df, h0f, y, hTf, ckf,
+                                 batch, S, Di, N, bc_sb, bc_st, h0_sb, st);
   return cudaErrorInvalidValue;
 }
 

@@ -20,10 +20,12 @@ The TPU kernel has no backward: the reference differentiates the scan
 through XLA (``repro/kernels/ops.py::_selective_scan_assoc``). Here the
 scan's VJP is a kernel of its own (``csrc/selective_scan_bwd.cu``) with
 its plain version :func:`selective_scan_bwd_torch`, which follows the
-kernel's order: the forward's steps rerun from h0 with the state kept
-before every chunk of ``CHUNK`` steps, then the chunks in reverse, each
-recomputing its states from its checkpoint before the reverse recurrence.
-:class:`_SelectiveScan` ties the two directions together for autograd.
+kernel's order: the chunks of ``CHUNK`` steps in reverse, each
+recomputing its states from its checkpoint (the state before the chunk)
+before the reverse recurrence. The checkpoints come from the forward:
+given a ``ck`` buffer, both forwards store the state before every chunk
+into it. :class:`_SelectiveScan` ties the two directions together for
+autograd and keeps the forward's checkpoints for the backward.
 
 ``selective_scan`` launches the kernels for CUDA tensors and takes the
 plain versions only for CPU tensors or when the caller passes
@@ -45,8 +47,8 @@ bwd_launches = 0
 NMAX = 16                  # largest state width the kernel takes
 CHUNK = 16                 # steps between the backward's checkpoints
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = [_P] * 9 + [_I] * 4 + [_L] * 3 + [_I, _P]
-_BWD_ARGS = [_P] * 17 + [_I] * 4 + [_L] * 3 + [_I, _P]
+_ARGS = [_P] * 10 + [_I] * 4 + [_L] * 3 + [_I, _P]
+_BWD_ARGS = [_P] * 16 + [_I] * 4 + [_L] * 2 + [_I, _P]
 
 
 def _step(h, xt, dtt, Af, bt):
@@ -55,9 +57,19 @@ def _step(h, xt, dtt, Af, bt):
     return h * dA + (dtt * xt)[..., None] * bt[:, None, :]
 
 
-def selective_scan_torch(x, dt, A, Bm, C, D, h0=None):
+def checkpoints(x, A) -> torch.Tensor:
+    """An empty checkpoint buffer for a forward on ``x``: (B, ceil(S /
+    CHUNK), N, Di) f32, the state before every ``CHUNK`` steps."""
+    Bb, S, Di = x.shape
+    return torch.empty((Bb, -(-S // CHUNK), A.shape[-1], Di),
+                       dtype=torch.float32, device=x.device)
+
+
+def selective_scan_torch(x, dt, A, Bm, C, D, h0=None, *, ck=None):
     """Plain version: the kernel's step order, one vectorised step per
-    time step. Shapes as :func:`selective_scan`."""
+    time step. Shapes as :func:`selective_scan`; ``ck``, a
+    :func:`checkpoints` buffer or None, receives the state before every
+    ``CHUNK`` steps."""
     Bb, S, Di = x.shape
     Af, Df = A.float(), D.float()
     h = torch.zeros((Bb, Di, A.shape[-1]), dtype=torch.float32,
@@ -65,6 +77,8 @@ def selective_scan_torch(x, dt, A, Bm, C, D, h0=None):
         h0.float().expand(Bb, Di, A.shape[-1])
     ys = []
     for t in range(S):
+        if ck is not None and t % CHUNK == 0:
+            ck[:, t // CHUNK] = h.transpose(1, 2)
         xt = x[:, t].float()
         h = _step(h, xt, dt[:, t].float(), Af, Bm[:, t].float())
         ys.append((h * C[:, t].float()[:, None, :]).sum(-1) + Df * xt)
@@ -72,30 +86,28 @@ def selective_scan_torch(x, dt, A, Bm, C, D, h0=None):
 
 
 def selective_scan_bwd_torch(x, dt, A, Bm, C, D, h0, dy, dhT=None, *,
-                             need_A: bool = True, need_D: bool = True):
+                             need_A: bool = True, need_D: bool = True,
+                             ck=None):
     """Plain VJP of :func:`selective_scan_torch` in the kernel's order:
-    the forward's steps rerun from h0, keeping the state before every
-    ``CHUNK`` steps; then, chunk by chunk in reverse, the chunk's states
-    recomputed from its checkpoint and the reverse recurrence with ``g``
-    (dL/dh, ``dhT`` at the end): ``g += dy C``, ``dx = D dy + dt Σ_n g
-    B``, ``ddt = Σ_n g (A dA h_prev + x B)``, ``dB = Σ_d g dt x``, ``dC =
-    Σ_d dy h``, ``dA += g dt dA h_prev``, ``dD += dy x``, ``g *= dA``.
-    Shapes as :func:`selective_scan`; dy (B, S, Di), dhT (B, Di, N) f32
-    or None. Returns (dx, ddt in x's dtype, dA (Di, N) f32 or None, dB,
-    dC (B, S, N) in B's dtype, dD (Di,) f32 or None, dh0 (B, Di, N) f32).
-    """
+    chunk by chunk in reverse, the chunk's states recomputed from its
+    checkpoint (``ck``, the forward's :func:`checkpoints`; without it the
+    forward's steps are rerun from h0 to make them, the same bits), then
+    the reverse recurrence with ``g`` (dL/dh, ``dhT`` at the end): ``g +=
+    dy C``, ``σ = Σ_n g B``, ``dB = Σ_d g dt x``, ``dC = Σ_d dy h``, ``g
+    *= dA``, ``dx = D dy + dt σ``, ``ddt = Σ_n A g h_prev + x σ``, ``dA +=
+    dt g h_prev``, ``dD += dy x``. Shapes as :func:`selective_scan`; dy
+    (B, S, Di), dhT (B, Di, N) f32 or None. Returns (dx, ddt in x's dtype,
+    dA (Di, N) f32 or None, dB, dC (B, S, N) in B's dtype, dD (Di,) f32
+    or None, dh0 (B, Di, N) f32)."""
     Bb, S, Di = x.shape
     N = A.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
     Af, Df = A.float(), D.float()
     xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, Bm, C, dy))
-    h = torch.zeros((Bb, Di, N), **f32) if h0 is None else \
-        h0.float().expand(Bb, Di, N)
-    cks = []
-    for t in range(S):
-        if t % CHUNK == 0:
-            cks.append(h)
-        h = _step(h, xf[:, t], dtf[:, t], Af, Bf[:, t])
+    if ck is None:
+        ck = checkpoints(x, A)
+        selective_scan_torch(x, dt, A, Bm, C, D, h0, ck=ck)
+    cks = [ck[:, k].transpose(1, 2) for k in range(ck.shape[1])]
     g = torch.zeros((Bb, Di, N), **f32) if dhT is None else \
         dhT.float().expand(Bb, Di, N)
     dx, ddt = torch.empty((Bb, S, Di), **f32), torch.empty((Bb, S, Di), **f32)
@@ -112,16 +124,17 @@ def selective_scan_bwd_torch(x, dt, A, Bm, C, D, h0, dy, dhT=None, *,
             xt, dtt, dyt, bt = xf[:, t], dtf[:, t], dyf[:, t], Bf[:, t]
             e = torch.exp(dtt[..., None] * Af)
             g = g + dyt[..., None] * Cf[:, t, None, :]
-            dx[:, t] = Df * dyt + dtt * (g * bt[:, None, :]).sum(-1)
-            ddt[:, t] = (g * (Af * e * hp + xt[..., None] * bt[:, None, :])
-                         ).sum(-1)
+            sx = (g * bt[:, None, :]).sum(-1)
             dB[:, t] = (g * (dtt * xt)[..., None]).sum(1)
             dC[:, t] = (dyt[..., None] * ht).sum(1)
+            g = g * e
+            gh = g * hp
+            dx[:, t] = Df * dyt + dtt * sx
+            ddt[:, t] = (Af * gh).sum(-1) + xt * sx
             if need_A:
-                dA += (g * dtt[..., None] * e * hp).sum(0)
+                dA += (dtt[..., None] * gh).sum(0)
             if need_D:
                 dD += (dyt * xt).sum(0)
-            g = g * e
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB.to(Bm.dtype),
             dC.to(C.dtype), dD, g)
 
@@ -148,7 +161,7 @@ def _checked(name, x, dt, A, Bm, C, D, h0, extra=None):
         ts["h0"] = h0
     ts.update(extra or {})
     code = _build.checked_args(name, ts, x.dtype,
-                               f32=("A", "D", "h0", "dhT"),
+                               f32=("A", "D", "h0", "dhT", "ck"),
                                strided=("B", "C", "h0"))
     if Bm.stride() != C.stride():
         raise ValueError(f"{name}: B {Bm.stride()} and C "
@@ -166,45 +179,60 @@ def _checked(name, x, dt, A, Bm, C, D, h0, extra=None):
     return code, h0, h0_sb
 
 
-def _launch(x, dt, A, Bm, C, D, h0):
+def _launch(x, dt, A, Bm, C, D, h0, *, ck=None):
     global launches
     Bb, S, Di = x.shape
     N = A.shape[-1]
-    code, h0, h0_sb = _checked("selective_scan", x, dt, A, Bm, C, D, h0)
+    code, h0, h0_sb = _checked("selective_scan", x, dt, A, Bm, C, D, h0,
+                               None if ck is None else {"ck": ck})
+    if ck is not None and ck.shape != (Bb, -(-S // CHUNK), N, Di):
+        raise ValueError(f"selective_scan: ck {tuple(ck.shape)} is not "
+                         f"{(Bb, -(-S // CHUNK), N, Di)}")
     lib = _build.bind("selective_scan", _ARGS)
     y = torch.empty_like(x)
     hT = torch.empty((Bb, Di, N), dtype=torch.float32, device=x.device)
     err = lib.selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         C.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), hT.data_ptr(), Bb, S, Di, N, Bm.stride(0),
-        Bm.stride(1), h0_sb, code, _build.stream(x))
+        y.data_ptr(), hT.data_ptr(), None if ck is None else ck.data_ptr(),
+        Bb, S, Di, N, Bm.stride(0), Bm.stride(1), h0_sb, code,
+        _build.stream(x))
     _build.check(lib, "selective_scan", err)
     launches += 1
     return y, hT
 
 
 def _launch_bwd(x, dt, A, Bm, C, D, h0, dy, dhT=None, *, need_A=True,
-                need_D=True, h_final_out=None):
+                need_D=True, h_final_out=None, ck=None):
     """The backward kernel; arguments and results as
-    :func:`selective_scan_bwd_torch`. dB and dC come from per-block
-    partials (each block's 32 channels) summed here over the blocks, and
-    dA and dD from per-row partials summed over the rows: torch sums in a
-    fixed order, so a second call gives the same bits. ``h_final_out``, a
-    (B, Di, N) f32 tensor, receives the state the kernel's rerun of the
-    forward ends in (the forward kernel's ``h_final``, bit for bit)."""
+    :func:`selective_scan_bwd_torch`. ``ck`` is the forward kernel's
+    checkpoint buffer (:func:`checkpoints`, as autograd keeps it); a
+    caller that has none (a test, ``chip_smoke.py``) gets one from a
+    launch of the forward kernel here, counted in ``launches``. dB and dC
+    come from per-block partials (each block's 32 channels) summed here
+    over the blocks, and dA and dD from per-row partials summed over the
+    rows: torch sums in a fixed order, so a second call gives the same
+    bits. ``h_final_out``, a (B, Di, N) f32 tensor, receives the state the
+    kernel's recompute of the last chunk ends in (the forward kernel's
+    ``h_final``, bit for bit)."""
     global bwd_launches
     Bb, S, Di = x.shape
     N = A.shape[-1]
-    extra = {"dy": dy}
+    if ck is None:
+        ck = checkpoints(x, A)
+        _launch(x, dt, A, Bm, C, D, h0, ck=ck)
+    extra = {"dy": dy, "ck": ck}
     if dhT is not None:
         extra["dhT"] = dhT
     if dy.shape != x.shape or (dhT is not None and dhT.shape != (Bb, Di, N)):
         raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)}, dhT "
                          f"{None if dhT is None else tuple(dhT.shape)} do "
                          f"not match x {tuple(x.shape)}")
-    code, h0, h0_sb = _checked("selective_scan_bwd", x, dt, A, Bm, C, D,
-                               h0, extra)
+    code, _, _ = _checked("selective_scan_bwd", x, dt, A, Bm, C, D, h0,
+                          extra)
+    if ck.shape != (Bb, -(-S // CHUNK), N, Di):
+        raise ValueError(f"selective_scan_bwd: ck {tuple(ck.shape)} is not "
+                         f"{(Bb, -(-S // CHUNK), N, Di)}")
     if h_final_out is not None and (
             h_final_out.shape != (Bb, Di, N) or not h_final_out.is_cuda or
             h_final_out.dtype != torch.float32 or
@@ -213,23 +241,22 @@ def _launch_bwd(x, dt, A, Bm, C, D, h0, dy, dhT=None, *, need_A=True,
                          "contiguous (B, Di, N) f32 CUDA tensor")
     lib = _build.bind("selective_scan_bwd", _BWD_ARGS)
     f32 = dict(dtype=torch.float32, device=x.device)
-    nblk, nck = -(-Di // 32), -(-S // CHUNK)
+    nblk = -(-Di // 32)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dbc = torch.empty((Bb, nblk, S, 2, N), **f32)
     dA = torch.empty((Bb, Di, N), **f32) if need_A else None
     dD = torch.empty((Bb, Di), **f32) if need_D else None
     dh0 = torch.empty((Bb, Di, N), **f32)
-    ck = torch.empty((Bb, nck, N, Di), **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = lib.selective_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        C.data_ptr(), D.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dhT),
+        C.data_ptr(), D.data_ptr(), ck.data_ptr(), dy.data_ptr(), ptr(dhT),
         dx.data_ptr(), ddt.data_ptr(), dbc.data_ptr(), ptr(dA), ptr(dD),
-        dh0.data_ptr(), ptr(h_final_out), ck.data_ptr(), Bb, S, Di, N,
-        Bm.stride(0), Bm.stride(1), h0_sb, code, _build.stream(x))
+        dh0.data_ptr(), ptr(h_final_out), Bb, S, Di, N, Bm.stride(0),
+        Bm.stride(1), code, _build.stream(x))
     _build.check(lib, "selective_scan_bwd", err)
     bwd_launches += 1
     bc = dbc.sum(1)
@@ -240,19 +267,21 @@ def _launch_bwd(x, dt, A, Bm, C, D, h0, dy, dhT=None, *, need_A=True,
 
 class _SelectiveScan(torch.autograd.Function):
     """The scan for autograd: the forward kernel and the backward kernel
-    (``impl`` "cuda"), or the plain versions of both ("torch")."""
+    (``impl`` "cuda"), or the plain versions of both ("torch"). The
+    forward stores its checkpoints, which the backward starts from."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, C, D, h0, impl):
-        ctx.save_for_backward(x, dt, A, Bm, C, D, h0)
+        ck = checkpoints(x, A)
+        ctx.save_for_backward(x, dt, A, Bm, C, D, h0, ck)
         ctx.impl = impl
         ctx.set_materialize_grads(False)
         fwd = selective_scan_torch if impl == "torch" else _launch
-        return fwd(x, dt, A, Bm, C, D, h0)
+        return fwd(x, dt, A, Bm, C, D, h0, ck=ck)
 
     @staticmethod
     def backward(ctx, dy, dhT):
-        x, dt, A, Bm, C, D, h0 = ctx.saved_tensors
+        x, dt, A, Bm, C, D, h0, ck = ctx.saved_tensors
         need = ctx.needs_input_grad
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dhT is not None:
@@ -260,7 +289,7 @@ class _SelectiveScan(torch.autograd.Function):
         bwd = selective_scan_bwd_torch if ctx.impl == "torch" \
             else _launch_bwd
         grads = bwd(x, dt, A, Bm, C, D, h0, dy, dhT, need_A=need[2],
-                    need_D=need[5])
+                    need_D=need[5], ck=ck)
         return tuple(g if n else None for g, n in zip(grads, need)) + \
             (None,)
 

@@ -1227,6 +1227,63 @@ def test_selective_scan_bwd_kernel(gen, B, S, Di, N, h0_kind, dtype):
         SCAN_GRADS)
 
 
+@pytest.mark.parametrize("B,S,Di,N,h0_kind", [
+    (2, 64, 256, 16, "row"), (3, 37, 200, 16, "shared"), (2, 5, 33, 4, "none"),
+    (1, 1, 7, 16, "row"), (4, 256, 8192, 16, "row")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_checkpoints(gen, B, S, Di, N, h0_kind, dtype):
+    """The forward kernel's checkpoint output: y and h_final keep their
+    bits with and without it; the checkpoints are h0 first and the plain
+    forward's within the state tolerance; the backward kernel fed them
+    gives the bits of a call that makes its own (one more forward
+    launch), within GRAD_TOL of the plain backward fed the plain
+    forward's checkpoints."""
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, B, S, Di, N, dtype,
+                                            h0_kind)
+    if h0 is not None and h0.dim() == 2:
+        h0 = h0.expand(B, Di, N)
+    ck = ss.checkpoints(x, A)
+    n0 = ss.launches
+    y, hT = ss._launch(x, dt, A, Bm, C, D, h0, ck=ck)
+    y0, hT0 = ss._launch(x, dt, A, Bm, C, D, h0)
+    assert ss.launches == n0 + 2
+    assert torch.equal(y, y0) and torch.equal(hT, hT0)
+    ckw = ss.checkpoints(x, A)
+    ss.selective_scan_torch(x, dt, A, Bm, C, D, h0, ck=ckw)
+    torch.cuda.synchronize()
+    assert torch.equal(ck[:, 0], torch.zeros_like(ck[:, 0]) if h0 is None
+                       else h0.transpose(1, 2))
+    assert torch.allclose(ck, ckw, atol=1e-3, rtol=1e-3), \
+        (ck - ckw).abs().max().item()
+    dy = randn(gen, B, S, Di, dtype=dtype)
+    n0 = (ss.launches, ss.bwd_launches)
+    hf = torch.empty((B, Di, N), dtype=torch.float32, device="cuda")
+    fed = ss._launch_bwd(x, dt, A, Bm, C, D, h0, dy, need_A=False,
+                         need_D=False, ck=ck, h_final_out=hf)
+    assert (ss.launches, ss.bwd_launches) == (n0[0], n0[1] + 1)
+    own = ss._launch_bwd(x, dt, A, Bm, C, D, h0, dy, need_A=False,
+                         need_D=False)
+    assert (ss.launches, ss.bwd_launches) == (n0[0] + 1, n0[1] + 2)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(fed, own))
+    assert torch.equal(hf, hT)
+    close_grads(fed, ss.selective_scan_bwd_torch(
+        x, dt, A, Bm, C, D, h0, dy, need_A=False, need_D=False, ck=ckw),
+        dtype, SCAN_GRADS)
+
+
+def test_selective_scan_autograd_launches_each_kernel_once(gen):
+    """Autograd through the card: one forward launch (storing the
+    checkpoints) and one backward launch, which starts from them."""
+    x, dt, A, Bm, C, D, h0 = _scan_operands(gen, 2, 40, 96, 16,
+                                            torch.bfloat16, "row")
+    xg = x.clone().requires_grad_(True)
+    n0 = (ss.launches, ss.bwd_launches)
+    y, hT = ss.selective_scan(xg, dt, A, Bm, C, D, h0)
+    (y.float().sum() + hT.sum()).backward()
+    assert (ss.launches, ss.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_selective_scan_bwd_padded_row_is_bitwise(gen, dtype):
     """dt = 0 and dy = 0 over a right-padded row's tail: the backward
@@ -1486,6 +1543,62 @@ def test_rglru_bwd_kernel(gen, B, S, W, h0_kind, dtype):
     assert part[3] is None
     close_grads(part, rg.rglru_bwd_torch(x, r, i, a, h0, dhs, need_a=False),
                 dtype, LRU_GRADS)
+
+
+@pytest.mark.parametrize("B,S,W,h0_kind", [
+    (2, 64, 256, "row"), (3, 37, 200, "shared"), (2, 5, 33, "none"),
+    (1, 1, 7, "row"), (4, 256, 2560, "shared"), (2, 40, 2561, "row"),
+    (8, 256, 2560, "none")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_checkpoints(gen, B, S, W, h0_kind, dtype):
+    """The forward kernel's checkpoint output: h_seq and h_final keep
+    their bits with and without it; the checkpoints are h0 first and the
+    plain forward's within the state tolerance; the backward kernel fed
+    them gives the bits of a call that makes its own (one more forward
+    launch), within GRAD_TOL of the plain backward fed the plain
+    forward's checkpoints, and records its plan."""
+    x, r, i, a, h0 = _lru_operands(gen, B, S, W, dtype, h0_kind)
+    if h0 is not None and h0.dim() == 1:
+        h0 = h0.expand(B, W)
+    ck = rg.checkpoints(x)
+    n0 = rg.launches
+    hs, hT = rg._launch(x, r, i, a, h0, 8.0, ck=ck)
+    hs0, hT0 = rg._launch(x, r, i, a, h0, 8.0)
+    assert rg.launches == n0 + 2
+    assert torch.equal(hs, hs0) and torch.equal(hT, hT0)
+    ckw = rg.checkpoints(x)
+    rg.rglru_torch(x, r, i, a, h0, ck=ckw)
+    torch.cuda.synchronize()
+    assert torch.equal(ck[:, 0], torch.zeros_like(ck[:, 0]) if h0 is None
+                       else h0)
+    assert torch.allclose(ck, ckw, atol=1e-3, rtol=1e-3), \
+        (ck - ckw).abs().max().item()
+    dhs = randn(gen, B, S, W, dtype=dtype)
+    n0 = (rg.launches, rg.bwd_launches)
+    hf = torch.empty((B, W), dtype=torch.float32, device="cuda")
+    fed = rg._launch_bwd(x, r, i, a, h0, dhs, need_a=False, ck=ck,
+                         h_final_out=hf)
+    assert (rg.launches, rg.bwd_launches) == (n0[0], n0[1] + 1)
+    assert rg.last_bwd_plan == rg.bwd_plan(B, W, dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, r, i, dhs)))
+    own = rg._launch_bwd(x, r, i, a, h0, dhs, need_a=False)
+    assert (rg.launches, rg.bwd_launches) == (n0[0] + 1, n0[1] + 2)
+    assert all(p is None and q is None or torch.equal(p, q)
+               for p, q in zip(fed, own))
+    assert torch.equal(hf, hT)
+    close_grads(fed, rg.rglru_bwd_torch(x, r, i, a, h0, dhs, need_a=False,
+                                        ck=ckw), dtype, LRU_GRADS)
+
+
+def test_rglru_autograd_launches_each_kernel_once(gen):
+    """Autograd through the card: one forward launch (storing the
+    checkpoints) and one backward launch, which starts from them."""
+    x, r, i, a, h0 = _lru_operands(gen, 2, 40, 256, torch.bfloat16, "row")
+    xg = x.clone().requires_grad_(True)
+    n0 = (rg.launches, rg.bwd_launches)
+    hs, hT = rg.rglru(xg, r, i, a, h0)
+    (hs.float().sum() + hT.sum()).backward()
+    assert (rg.launches, rg.bwd_launches) == (n0[0] + 1, n0[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
