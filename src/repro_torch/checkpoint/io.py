@@ -9,9 +9,16 @@ backbone being synchronized out of band.
 A tree is nested dicts and lists of tensors (the port's layout); a leaf is
 stored under its path joined by ``/``, a bf16 leaf as its raw 16 bits
 under ``<path>.bf16`` (numpy has no bfloat16). Writes are atomic: a temp
-file in the target directory, then ``os.replace``. The int8 adapter
-transport (``save_adapters_quantized``) waits for the relay slice
-(ROADMAP).
+file in the target directory, then ``os.replace``.
+
+The int8 adapter transport (``save_adapters_quantized``) squeezes the
+tunable modules further for the edge's D2D and client-server links: one
+symmetric int8 scale per row of each leaf. It quantizes the reference's
+*wire leaves* (:func:`wire_tree`: dict keys sorted, each group's
+per-layer list stacked back to ``(L, ...)``, dtypes kept), so a stacked
+LoRA leaf gets one scale per layer, exactly as in the reference, and a
+file written by either package loads in the other. The knowledge relay
+(``core/relay.py``) checksums and retransmits over the same wire leaves.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.params import tree_leaves, tree_paths
+from repro_torch.models.params import tree_leaves, tree_map, tree_paths
 
 _SEP = "/"
 
@@ -133,3 +140,77 @@ def load_adapters(path: str, params: dict) -> dict:
 def tree_bytes(tree) -> int:
     return sum(torch.as_tensor(x).numel() * torch.as_tensor(x).element_size()
                for x in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# The reference's wire layout, and the int8 adapter transport
+# ---------------------------------------------------------------------------
+
+def wire_tree(tree):
+    """A port tree in the reference's layout: dict keys sorted (the order
+    of ``jax.tree.leaves``), each list of per-layer trees stacked into one
+    tree of ``(L, ...)`` leaves, every dtype kept. The stacked leaves are
+    new tensors; the others are the tree's own."""
+    if isinstance(tree, dict):
+        return {k: wire_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return tree_map(lambda *xs: torch.stack(xs),
+                        *[wire_tree(t) for t in tree]) if tree else {}
+    return tree
+
+
+def from_wire(wire, like):
+    """The inverse of :func:`wire_tree`: ``wire``'s leaves in ``like``'s
+    structure, each layer list unstacked, on ``like``'s devices and in its
+    dtypes."""
+    if isinstance(like, dict):
+        return {k: from_wire(wire[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [from_wire(tree_map(lambda x: x[l], wire), v)
+                for l, v in enumerate(like)]
+    return None if like is None else \
+        wire.to(device=like.device, dtype=like.dtype)
+
+
+def _quantize(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8, one scale per row of ``arr.reshape(arr.shape[0],
+    -1)`` (a 1-D leaf is one row): the reference's arithmetic, in numpy."""
+    a = np.asarray(arr, np.float32)
+    flat = a.reshape(a.shape[0], -1) if a.ndim > 1 else a.reshape(1, -1)
+    scale = np.abs(flat).max(axis=1, keepdims=True) / 127.0
+    scale = np.maximum(scale, 1e-12)
+    q = np.clip(np.round(flat / scale), -127, 127).astype(np.int8)
+    return q.reshape(a.shape), scale.astype(np.float32)
+
+
+def save_adapters_quantized(path: str, params: dict) -> int:
+    """int8 adapter-only checkpoint, the reference's keys
+    (``adapters/stack/g0/s0/lora/q/a.q8`` and ``.scale``, ``.dtype``).
+    Returns bytes written."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {}
+    for p, leaf in tree_paths(wire_tree({"adapters": params["adapters"]})):
+        key = _key(p)
+        q, scale = _quantize(leaf.detach().float().cpu().numpy())
+        flat[key + ".q8"] = q
+        flat[key + ".scale"] = scale
+        name = str(leaf.dtype).replace("torch.", "")
+        flat[key + ".dtype"] = np.frombuffer(name.encode().ljust(16),
+                                             np.uint8).copy()
+    return _atomic_savez(_npz(path), flat)
+
+
+def load_adapters_quantized(path: str, params: dict) -> dict:
+    """Dequantize an int8 adapter checkpoint into ``params``' adapter
+    structure (each leaf in its dtype and on its device)."""
+    like = {"adapters": params["adapters"]}
+    with np.load(_npz(path)) as raw:
+        def deq(p, leaf):
+            key = _key(p)
+            q = raw[key + ".q8"].astype(np.float32)
+            flat = q.reshape(q.shape[0], -1) if q.ndim > 1 else \
+                q.reshape(1, -1)
+            return torch.from_numpy(
+                (flat * raw[key + ".scale"]).reshape(tuple(leaf.shape)))
+        wire = _build(wire_tree(like), (), deq)
+    return {**params, "adapters": from_wire(wire, like)["adapters"]}

@@ -4,14 +4,18 @@ counterpart of ``repro/core/comm.py``).
 The paper lists six metrics for its workflows and prices none of them;
 this module prices them for the wireless topology the paper assumes (D2D
 and client-server links, 6G-like defaults). Byte counts come from real
-tensor trees. The reference's accelerator-interconnect preset
-(``CostModel.tpu()``) and the split-learning round cost
-(``sl_round_cost``, which needs ``sl_pipeline.SLTrace``) are not ported
-(ROADMAP).
+tensor trees or from split-learning traces (``sl_round_cost`` of a
+``core/sl_pipeline.py::SLTrace``). The reference's TPU-interconnect preset
+(``CostModel.tpu()``) is not carried: it prices a TPU pod, not this
+port's card.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    from repro_torch.core.sl_pipeline import SLTrace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +99,31 @@ class RoundCost:
         """Committed fraction of drafted tokens (speculative serving)."""
         return (self.accepted_tokens / self.drafted_tokens
                 if self.drafted_tokens else 0.0)
+
+
+def sl_round_cost(trace: SLTrace, cm: CostModel, *,
+                  model_delivery_bytes: int = 0,
+                  upload_bytes: int = 0) -> RoundCost:
+    """Cost of one SL pass (fine-tuning if ``trace.gradient_bytes > 0``).
+
+    Serial chain: the clients' compute latencies add up (the paper's
+    serial D2D relay); the hops pay D2D latency; delivery and upload pay
+    client-server latency."""
+    compute_lat = sum(f / cm.client_flops for f in trace.per_client_flops)
+    d2d_bytes = trace.smashed_bytes + trace.gradient_bytes \
+        + trace.feedback_bytes
+    comm_lat = cm.d2d.latency(d2d_bytes) \
+        + cm.cs.latency(model_delivery_bytes + upload_bytes)
+    flops = float(sum(trace.per_client_flops))
+    energy = flops * cm.client_joules_per_flop + cm.d2d.energy(d2d_bytes) \
+        + cm.cs.energy(model_delivery_bytes + upload_bytes)
+    return RoundCost(
+        latency_s=compute_lat + comm_lat,
+        compute_flops=flops,
+        energy_j=energy,
+        comm_bytes=d2d_bytes + model_delivery_bytes + upload_bytes,
+        memory_bytes=trace.peak_activation_bytes,
+    )
 
 
 def transfer_cost(nbytes: int, link: LinkModel) -> RoundCost:

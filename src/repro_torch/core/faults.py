@@ -7,8 +7,8 @@ things fail; every layer consumes it:
 
 - HFSL rounds (``core/hfsl.py``): a per-round per-cluster participation
   mask (dropout + stragglers) and a per-cluster gradient-corruption mask;
-- the knowledge relay (not ported yet): per-attempt link drops, payload
-  corruption and retry jitter;
+- the knowledge relay (``core/relay.py``): per-attempt link drops,
+  payload corruption and retry jitter;
 - serving: publish validation, per-request deadlines.
 
 Every schedule is a pure function of ``(seed, coordinates)`` through

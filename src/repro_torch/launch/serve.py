@@ -1,7 +1,15 @@
 """Serving launcher (counterpart of ``repro/launch/serve.py``).
 
+Prefill + decode against a fine-tuned, adapter-loaded model: the
+parameter-efficient deployment path (§III-A.2). The backbone is made
+locally (presumed synchronized); only the adapters come from a checkpoint
+(``--adapters``, written by ``checkpoint/io.py::save_adapters``).
+
 - ``--impl scan`` (default): :func:`repro_torch.models.model.generate`,
   prefill plus ``--gen`` decode steps per request batch;
+- ``--impl loop``: :func:`generate_loop`, the reference's per-token
+  Python loop of ``prefill`` and ``decode_step`` calls, kept as the decode
+  baseline; it gives ``--impl scan``'s tokens;
 - ``--impl engine``: the ragged continuous-batching
   :class:`repro_torch.launch.engine.DecodeEngine`;
 - ``--impl spec``: the engine serving speculatively with a tiny recurrent
@@ -9,16 +17,21 @@
   ``--draft-k`` tokens per verify pass. Greedy speculative serving gives
   ``--impl engine``'s tokens; a random drafter accepts few drafts.
 
+``--trace-out`` / ``--metrics-out`` switch telemetry on and write a Chrome
+trace-event JSON / the counter and histogram snapshot as JSON, then print
+the telemetry report.
+
 Weights are random, made from ``--seed``. Runs on ``cuda`` unless
 ``--device cpu`` is given.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
-      --impl engine [--device cpu --reduced]
+      --impl engine [--device cpu --reduced] [--adapters ckpt.npz]
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon-mamba-7b --impl spec --draft-k 4 [--device cpu --reduced]
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch recurrentgemma-2b --impl engine [--device cpu --reduced]
+      --arch recurrentgemma-2b --impl loop [--device cpu --reduced] \\
+      [--trace-out trace.json --metrics-out metrics.json]
 """
 from __future__ import annotations
 
@@ -28,11 +41,34 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
+from repro_torch.core import telemetry
 from repro_torch.core.device import resolve_device
 from repro_torch.core.spec_decode import SpecDecoder
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import model as M
+
+
+@torch.no_grad()
+def generate_loop(params: dict, cfg, prompts: torch.Tensor, *,
+                  gen: int) -> torch.Tensor:
+    """Greedy batched generation as a per-token Python loop: one
+    ``prefill``, then one ``decode_step`` call a token (the reference's
+    legacy ``generate_loop``, kept as the decode baseline;
+    :func:`repro_torch.models.model.generate` gives the same tokens).
+    prompts: (B, S) int. Returns (B, gen) int32."""
+    S = prompts.shape[1]
+    logits, caches = M.prefill(params, {"tokens": prompts}, cfg,
+                               max_len=S + gen)
+    out = []
+    tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    for i in range(gen):
+        out.append(tok)
+        logits, caches = M.decode_step(params, tok, caches, S + i, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1,
+                           keepdim=True).to(torch.int32)
+    return torch.cat(out, dim=1)
 
 
 def main(argv=None):
@@ -42,22 +78,37 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--adapters", default=None,
+                    help="adapter-only checkpoint (npz) to serve")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--impl", choices=("scan", "engine", "spec"),
+    ap.add_argument("--impl", choices=("scan", "loop", "engine", "spec"),
                     default="scan")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="--impl spec: drafted tokens per verify chunk")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable telemetry and write a Chrome trace-event "
+                         "JSON here (open in Perfetto / chrome://tracing)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="enable telemetry and write the counter/histogram "
+                         "snapshot as JSON here")
     args = ap.parse_args(argv)
 
+    traced = args.trace_out or args.metrics_out
+    if traced:
+        telemetry.enable()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     params = M.init(cfg, args.seed, device=dev)
+    if args.adapters:
+        params = ckpt_io.load_adapters(args.adapters, params)
+        print(f"[serve] loaded adapters from {args.adapters} "
+              f"(parameter-efficient deployment)")
     rng = np.random.default_rng(args.seed)
     engine = None
     if args.impl in ("engine", "spec"):
@@ -82,13 +133,25 @@ def main(argv=None):
             print(f"[serve]   ttft p50={h['p50']:.3f}s p95={h['p95']:.3f}s "
                   f"p99={h['p99']:.3f}s")
             continue
+        gen_fn = M.generate if args.impl == "scan" else generate_loop
         t0 = time.perf_counter()
-        toks = M.generate(params, cfg, torch.as_tensor(prompts, device=dev),
+        with telemetry.get().span("serve.request", impl=args.impl,
+                                  batch=args.batch, gen=args.gen):
+            toks = gen_fn(params, cfg, torch.as_tensor(prompts, device=dev),
                           gen=args.gen).cpu().numpy()
         dt = time.perf_counter() - t0
         print(f"[serve] request {r}: generated {toks.shape} in {dt:.2f}s "
               f"({args.batch * args.gen / dt:.1f} tok/s); "
               f"first row: {toks[0][:8]}")
+    if traced:
+        tel = telemetry.get()
+        if args.trace_out:
+            n = tel.export_trace(args.trace_out)
+            print(f"[serve] wrote {n} trace events to {args.trace_out}")
+        if args.metrics_out:
+            tel.export_metrics(args.metrics_out)
+            print(f"[serve] wrote metrics snapshot to {args.metrics_out}")
+        print(tel.report())
 
 
 if __name__ == "__main__":

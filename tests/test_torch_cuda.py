@@ -1711,3 +1711,165 @@ def test_hybrid_drain_on_the_card(gen):
         plain, _ = _serve(cfg, params, reqs)
     for a, b in zip(kern, plain):
         assert (a == b).all()
+
+
+# ---------------------------------------------------------------------------
+# the knowledge flow on the card: relay, int8 transport, split learning
+# ---------------------------------------------------------------------------
+
+def _flow_cfg(arch="vit-edge", dtype="float32", n_layers=4):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).reduced().with_(dtype=dtype, vocab_size=64,
+                                           n_layers=n_layers)
+    return cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+
+
+def _noisy_adapters(gen, cfg, seed):
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    ad = M.init(cfg, seed, device="cuda")["adapters"]
+    return tree_map(lambda x: x + randn(gen, *x.shape, dtype=x.dtype,
+                                        s=0.05), ad)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_faulted_relay_equals_clean_relay_on_the_card(gen, dtype):
+    """The relay's deliver / edge_deliver / absorb / aggregate over lossy
+    links, on CUDA tensors, bit for bit the clean relay's, with its
+    retransmits booked."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.relay import KnowledgeRelay
+    from repro_torch.models.params import tree_leaves
+
+    cfg = _flow_cfg(dtype="bfloat16" if dtype == torch.bfloat16
+                    else "float32")
+    cloud = _noisy_adapters(gen, cfg, 0)
+    ups = [_noisy_adapters(gen, cfg, i + 1) for i in range(4)]
+    doms = ["a", "b"]
+    relays = []
+    for plan in (None, FaultPlan(seed=5, link_loss=0.5,
+                                 payload_corrupt=0.6)):
+        bank = AdapterBank.create({d: cloud for d in doms})
+        r = KnowledgeRelay(cloud, doms, bank=bank, faults=plan,
+                           max_retries=50, backoff_s=0.0)
+        for d in doms:
+            r.cloud_deliver(d)
+        r.edge_deliver("a", 4)
+        r.edge_absorb("a", ups)
+        r.cloud_aggregate()
+        relays.append((r, bank))
+    (clean, cbank), (lossy, lbank) = relays
+    assert lossy.ledger.retries > 0
+    assert lossy.ledger.total() == clean.ledger.total() + \
+        lossy.ledger.retransmit_bytes
+    for a, b in zip(tree_leaves([lossy.cloud, lossy.edges]),
+                    tree_leaves([clean.cloud, clean.edges])):
+        assert a.is_cuda and torch.equal(a, b)
+    for d in doms:
+        for a, b in zip(tree_leaves(lbank.snapshot(d)),
+                        tree_leaves(cbank.snapshot(d))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int8_round_trip_on_the_card(gen, dtype, tmp_path):
+    """int8 adapters written from and read back into CUDA tensors: the
+    file is the one written from the same values on the CPU, and each
+    element comes back within one int8 step."""
+    import numpy as np
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg = _flow_cfg(dtype="bfloat16" if dtype == torch.bfloat16
+                    else "float32")
+    ad = _noisy_adapters(gen, cfg, 0)
+    ckpt_io.save_adapters_quantized(str(tmp_path / "g"), {"adapters": ad})
+    ckpt_io.save_adapters_quantized(
+        str(tmp_path / "c"), {"adapters": tree_map(lambda x: x.cpu(), ad)})
+    with np.load(tmp_path / "g.npz") as g, np.load(tmp_path / "c.npz") as c:
+        assert sorted(g.files) == sorted(c.files)
+        assert all(np.array_equal(g[k], c[k]) for k in g.files)
+    back = ckpt_io.load_adapters_quantized(str(tmp_path / "g"),
+                                           {"adapters": ad})["adapters"]
+    for a, b in zip(tree_leaves(ad), tree_leaves(back)):
+        assert b.is_cuda and b.dtype == a.dtype and b.shape == a.shape
+        # tests/test_quantized_transport.py's bound: one int8 step of the
+        # leaf's largest value (a bf16 leaf's rounding stays inside it)
+        step = a.float().abs().max().item() / 127.0
+        assert (a.float() - b.float()).abs().max().item() <= step + 1e-6
+
+
+def _sl_model(gen, arch, n_layers=4):
+    from repro_torch.models import model as M
+    cfg = _flow_cfg(arch, n_layers=n_layers)
+    params = M.init(cfg, 0, device="cuda")
+    params["adapters"] = _noisy_adapters(gen, cfg, 1)
+    toks = torch.randint(0, cfg.vocab_size, (8, 24), generator=gen,
+                         device="cuda")
+    return cfg, params, toks
+
+
+@pytest.mark.parametrize("arch", ["vit-edge", "falcon-mamba-7b"])
+def test_sl_chain_matches_classify_on_the_card(gen, arch):
+    """The 4-stage chain through the kernels against monolithic
+    ``classify``, with each layer's kernels launched once a microbatch."""
+    from repro_torch.core import sl_pipeline as sl
+    from repro_torch.models import model as M
+
+    cfg, params, toks = _sl_model(gen, arch)
+    st = sl.split_for_stages(params, cfg, 4)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = sl.pipeline_classify(params, st, toks, cfg, n_microbatches=4)
+        n = ops.launch_counts()
+        want = M.classify(params, {"tokens": toks}, cfg)
+    close(got, want, torch.float32)
+    if cfg.family == "ssm":
+        assert n["selective_scan"] == 4 * cfg.n_layers
+    else:
+        assert n["flash_attention"] == 4 * cfg.n_layers
+        assert n["lora_matmul"] == 4 * cfg.n_layers * \
+            len(cfg.peft.lora_targets)
+
+
+def test_sl_step_matches_monolithic_grads_on_the_card(gen):
+    """One sgd(1.0) step of the 4-stage chain moves every adapter and the
+    head by minus its gradient of monolithic ``classify``'s loss."""
+    from repro_torch.core import sl_pipeline as sl
+    from repro_torch.core.peft import value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.optimizers import sgd
+
+    cfg, params, toks = _sl_model(gen, "vit-edge")
+    labels = torch.randint(0, 5, (8,), generator=gen, device="cuda")
+    batch = {"tokens": toks, "label": labels}
+
+    def mono(ad):
+        p = {"backbone": params["backbone"], "adapters": ad}
+        return cross_entropy(M.classify(p, batch, cfg), labels)
+
+    mloss, g = value_and_grad(mono, params["adapters"], has_aux=False)
+    opt = sgd(1.0)
+    st = sl.split_for_stages(params, cfg, 4)
+    head = params["adapters"]["head"]
+    step = sl.make_sl_finetune_step(params, cfg, opt, n_microbatches=2)
+    ops.reset_launch_counts()
+    new_st, new_h, _, loss = step(st, head,
+                                  opt.init({"a": st["adapters"], "h": head}),
+                                  batch)
+    assert ops.launch_counts()["lora_matmul_bwd"] == \
+        2 * cfg.n_layers * len(cfg.peft.lora_targets)
+    assert abs(loss.item() - mloss.item()) <= 1e-5
+    got = [x for s in new_st["adapters"] for x in tree_leaves(s)] + \
+        tree_leaves(new_h)
+    old = tree_leaves(params["adapters"]["stack"]) + tree_leaves(head)
+    grads = tree_leaves(g["stack"]) + tree_leaves(g["head"])
+    for n_, o, gr in zip(got, old, grads):
+        tol = GRAD_TOL[torch.float32] * max(1.0, gr.abs().max().item())
+        assert (n_ - (o - gr)).abs().max().item() <= tol
