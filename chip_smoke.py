@@ -226,7 +226,9 @@ Phases, each of which exits nonzero on a failed check:
    clean relay, retransmits booked, some smaller than a whole tree; d0's
    int8 checkpoint beside its bf16 one, classify of 64 examples through a
    bank slot loaded from it agreeing with the bf16 slot on at least 0.75;
-   the host ms of each relay call;
+   the host ms of each relay call, and of cloning one edge tree (every
+   method hands back a clone; an in-place step on the aggregate it
+   returns leaves the relay's cloud as it was);
 30. split-learning inference (``core/sl_pipeline.py``), the chain of 4
    stages and 4 microbatches against monolithic ``classify``: vit-edge
    f32 at its configured size (B 16, S 197; max_abs_err 1e-4), qwen2-7b
@@ -244,11 +246,35 @@ Phases, each of which exits nonzero on a failed check:
 32. the serving CLI in process on qwen2-7b at its published size:
    ``--impl loop`` prints ``--impl scan``'s rows, ``--adapters`` loads
    phase 29's checkpoint, ``--trace-out`` / ``--metrics-out`` write JSON;
-   ``generate_loop`` gives ``generate``'s tokens on every row.
+   ``generate_loop`` gives ``generate``'s tokens on every row;
+33. granite-moe-1b-a400m at its published size (24 layers, d 1024, 16/8
+   heads of 64, 32 experts top-8, d_ff_expert 512, bf16, random weights
+   from the seed): one decode step of 8 slots launches exactly one
+   ``flash_decode`` a layer and one ``lora_matmul`` a LoRA target a layer
+   (``moe_step_launches``: the moe FFN is torch), timed; phase 4's queue
+   shape drained single-tenant, from a 4-domain bank and paged with
+   prefix sharing from the bank, each drain's launches as predicted
+   (``moe_drain_launches_ok``), no plain version;
+34. moe exactness: two bf16 prefills of the full model on one batch give
+   the same bits (the dispatch and combine take no atomics); the kernel
+   path's logits against the plain path's (cosine, top-1) and the share
+   of routing decisions the two share, recorded; a 2-layer full-width f32
+   granite with ``capacity_factor=-1`` drains 8 requests sharing a
+   64-token prefix through the kernels, the plain versions and the paged
+   engine, all equal to each request's solo ``generate``;
+35. one HFSL round of granite at its published size as phase 9 runs
+   qwen2-7b (launches as ``round_launches`` predicts), and a 2-layer f32
+   round kernels vs plain within 1e-4 (``f32_round_exactness``, phase
+   11's);
+36. kernels 1-3 at granite's shapes (LoRA K 1024 to N 1024 and 512,
+   attention and decode at head dim 64 with 16/8 heads) against their
+   plain versions, timed with the library call and the bound (run with
+   phase 3's cases).
 
-Each kernel's ``launches`` adds phases 29-32's runs to its own path's
-(``launches_by_path``). Every full-size drain and round (phases 4, 5, 9,
-10, 13, 15, 17, 23, 26, 27) and phases 29-32
+Each kernel's ``launches`` adds phases 29-35's runs to its own path's
+(``launches_by_path``: ``relay``, ``sl``, ``sl_train``, ``cli``,
+``moe``). Every full-size drain and round (phases 4, 5, 9,
+10, 13, 15, 17, 23, 26, 27, 33, 35) and phases 29-32
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -685,47 +711,136 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
     log(f"kernel flash_decode {cases['flash_decode'][-1]}")
 
 
-def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
-    from repro_torch.kernels import lora_bgmv as bg
-    from repro_torch.kernels import lora_matmul as lm
-
+def randn_of(gen: torch.Generator):
+    """Normal draws on the card from ``gen``, scaled by ``s``, in
+    ``dtype``."""
     def randn(*shape, dtype=torch.bfloat16, s=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
+    return randn
 
+
+def lora_case(cases: dict, randn, timer: Timer, M: int, K: int, N: int,
+              dtype, label: str = "") -> None:
+    """lora_matmul at M rows, K to N, r 8 with a bias, against its plain
+    version, with its times and bound (into ``cases``)."""
+    from repro_torch.kernels import lora_matmul as lm
+    r, scale = 8, 16.0 / 8
+    x = randn(M, K, dtype=dtype)
+    w, a = randn(K, N, dtype=dtype, s=K ** -0.5), \
+        randn(K, r, dtype=dtype, s=K ** -0.5)
+    b, bias = randn(r, N, dtype=dtype, s=0.1), randn(N, dtype=dtype, s=0.1)
+    got = lm.lora_matmul(x, w, a, b, scale, bias, backend="cuda")
+    want = lm.lora_matmul(x, w, a, b, scale, bias, backend="torch")
+    torch.cuda.synchronize()
+    err = compare(f"lora_matmul {label}M={M} N={N} {dtype}", got, want,
+                  dtype)
+    elt = x.element_size()
+    bms, by = bound(elt * (M * K + K * N + K * r + r * N + N + M * N),
+                    2 * M * N * K + 2 * M * r * (K + N), dtype)
+    cases["lora_matmul"].append(dict(
+        shape=f"{label}M={M} K={K} N={N} r={r} bias {str(dtype)[6:]}",
+        path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
+        ms=timer(lambda: lm.lora_matmul(x, w, a, b, scale, bias,
+                                        backend="cuda")),
+        plain_ms=timer(lambda: lm.lora_matmul(x, w, a, b, scale, bias,
+                                              backend="torch")),
+        library_ms=timer(lambda: torch.addmm(bias, x, w)
+                         + scale * ((x @ a) @ b)),
+        bound_ms=bms, bound_by=by))
+    log(f"kernel lora_matmul {cases['lora_matmul'][-1]}")
+
+
+def decode_inputs(randn, gen: torch.Generator, B: int, Tc: int, n_p: int,
+                  Hq: int, Hkv: int, D: int, dtype) -> tuple:
+    """flash_decode's operands as the models pass them: B rows against a
+    Tc-slot cache, per-row q_pos, sentinels past each row's position, and
+    an n_p-slot shared prefix bank. Returns q, kc, vc, qp, kpc, pk, pv."""
+    q = randn(B, Hq, D, dtype=dtype)
+    kc, vc = randn(B, Tc, Hkv, D, dtype=dtype), randn(B, Tc, Hkv, D,
+                                                      dtype=dtype)
+    pk, pv = randn(n_p, Hkv, D, dtype=dtype), randn(n_p, Hkv, D, dtype=dtype)
+    qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
+    kpc = torch.where(slots <= qp[:, None], slots,
+                      torch.full_like(slots, 10 ** 9)).contiguous()
+    return q, kc, vc, qp, kpc, pk, pv
+
+
+def bgmv_case(cases: dict, randn, timer: Timer, name: str, lead: tuple,
+              K: int, N: int, dtype, label: str = "") -> None:
+    """A multi-LoRA kernel (``name``: rows at decode, lead (M,); seq at
+    prefill, lead (B, S)) at K to N, r 8 with a bias, over a 4-domain bank
+    with repeating ids, against its plain version and, row by row
+    (sequence by sequence), bit for bit against lora_matmul with the
+    row's own adapter; with its times and bound (into ``cases``)."""
+    from repro_torch.kernels import lora_bgmv as bg
+    from repro_torch.kernels import lora_matmul as lm
+    r, scale, n_slots = 8, 16.0 / 8, N_DOMAINS
+    x = randn(*lead, K, dtype=dtype)
+    w = randn(K, N, dtype=dtype, s=K ** -0.5)
+    a = randn(n_slots, K, r, dtype=dtype, s=K ** -0.5)
+    b = randn(n_slots, r, N, dtype=dtype, s=0.1)
+    bias = randn(N, dtype=dtype, s=0.1)
+    ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                       device="cuda")
+    fn = bg.lora_bgmv_rows if name == "lora_bgmv_rows" else bg.lora_bgmv_seq
+    got = fn(x, w, a, b, ids, scale, bias, backend="cuda")
+    want = fn(x, w, a, b, ids, scale, bias, backend="torch")
+    torch.cuda.synchronize()
+    err = compare(f"{name} {label}K={K} N={N} {dtype}", got, want, dtype)
+    bit_err = 0.0
+    for i, sl in enumerate(ids.tolist()):
+        xi = x[i:i + 1] if x.dim() == 2 else x[i]
+        gi = got[i:i + 1] if x.dim() == 2 else got[i]
+        one = lm.lora_matmul(xi, w, a[sl], b[sl], scale, bias,
+                             backend="cuda")
+        bit_err = max(bit_err, (gi.float() - one.float()).abs().max().item())
+        check(torch.equal(gi, one),
+              f"{name} {label}K={K} N={N} {dtype}: row {i} differs from "
+              f"lora_matmul with its adapter by {bit_err}")
+    M_ = x.numel() // K
+    used = len(set(ids.tolist()))
+    elt = x.element_size()
+    bms, by = bound(elt * (M_ * K + K * N + used * (K * r + r * N) + N
+                           + M_ * N) + 4 * ids.numel(),
+                    2 * M_ * N * K + 2 * M_ * r * (K + N), dtype)
+    x2 = x.reshape(M_, K)
+
+    def library():
+        # addmm for x W + bias, a gathered bmm for the low-rank term
+        if x.dim() == 2:
+            lo = torch.bmm(torch.bmm(x[:, None], a[ids]), b[ids])[:, 0]
+        else:
+            lo = torch.bmm(torch.bmm(x, a[ids]), b[ids]).reshape(M_, N)
+        return torch.addmm(bias, x2, w) + scale * lo
+
+    cases[name].append(dict(
+        shape=f"{label}{'M' if x.dim() == 2 else 'B x S'}="
+              f"{' x '.join(map(str, lead))} K={K} N={N} r={r} "
+              f"slots={n_slots} bias {str(dtype)[6:]}",
+        path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
+        bits_vs_lora_matmul=bit_err,
+        ms=timer(lambda: fn(x, w, a, b, ids, scale, bias, backend="cuda")),
+        plain_ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
+                                  backend="torch")),
+        library_ms=timer(library), bound_ms=bms, bound_by=by))
+    log(f"kernel {name} {cases[name][-1]}")
+
+
+def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
+    randn = randn_of(gen)
     cases = {"lora_matmul": [], "flash_attention": [], "flash_decode": [],
              "lora_bgmv_rows": [], "lora_bgmv_seq": []}
 
     # lora_matmul: q (N 3584) and v (N 512) projections of qwen2-7b, at
     # decode (M = 8 rows) and prefill (M = 8 x 512); r = 8, bias
-    K, r, scale = 3584, 8, 16.0 / 8
+    K = 3584
     for dtype, shapes in ((torch.bfloat16, [(8, 3584), (8, 512),
                                             (4096, 3584), (4096, 512)]),
                           (torch.float32, [(4096, 3584)])):
         for M, N in shapes:
-            x = randn(M, K, dtype=dtype)
-            w, a = randn(K, N, dtype=dtype, s=K ** -0.5), \
-                randn(K, r, dtype=dtype, s=K ** -0.5)
-            b, bias = randn(r, N, dtype=dtype, s=0.1), \
-                randn(N, dtype=dtype, s=0.1)
-            got = lm.lora_matmul(x, w, a, b, scale, bias, backend="cuda")
-            want = lm.lora_matmul(x, w, a, b, scale, bias, backend="torch")
-            torch.cuda.synchronize()
-            err = compare(f"lora_matmul M={M} N={N} {dtype}", got, want,
-                          dtype)
-            elt = x.element_size()
-            bms, by = bound(elt * (M * K + K * N + K * r + r * N + N + M * N),
-                            2 * M * N * K + 2 * M * r * (K + N), dtype)
-            cases["lora_matmul"].append(dict(
-                shape=f"M={M} K={K} N={N} r={r} bias {str(dtype)[6:]}",
-                path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
-                ms=timer(lambda: lm.lora_matmul(x, w, a, b, scale, bias,
-                                                backend="cuda")),
-                plain_ms=timer(lambda: lm.lora_matmul(
-                    x, w, a, b, scale, bias, backend="torch")),
-                library_ms=timer(lambda: torch.addmm(bias, x, w)
-                                 + scale * ((x @ a) @ b)),
-                bound_ms=bms, bound_by=by))
-            log(f"kernel lora_matmul {cases['lora_matmul'][-1]}")
+            lora_case(cases, randn, timer, M, K, N, dtype)
 
     # flash_attention: prefill of 8 rows x 512 tokens behind 16 prefix
     # slots, Hq 28 / Hkv 4 (g = 7), D 128; plus a case whose last 64 keys
@@ -742,22 +857,13 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
         attn_case(cases, randn, timer, B, S, n_p, 12, 12, 64,
                   torch.bfloat16, label="causal")
 
-    # flash_decode: 8 rows against a 1024-slot cache, per-row q_pos,
-    # sentinels past each row's position, and a 16-slot prefix bank
-    # (shared, position -1) as the models pass it: read in place in bf16,
-    # concatenated in front in f32
+    # flash_decode: 8 rows against a 1024-slot cache and a 16-slot prefix
+    # bank (shared, position -1) as the models pass it: read in place in
+    # bf16, concatenated in front in f32
     Tc = 1024
     for dtype in (torch.bfloat16, torch.float32):
-        q = randn(B, Hq, D, dtype=dtype)
-        kc, vc = randn(B, Tc, Hkv, D, dtype=dtype), randn(B, Tc, Hkv, D,
-                                                          dtype=dtype)
-        pk, pv = randn(n_p, Hkv, D, dtype=dtype), randn(n_p, Hkv, D,
-                                                        dtype=dtype)
-        qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-        slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
-        kpc = torch.where(slots <= qp[:, None], slots,
-                          torch.full_like(slots, 10 ** 9)).contiguous()
+        q, kc, vc, qp, kpc, pk, pv = decode_inputs(randn, gen, B, Tc, n_p,
+                                                   Hq, Hkv, D, dtype)
         decode_case(cases, timer, q, kc, vc, qp, kpc, pk, pv, 0,
                     f"B={B} T={Tc}+{n_p} prefix Hq={Hq} Hkv={Hkv} D={D} "
                     f"per-row q_pos")
@@ -777,7 +883,6 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
     # multi-LoRA: the q (N 3584) and v (N 512) projections of a 4-domain
     # bank wave; rows at decode (M = 8 rows, ids repeating), seq at
     # prefill (8 sequences x 512 tokens); r = 8, bias
-    K, r, scale, n_slots = 3584, 8, 16.0 / 8, N_DOMAINS
     for name, dtype, lead, N in (
             ("lora_bgmv_rows", torch.bfloat16, (8,), 3584),
             ("lora_bgmv_rows", torch.bfloat16, (8,), 512),
@@ -785,60 +890,7 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
             ("lora_bgmv_seq", torch.bfloat16, (8, 512), 3584),
             ("lora_bgmv_seq", torch.bfloat16, (8, 512), 512),
             ("lora_bgmv_seq", torch.float32, (8, 512), 3584)):
-        x = randn(*lead, K, dtype=dtype)
-        w = randn(K, N, dtype=dtype, s=K ** -0.5)
-        a = randn(n_slots, K, r, dtype=dtype, s=K ** -0.5)
-        b = randn(n_slots, r, N, dtype=dtype, s=0.1)
-        bias = randn(N, dtype=dtype, s=0.1)
-        ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
-                           device="cuda")
-        fn = bg.lora_bgmv_rows if name == "lora_bgmv_rows" \
-            else bg.lora_bgmv_seq
-        got = fn(x, w, a, b, ids, scale, bias, backend="cuda")
-        want = fn(x, w, a, b, ids, scale, bias, backend="torch")
-        torch.cuda.synchronize()
-        err = compare(f"{name} N={N} {dtype}", got, want, dtype)
-        # per row (sequence): the same bits as lora_matmul alone with its
-        # own adapter
-        bit_err = 0.0
-        for i, sl in enumerate(ids.tolist()):
-            xi = x[i:i + 1] if x.dim() == 2 else x[i]
-            gi = got[i:i + 1] if x.dim() == 2 else got[i]
-            one = lm.lora_matmul(xi, w, a[sl], b[sl], scale, bias,
-                                 backend="cuda")
-            bit_err = max(bit_err, (gi.float() - one.float()).abs()
-                          .max().item())
-            check(torch.equal(gi, one),
-                  f"{name} N={N} {dtype}: row {i} differs from lora_matmul "
-                  f"with its adapter by {bit_err}")
-        M_ = x.numel() // K
-        used = len(set(ids.tolist()))
-        elt = x.element_size()
-        bms, by = bound(elt * (M_ * K + K * N + used * (K * r + r * N) + N
-                               + M_ * N) + 4 * ids.numel(),
-                        2 * M_ * N * K + 2 * M_ * r * (K + N), dtype)
-        x2 = x.reshape(M_, K)
-
-        def library():
-            # addmm for x W + bias, a gathered bmm for the low-rank term
-            if x.dim() == 2:
-                lo = torch.bmm(torch.bmm(x[:, None], a[ids]), b[ids])[:, 0]
-            else:
-                lo = torch.bmm(torch.bmm(x, a[ids]), b[ids]).reshape(M_, N)
-            return torch.addmm(bias, x2, w) + scale * lo
-
-        cases[name].append(dict(
-            shape=f"{'M' if x.dim() == 2 else 'B x S'}="
-                  f"{' x '.join(map(str, lead))} K={K} N={N} r={r} "
-                  f"slots={n_slots} bias {str(dtype)[6:]}",
-            path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
-            bits_vs_lora_matmul=bit_err,
-            ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
-                                backend="cuda")),
-            plain_ms=timer(lambda: fn(x, w, a, b, ids, scale, bias,
-                                      backend="torch")),
-            library_ms=timer(library), bound_ms=bms, bound_by=by))
-        log(f"kernel {name} {cases[name][-1]}")
+        bgmv_case(cases, randn, timer, name, lead, K, N, dtype)
     return cases
 
 
@@ -848,116 +900,123 @@ def kernel_cases(gen: torch.Generator, timer: Timer) -> dict:
 
 def paged_kernel_cases(gen: torch.Generator, timer: Timer,
                        cases: dict) -> None:
-    """flash_decode_paged at the paged drain's shape against its plain
-    version, and bit for bit against the dense kernel on the gathered
-    keys (into ``cases``)."""
+    """flash_decode_paged at qwen2-7b's paged drain (into ``cases``)."""
+    cases["flash_decode_paged"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        paged_case(cases, randn_of(gen), gen, timer, 28, 4, 128, dtype)
+
+
+def paged_case(cases: dict, randn, gen: torch.Generator, timer: Timer,
+               Hq: int, Hkv: int, D: int, dtype, label: str = "") -> None:
+    """flash_decode_paged at a paged drain's shape (8 rows, blocks of 16,
+    64 a row, a 16-slot prefix per row) against its plain version, and
+    bit for bit against the dense kernel on the gathered keys; in bf16
+    also the bank's slots read by id against the same slots gathered per
+    row (into ``cases``)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
 
-    B, Hq, Hkv, D, bs, maxb, n_p, nb = 8, 28, 4, 128, 16, 64, 16, 512
-    cases["flash_decode_paged"] = []
-    for dtype in (torch.bfloat16, torch.float32):
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    B, bs, maxb, n_p, nb = 8, 16, 64, 16, 512
+    q = randn(B, Hq, D, dtype=dtype)
+    k_pool, v_pool = randn(nb, bs, Hkv, D, dtype=dtype), \
+        randn(nb, bs, Hkv, D, dtype=dtype)
+    pk, pv = randn(B, n_p, Hkv, D, dtype=dtype), \
+        randn(B, n_p, Hkv, D, dtype=dtype)
+    # distinct blocks per row; past each row's written blocks the
+    # table holds the n_blocks sentinel, as the engine's tables do
+    perm = torch.randperm(nb, generator=gen, device="cuda")
+    table = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    qp = torch.randint(32, maxb * bs, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cols = torch.arange(maxb, device="cuda")[None]
+    table = torch.where(cols <= qp[:, None] // bs, table,
+                        torch.full_like(table, nb))
+    kw = dict(q_pos=qp, prefix_k=pk, prefix_v=pv)
+    got = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw)
+    want = fd.flash_decode_paged(q, k_pool, v_pool, table,
+                                 backend="torch", **kw)
+    torch.cuda.synchronize()
+    err = compare(f"flash_decode_paged {label}{dtype}", got, want, dtype)
 
-        q = randn(B, Hq, D)
-        k_pool, v_pool = randn(nb, bs, Hkv, D), randn(nb, bs, Hkv, D)
-        pk, pv = randn(B, n_p, Hkv, D), randn(B, n_p, Hkv, D)
-        # distinct blocks per row; past each row's written blocks the
-        # table holds the n_blocks sentinel, as the engine's tables do
-        perm = torch.randperm(nb, generator=gen, device="cuda")
-        table = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
-        qp = torch.randint(32, maxb * bs, (B,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-        cols = torch.arange(maxb, device="cuda")[None]
-        table = torch.where(cols <= qp[:, None] // bs, table,
-                            torch.full_like(table, nb))
-        kw = dict(q_pos=qp, prefix_k=pk, prefix_v=pv)
-        got = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw)
-        want = fd.flash_decode_paged(q, k_pool, v_pool, table,
-                                     backend="torch", **kw)
+    # the dense kernel on the same keys: cat(prefix, pool[table]), and
+    # pool[table] with the prefix bank read in place
+    kg, vg = fd.gather_pool(k_pool, v_pool, table)
+    slots = torch.arange(maxb * bs, dtype=torch.int32,
+                         device="cuda")[None].expand(B, -1).contiguous()
+    kd, vd, kpd = fd.with_prefix(kg, vg, slots, pk, pv)
+    kd, vd, kpd = kd.contiguous(), vd.contiguous(), kpd.contiguous()
+    dense = fd.flash_decode(q, kd, vd, q_pos=qp, kv_pos=kpd)
+    in_place = fd.flash_decode(q, kg, vg, q_pos=qp, kv_pos=slots,
+                               prefix_k=pk, prefix_v=pv)
+    torch.cuda.synchronize()
+    bits = (got.float() - dense.float()).abs().max().item()
+    check(torch.equal(got, dense),
+          f"flash_decode_paged {label}{dtype}: differs from the dense kernel "
+          f"on the gathered keys by {bits}")
+    bits_in_place = (got.float() - in_place.float()).abs().max().item()
+    check(torch.equal(got, in_place),
+          f"flash_decode_paged {label}{dtype}: differs from the dense kernel "
+          f"with the prefix in place by {bits_in_place}")
+
+    vis = (kpd <= qp[:, None]) | (kpd < 0)               # (B, T)
+    keys = int(vis.sum().item())
+    elt = q.element_size()
+    bms, by = bound(elt * (2 * q.numel() + 2 * keys * Hkv * D)
+                    + 4 * (B + B * maxb), 4 * D * keys * Hq, dtype)
+    qt = q[:, :, None]
+    mask = vis[:, None, None, :]
+
+    def library(gather: bool):
+        kk, vv = (kd, vd)
+        if gather:
+            kk, vv = fd.gather_pool(k_pool, v_pool, table)
+            kk = torch.cat([pk, kk], 1)
+            vv = torch.cat([pv, vv], 1)
+        return F.scaled_dot_product_attention(
+            qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    cases["flash_decode_paged"].append(dict(
+        shape=f"{label}B={B} bs={bs} maxb={maxb} blocks={nb} prefix={n_p} "
+              f"per-row Hq={Hq} Hkv={Hkv} D={D} per-row q_pos "
+              f"{str(dtype)[6:]}",
+        **decode_plan(dtype, D, n_p + maxb * bs, B, Hkv),
+        max_abs_err=err, tol=TOL[dtype], bits_vs_dense_kernel=bits,
+        bits_vs_dense_in_place=bits_in_place, visible_keys=keys,
+        ms=timer(lambda: fd.flash_decode_paged(q, k_pool, v_pool, table,
+                                               **kw)),
+        host_us=host_us(lambda: ops.flash_decode_paged(
+            q, k_pool, v_pool, table, **kw)),
+        dense_kernel_ms=timer(lambda: fd.flash_decode(
+            q, kg, vg, q_pos=qp, kv_pos=slots, prefix_k=pk,
+            prefix_v=pv)),
+        plain_ms=timer(lambda: fd.flash_decode_paged(
+            q, k_pool, v_pool, table, backend="torch", **kw)),
+        library_ms=timer(lambda: library(True)),
+        library_without_gather_ms=timer(lambda: library(False)),
+        bound_ms=bms, bound_by=by))
+    if dtype == torch.bfloat16:
+        # the paged bank drain's layout (phase 13): a 4-domain bank's
+        # stacked prefix slots read by the rows' ids give the bits of
+        # the same slots gathered per row; its host time a call
+        bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
+        ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+                           device="cuda")
+        kw_ids = dict(q_pos=qp, prefix_k=bk, prefix_v=bv,
+                      prefix_ids=ids)
+        by_id = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw_ids)
+        rows = fd.flash_decode_paged(q, k_pool, v_pool, table, q_pos=qp,
+                                     prefix_k=bk[ids.long()],
+                                     prefix_v=bv[ids.long()])
         torch.cuda.synchronize()
-        err = compare(f"flash_decode_paged {dtype}", got, want, dtype)
-
-        # the dense kernel on the same keys: cat(prefix, pool[table]), and
-        # pool[table] with the prefix bank read in place
-        kg, vg = fd.gather_pool(k_pool, v_pool, table)
-        slots = torch.arange(maxb * bs, dtype=torch.int32,
-                             device="cuda")[None].expand(B, -1).contiguous()
-        kd, vd, kpd = fd.with_prefix(kg, vg, slots, pk, pv)
-        kd, vd, kpd = kd.contiguous(), vd.contiguous(), kpd.contiguous()
-        dense = fd.flash_decode(q, kd, vd, q_pos=qp, kv_pos=kpd)
-        in_place = fd.flash_decode(q, kg, vg, q_pos=qp, kv_pos=slots,
-                                   prefix_k=pk, prefix_v=pv)
-        torch.cuda.synchronize()
-        bits = (got.float() - dense.float()).abs().max().item()
-        check(torch.equal(got, dense),
-              f"flash_decode_paged {dtype}: differs from the dense kernel "
-              f"on the gathered keys by {bits}")
-        bits_in_place = (got.float() - in_place.float()).abs().max().item()
-        check(torch.equal(got, in_place),
-              f"flash_decode_paged {dtype}: differs from the dense kernel "
-              f"with the prefix in place by {bits_in_place}")
-
-        vis = (kpd <= qp[:, None]) | (kpd < 0)               # (B, T)
-        keys = int(vis.sum().item())
-        elt = q.element_size()
-        bms, by = bound(elt * (2 * q.numel() + 2 * keys * Hkv * D)
-                        + 4 * (B + B * maxb), 4 * D * keys * Hq, dtype)
-        qt = q[:, :, None]
-        mask = vis[:, None, None, :]
-
-        def library(gather: bool):
-            kk, vv = (kd, vd)
-            if gather:
-                kk, vv = fd.gather_pool(k_pool, v_pool, table)
-                kk = torch.cat([pk, kk], 1)
-                vv = torch.cat([pv, vv], 1)
-            return F.scaled_dot_product_attention(
-                qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
-                enable_gqa=True)
-
-        cases["flash_decode_paged"].append(dict(
-            shape=f"B={B} bs={bs} maxb={maxb} blocks={nb} prefix={n_p} "
-                  f"per-row Hq={Hq} Hkv={Hkv} D={D} per-row q_pos "
-                  f"{str(dtype)[6:]}",
-            **decode_plan(dtype, D, n_p + maxb * bs, B, Hkv),
-            max_abs_err=err, tol=TOL[dtype], bits_vs_dense_kernel=bits,
-            bits_vs_dense_in_place=bits_in_place, visible_keys=keys,
-            ms=timer(lambda: fd.flash_decode_paged(q, k_pool, v_pool, table,
-                                                   **kw)),
-            host_us=host_us(lambda: ops.flash_decode_paged(
-                q, k_pool, v_pool, table, **kw)),
-            dense_kernel_ms=timer(lambda: fd.flash_decode(
-                q, kg, vg, q_pos=qp, kv_pos=slots, prefix_k=pk,
-                prefix_v=pv)),
-            plain_ms=timer(lambda: fd.flash_decode_paged(
-                q, k_pool, v_pool, table, backend="torch", **kw)),
-            library_ms=timer(lambda: library(True)),
-            library_without_gather_ms=timer(lambda: library(False)),
-            bound_ms=bms, bound_by=by))
-        if dtype == torch.bfloat16:
-            # the paged bank drain's layout (phase 13): a 4-domain bank's
-            # stacked prefix slots read by the rows' ids give the bits of
-            # the same slots gathered per row; its host time a call
-            bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
-            ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
-                               device="cuda")
-            kw_ids = dict(q_pos=qp, prefix_k=bk, prefix_v=bv,
-                          prefix_ids=ids)
-            by_id = fd.flash_decode_paged(q, k_pool, v_pool, table, **kw_ids)
-            rows = fd.flash_decode_paged(q, k_pool, v_pool, table, q_pos=qp,
-                                         prefix_k=bk[ids.long()],
-                                         prefix_v=bv[ids.long()])
-            torch.cuda.synchronize()
-            check(torch.equal(by_id, rows),
-                  "flash_decode_paged: the bank read by id differs from its "
-                  "slots gathered per row by "
-                  f"{(by_id.float() - rows.float()).abs().max().item()}")
-            cases["flash_decode_paged"][-1]["host_us_bank_by_id"] = host_us(
-                lambda: ops.flash_decode_paged(q, k_pool, v_pool, table,
-                                               **kw_ids))
-        log(f"kernel flash_decode_paged {cases['flash_decode_paged'][-1]}")
+        check(torch.equal(by_id, rows),
+              f"flash_decode_paged {label}: the bank read by id differs "
+              "from its slots gathered per row by "
+              f"{(by_id.float() - rows.float()).abs().max().item()}")
+        cases["flash_decode_paged"][-1]["host_us_bank_by_id"] = host_us(
+            lambda: ops.flash_decode_paged(q, k_pool, v_pool, table,
+                                           **kw_ids))
+    log(f"kernel flash_decode_paged {cases['flash_decode_paged'][-1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1491,8 +1550,7 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ops
 
-    def randn(*shape, dtype=torch.bfloat16, s=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
+    randn = randn_of(gen)
 
     # the HFSL round's projections: M = 4 x 256 tokens, K = d_model, q
     # (N 3584) and v (N 512), r = 8
@@ -1699,13 +1757,16 @@ def round_launches(cfg, n_clusters: int, steps: int) -> dict:
     each scan's forward and backward kernel launch once a sub-layer a
     step, and flash_attention once an attention sub-layer a step (its
     backward is torch); lora_matmul_bwd once a LoRA target an attention
-    sub-layer a step; lora_matmul at least once where there is
-    attention; no serving kernel."""
+    sub-layer a step (a moe sub-layer is one: its FFN launches no kernel
+    of the port); lora_matmul at least once where there is attention; no
+    serving kernel."""
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import groups_for
+    from repro_torch.models.transformer import ATTN_KINDS, groups_for
     cs = n_clusters * steps
-    count = {k: sum(kinds.count(k) * n for _, kinds, n in groups_for(cfg))
-             for k in ("ssm", "rglru", "attn")}
+    count = {k: sum(sum(kinds.count(x) for x in xs) * n
+                    for _, kinds, n in groups_for(cfg))
+             for k, xs in (("ssm", ("ssm",)), ("rglru", ("rglru",)),
+                           ("attn", ATTN_KINDS))}
     want = dict.fromkeys(ops.launch_counts(), 0)
     want.update(selective_scan=count["ssm"] * cs,
                 selective_scan_bwd=count["ssm"] * cs,
@@ -1841,10 +1902,6 @@ def train_phases(seed: int) -> dict:
     import dataclasses
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core import hfsl
-    from repro_torch.kernels import ops
-    from repro_torch.models import model as M
-    from repro_torch.optim.optimizers import adamw, sgd
 
     # phase 9: qwen2-7b at its published size, as launch/train.py's
     # build_cfg builds it for --task classify (a 5-class head); the data's
@@ -1869,15 +1926,28 @@ def train_phases(seed: int) -> dict:
         task_args=(5, 64, 48, 0.6), seed=seed)
     no_pad_copies("phase 10")
 
-    # phase 11: f32 2-layer full-width qwen2-7b, kernels against plain.
-    # SGD with momentum: AdamW's m / (sqrt(v) + eps) turns a gradient
-    # difference d on an element whose gradient is near eps into an update
-    # difference of up to lr * d / eps (5e5 d at lr 5e-3), so an AdamW
-    # round measures Adam's conditioning, not the kernels; it is run and
-    # recorded, not checked. An absolute 1e-4 is blind on leaves whose
-    # SGD updates are smaller than that, so each leaf's update must also
-    # agree within 1e-3 of the leaf's largest update.
-    small = cfg.with_(n_layers=2, dtype="float32")
+    # phase 11: f32 2-layer full-width qwen2-7b, kernels against plain
+    rec["train_e2e"] = f32_round_exactness(
+        "e2e train", cfg.with_(n_layers=2, dtype="float32"), seed)
+    return rec
+
+
+def f32_round_exactness(name: str, small, seed: int) -> dict:
+    """Phases 11 and 35: a 2-cluster, 3-step HFSL round of the f32 config
+    ``small`` through the kernels and through the plain versions.
+    SGD with momentum: AdamW's m / (sqrt(v) + eps) turns a gradient
+    difference d on an element whose gradient is near eps into an update
+    difference of up to lr * d / eps (5e5 d at lr 5e-3), so an AdamW
+    round measures Adam's conditioning, not the kernels; it is run and
+    recorded, not checked. An absolute 1e-4 is blind on leaves whose
+    SGD updates are smaller than that, so each leaf's update must also
+    agree within 1e-3 of the leaf's largest update."""
+    from repro_torch.core import hfsl
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import groups_for
+    from repro_torch.optim.optimizers import adamw, sgd
+
     state = hfsl.init_hfsl_state(seed, small, 2, sgd(0.1, momentum=0.9),
                                  M.init, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
@@ -1887,10 +1957,12 @@ def train_phases(seed: int) -> dict:
                                  device="cuda") * 0.1
     bank = classify_bank((5, 1000, 256, 0.5), 2, 4, 3, seed,
                          small.peft.head_dim_out)
+    n_layers = sum(n for _, _, n in groups_for(small))
+    n_targets = len(small.peft.lora_targets)
     out = {}
-    for name, opt in (("sgd", sgd(0.1, momentum=0.9)),
-                      ("adamw", adamw(5e-3))):
-        if name == "adamw":
+    for opt_name, opt in (("sgd", sgd(0.1, momentum=0.9)),
+                          ("adamw", adamw(5e-3))):
+        if opt_name == "adamw":
             state = {**state, "opt": hfsl.init_opt_state(
                 opt, state["adapters_c"])}
         rnd = hfsl.make_hfsl_round(small, opt, M.classify_loss, steps=3,
@@ -1898,28 +1970,27 @@ def train_phases(seed: int) -> dict:
         ops.reset_launch_counts()
         ks, km = rnd(state, bank.arrays, 0)
         n = ops.launch_counts()
-        check(n["lora_matmul_bwd"] == 2 * 2 * 2 * 3,
-              f"e2e train: launches {n}")
+        check(n["lora_matmul_bwd"] == n_targets * n_layers * 2 * 3,
+              f"{name}: launches {n}")
         with ops.backend("torch"):
             with plain_calls() as plain:
                 ps, pm = rnd(state, bank.arrays, 0)
         check(all(v > 0 for v in plain.values()),
               f"the plain round did not run the plain versions: {plain}")
         torch.cuda.synchronize()
-        out[name] = round_exactness(ks, km, ps, pm, state)
+        out[opt_name] = round_exactness(ks, km, ps, pm, state)
     r = out["sgd"]
-    check(exact_enough(r), f"e2e train f32 (sgd): kernels vs plain {r}")
-    log(f"e2e train: 2-layer f32 qwen2-7b round (2 clusters, 3 steps, sgd "
-        f"0.1 momentum 0.9): kernels vs plain adapters max_abs_err "
-        f"{r['adapters_max_abs_err']:.3e}, losses "
+    check(exact_enough(r), f"{name} f32 (sgd): kernels vs plain {r}")
+    log(f"{name}: {n_layers}-layer f32 {small.name} round (2 clusters, 3 "
+        f"steps, sgd 0.1 momentum 0.9): kernels vs plain adapters "
+        f"max_abs_err {r['adapters_max_abs_err']:.3e}, losses "
         f"{r['loss_max_abs_err']:.3e} (tol 1e-4); largest per-leaf update "
         f"difference {r['update_max_rel_err']:.3e} of the leaf's largest "
         f"update (tol 1e-3; largest update {r['update_max']:.3e}); the same "
         f"round with adamw 5e-3 (recorded): {out['adamw']}")
-    rec["train_e2e"] = dict(out, tol=1e-4, update_rel_tol=1e-3)
     del state, ks, ps
     torch.cuda.empty_cache()
-    return rec
+    return dict(out, tol=1e-4, update_rel_tol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -2939,16 +3010,26 @@ def timed(c: dict, timer: Timer, kernel: str, fn, plain, terms: dict,
              **{f"{k}_ms": v for k, v in terms.items()})
 
 
-def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd) -> None:
+def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd,
+              terms: dict, ck_bytes: int) -> None:
     """The forward kernel at a backward case's shape, without and with its
     checkpoint output (events ms and device microseconds), into case
-    ``c``: what storing the checkpoints costs a training forward."""
+    ``c``: what storing the checkpoints costs a training forward. Each
+    with its bound, from ``terms`` (ms each: the forward's rule of phase
+    16 or 21) and, with the checkpoints, their ``ck_bytes`` written
+    once."""
     from scripts.time_lora_kernels import device_us
-    for key, fn in (("fwd", plain_fwd), ("fwd_ck", ck_fwd)):
+    ck_terms = dict(terms, bytes=terms["bytes"] + ck_bytes / PEAK_BYTES * 1e3)
+    for key, fn, t in (("fwd", plain_fwd, terms),
+                       ("fwd_ck", ck_fwd, ck_terms)):
         dev = device_us(fn, timer.flush)
         c[f"{key}_ms"] = timer(fn)
         c[f"{key}_device_us"] = sum(v for k, v in dev.items()
                                     if kernel in k) or None
+        c[f"{key}_bound_ms"] = max(t.values())
+        c[f"{key}_bound_by"] = "bytes" if t["bytes"] >= max(t.values()) \
+            else "operations"
+        c[f"{key}_bound_terms_ms"] = t
 
 
 def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
@@ -3062,9 +3143,17 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                        exp=exps / PEAK_EXP * 1e3,
                        flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
                   dict(bytes="bytes", exp="operations", flops="operations"))
+            # the forward's terms by phase 16's rule
+            fwd_bytes = elt * (3 * n + 2 * B * S * N) + 4 * (
+                D_ * N + D_ + n_h * (2 if h0_kind != "none" else 1))
             fwd_times(c, timer, "selective_scan_kernel",
                       lambda: ss._launch(*args),
-                      lambda: ss._launch(*args, ck=ck))
+                      lambda: ss._launch(*args, ck=ck),
+                      dict(bytes=fwd_bytes / PEAK_BYTES * 1e3,
+                           exp=exps / PEAK_EXP * 1e3,
+                           flops=(6 * exps + 3 * n)
+                           / PEAK_FLOPS[torch.float32] * 1e3),
+                      ck.numel() * ck.element_size())
         cases["selective_scan_bwd"].append(c)
         log(f"kernel selective_scan_bwd {c}")
 
@@ -3162,9 +3251,16 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                        mufu=mufu / PEAK_EXP * 1e3,
                        flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
                   dict(bytes="bytes", mufu="operations", flops="operations"))
+            # the forward's terms by phase 21's rule
+            fwd_bytes = 4 * elt * n + 4 * W_ + 4 * B * W_ * (
+                1 if h0_kind == "none" else 2)
             fwd_times(c, timer, "rglru_scan_kernel",
                       lambda: rg._launch(*args, 8.0),
-                      lambda: rg._launch(*args, 8.0, ck=ck))
+                      lambda: rg._launch(*args, 8.0, ck=ck),
+                      dict(bytes=fwd_bytes / PEAK_BYTES * 1e3,
+                           mufu=6 * n / PEAK_EXP * 1e3,
+                           flops=12 * n / PEAK_FLOPS[torch.float32] * 1e3),
+                      ck.numel() * ck.element_size())
         cases["rglru_scan_bwd"].append(c)
         log(f"kernel rglru_scan_bwd {c}")
 
@@ -3278,9 +3374,7 @@ def lora_bwd_hybrid_cases(gen: torch.Generator, timer: Timer,
     (N 2560) and v (N 256) projections of the round (M 1024, K 2560, r 8)
     against its plain version, beside phase 8's qwen2-7b shapes (into
     ``cases``)."""
-    def randn(*shape, dtype=torch.bfloat16, s=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
-
+    randn = randn_of(gen)
     for N, proj in ((2560, "q"), (256, "v")):
         cases["lora_matmul_bwd"].append(lora_bwd_case(
             randn, timer, 1024, 2560, N, 8, torch.bfloat16,
@@ -3519,7 +3613,17 @@ def relay_phase(cfg, backbone: dict, seed: int, tmp: str) -> tuple:
     changed = sum(not np.array_equal(a.tokens, b.tokens)
                   for a, b, d in zip(pre, post, qdoms) if d == d0)
     check(changed >= 1, "relay: no d0 request changed after the absorb")
-    host_ms(times, "cloud_aggregate", relay.cloud_aggregate)
+    agg = host_ms(times, "cloud_aggregate", relay.cloud_aggregate)
+    # every method hands back a clone: an in-place step on the returned
+    # tree leaves the relay's cloud as it was; what the clone of one edge
+    # tree costs, the part of each call's host time it adds
+    cloud_now = [x.clone() for x in _leaves(relay.cloud)]
+    for x in _leaves(agg):
+        x.add_(1.0)
+    check(bits_equal(relay.cloud, cloud_now),
+          "relay: the aggregate handed back aliases the relay's cloud")
+    host_ms(times, "clone", lambda: [x.clone()
+                                     for x in _leaves(relay.edges[d0])])
 
     tb = tree_bytes(cloud)
     ledger = relay.ledger
@@ -3961,6 +4065,415 @@ def knowledge_flow(seed: int, hfsl_step_s: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 33 to 36: the moe family, granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+# granite-moe-1b-a400m's published widths: layers, d_model, heads, kv
+# heads, head dim, experts, top-k, d_ff_expert, vocab, tied embeddings
+GRANITE = (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True)
+
+
+def granite_config(**kw):
+    from repro_torch.configs.base import get_config
+    cfg = get_config("granite-moe-1b-a400m")
+    m = cfg.moe
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim_, m.n_experts, m.top_k, m.d_ff_expert,
+           cfg.vocab_size, cfg.tie_embeddings) == GRANITE
+          and cfg.dtype == "bfloat16",
+          "granite-moe-1b-a400m is not at its published size")
+    return cfg.with_(**kw) if kw else cfg
+
+
+def no_dropping(cfg):
+    """``capacity_factor=-1``: every expert takes all T k assignments, so
+    a ragged wave routes each row as it would alone."""
+    return cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=-1))
+
+
+def moe_step_launches(cfg, bank: bool, paged: bool) -> dict:
+    """The launches one decode step must make: per layer one decode call
+    (the paged kernel on a paged cache) and one LoRA launch a target (the
+    rows kernel from a bank); the moe FFN (router, sort, dispatch, three
+    bmm, combine) launches no kernel of the port."""
+    from repro_torch.kernels import ops
+    n, t = cfg.n_layers, len(cfg.peft.lora_targets)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["flash_decode_paged" if paged else "flash_decode"] = n
+    want["lora_bgmv_rows" if bank else "lora_matmul"] = n * t
+    return want
+
+
+def moe_drain_launches_ok(cfg, launches: dict, stats, what: str,
+                          bank: bool, admits: dict | None = None) -> int:
+    """A drain's launches: per prefill or refill (``stats.waves`` on a
+    dense cache; ``admits["dense"]`` on a paged one) flash_attention once
+    a layer and the prefill's LoRA kernel once a target a layer; per
+    prefix-hit suffix (``admits["suffix"]``, paged) the LoRA kernel once
+    a target a layer (its attention over the pool is torch's, as the
+    reference's is XLA); per decode step :func:`moe_step_launches`.
+    Returns the decode steps, read off the decode launches."""
+    n, t = cfg.n_layers, len(cfg.peft.lora_targets)
+    paged = admits is not None
+    steps, rest = divmod(
+        launches["flash_decode_paged" if paged else "flash_decode"], n)
+    want = moe_step_launches(cfg, bank, paged=paged)
+    want = {k: v * steps for k, v in want.items()}
+    dense = admits["dense"] if paged else stats.waves
+    seqs = dense + (admits["suffix"] if paged else 0)
+    want["flash_attention"] = n * dense
+    want["lora_bgmv_seq" if bank else "lora_matmul"] += n * t * seqs
+    check(rest == 0 and steps > 0 and launches == want,
+          f"{what}: launches {launches}, predicted {want} ({stats.waves} "
+          f"waves, admissions {admits}, {steps} decode steps)")
+    return steps
+
+
+class admissions:
+    """Counts the paged engine's admissions while active: ``dense``, a
+    prefill or in-wave refill of whole prompts (``model.paged_wave_prefill``
+    / ``paged_refill``); ``suffix``, the prefix-hit rows' suffix chunk
+    (``model.paged_suffix``)."""
+    KINDS = {"paged_wave_prefill": "dense", "paged_refill": "dense",
+             "paged_suffix": "suffix"}
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self.counts = {"dense": 0, "suffix": 0}
+        self.saved = {f: getattr(M, f) for f in self.KINDS}
+        for f, kind in self.KINDS.items():
+            setattr(M, f, self._counted(self.saved[f], kind))
+        return self.counts
+
+    def _counted(self, fn, kind):
+        def counted(*a, **k):
+            self.counts[kind] += 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        for f, fn in self.saved.items():
+            setattr(M, f, fn)
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device kernels it
+    launches (every one, the port's and torch's), their summed device
+    time, and the five largest by device time (us)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:5]
+    return dict(kernels=sum(e.count for e in evs),
+                device_us=sum(e.device_time_total for e in evs),
+                top={e.key[:60]: round(e.device_time_total, 1) for e in top})
+
+
+def routing_spy():
+    """Records the experts ``moe.top_k`` picks, call by call, while active
+    (the moe layers' routing decisions)."""
+    from repro_torch.models import moe
+
+    class Spy:
+        def __enter__(self):
+            self.picks, self.fn = [], moe.top_k
+
+            def spy(probs, k):
+                v, i = self.fn(probs, k)
+                self.picks.append(i)
+                return v, i
+            moe.top_k = spy
+            return self.picks
+
+        def __exit__(self, *exc):
+            moe.top_k = self.fn
+    return Spy()
+
+
+def routing_agreement(a: list, b: list) -> float:
+    """The share of (token, slot) routing decisions two runs share: per
+    token and layer, the experts both picked over k."""
+    same = total = 0
+    for x, y in zip(a, b):
+        xs, ys = x.sort(-1).values, y.sort(-1).values
+        hit = (xs[..., :, None] == ys[..., None, :]).any(-1)
+        same += int(hit.sum())
+        total += hit.numel()
+    return same / max(total, 1)
+
+
+def moe_path(seed: int, total: dict) -> dict:
+    """Phases 33 and 34 (full depth): granite-moe-1b-a400m at its
+    published size drains phase 4's queue shape single-tenant, from a
+    4-domain bank and paged with prefix sharing from the bank, launches
+    as predicted; two bf16 prefills of one batch give the same bits; the
+    kernel path's logits and routing against the plain path's,
+    recorded."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    cfg = granite_config()
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params["backbone"]))
+    check(n_params == cfg.param_count(),
+          f"moe: {n_params} params, param_count {cfg.param_count()}")
+    log(f"moe: granite-moe-1b-a400m init {n_params / 1e9:.3f} B params in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed)
+    reqs = queue(rng, 16, (32, 513), (16, 65), cfg.vocab_size)
+    rec = {"config": f"granite-moe-1b-a400m {cfg.n_layers} layers d "
+                     f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+                     f"{cfg.head_dim_} experts {cfg.moe.n_experts} top-"
+                     f"{cfg.moe.top_k} d_ff_expert {cfg.moe.d_ff_expert} "
+                     f"{cfg.dtype}, {n_params} params"}
+
+    # one decode step of an 8-slot wave, its launches against the
+    # prediction and its time (host clock, synchronised)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 64)),
+                           device="cuda")
+    _, caches = M.prefill(params, {"tokens": toks}, cfg, max_len=128)
+    tok = toks[:, -1:].to(torch.int32)
+    pos = torch.full((8,), 64, dtype=torch.int32, device="cuda")
+
+    def step():
+        return M.decode_step(params, tok, caches, pos, cfg)
+
+    step()
+    _, n = counted(total, step)
+    want = moe_step_launches(cfg, bank=False, paged=False)
+    check(n == want, f"moe: a decode step launched {n}, predicted {want}")
+    step_times: dict = {}
+    for _ in range(5):
+        host_ms(step_times, "step", step)
+    step_ms = float(np.median(step_times["step"]))
+    log(f"moe: one decode step of 8 slots launches {n} (predicted "
+        f"{ {k: v for k, v in want.items() if v} }, every other kernel 0); "
+        f"{step_ms:.2f} ms a step (median of 5, host clock, synchronised)")
+    prof = step_profile(step)
+    log(f"moe: one decode step under torch.profiler: {prof['kernels']} "
+        f"device kernels, {prof['device_us']:.0f} us of device time "
+        f"({prof['device_us'] / 1e3 / step_ms:.3f} of the step's host ms); "
+        f"largest {prof['top']}")
+    rec.update(step_launches=n, step_ms=step_ms, step_profile=prof)
+    del caches
+
+    # phase 33: the drains
+    torch.cuda.reset_peak_memory_stats()
+    plain: dict = {}
+    with plain_calls(serving=True) as p:
+        (comps, stats), launches = counted(
+            total, lambda: drain(cfg, params, reqs, slots=8))
+    plain["single"] = dict(p)
+    r = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, "moe")
+    r["decode_steps"] = moe_drain_launches_ok(cfg, launches, stats, "moe",
+                                              bank=False)
+    check(stats.waves > 1, "moe: no in-wave refill happened")
+    log(f"moe: single-tenant {drain_line(r)}; per-token p50 "
+        f"{r['tok_latency_p50_s'] * 1e3:.1f} ms")
+    rec["single"] = r
+
+    bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
+    sp = bank.serving_params(params["backbone"])
+    doms = [bank.domains[int(i)] for i in np.random.default_rng(
+        seed + 10).integers(0, N_DOMAINS, len(reqs))]
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls(serving=True) as p:
+        (bcomps, bstats), bl = counted(total, lambda: drain(
+            cfg, sp, reqs, slots=8, bank=bank, domains=doms))
+    plain["bank"] = dict(p)
+    br = drain_record(bstats, bl, torch.cuda.max_memory_allocated())
+    served_ok(cfg, bcomps, reqs, "moe bank")
+    br["decode_steps"] = moe_drain_launches_ok(cfg, bl, bstats, "moe bank",
+                                               bank=True)
+    log(f"moe bank: {N_DOMAINS} domains, mix "
+        f"{[doms.count(d) for d in bank.domains]}: {drain_line(br)}")
+    rec["bank"] = br
+
+    preqs, pdoms = paged_queue(np.random.default_rng(seed + 20), bank, 16,
+                               (32, 257), (16, 65), cfg.vocab_size, 256)
+    eng = DecodeEngine(cfg, slots=8, bank=bank, device="cuda",
+                       paged=PagedSpec(n_blocks=512, block_size=16,
+                                       share_prefix=True))
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls(serving=True) as p, admissions() as adm:
+        (pcomps, pstats), pl = counted(total, lambda: serve_on(
+            eng, sp, preqs, pdoms))
+    plain["paged"] = dict(p)
+    pr = drain_record(pstats, pl, torch.cuda.max_memory_allocated())
+    served_ok(cfg, pcomps, preqs, "moe paged")
+    p_steps = moe_drain_launches_ok(cfg, pl, pstats, "moe paged", bank=True,
+                                    admits=adm)
+    check(pstats.prefix_hits > 0 and adm["suffix"] > 0,
+          f"moe paged: no prefix was shared ({adm})")
+    check(eng._alloc.used_blocks == 0, "moe paged: blocks still held")
+    eng._alloc.check()
+    pr.update(decode_steps=p_steps, admissions=dict(adm),
+              prefix_hits=pstats.prefix_hits,
+              prefix_hit_tokens=pstats.prefix_hit_tokens,
+              pool_peak_blocks=pstats.pool_peak_blocks)
+    log(f"moe paged: {N_DOMAINS} domains x 4 requests sharing a 256-token "
+        f"system prompt: {drain_line(pr)}; prefix hits {pstats.prefix_hits}"
+        f" ({pstats.prefix_hit_tokens} tokens), pool peak "
+        f"{pstats.pool_peak_blocks} blocks; {adm['dense']} dense "
+        f"admissions and {adm['suffix']} suffix chunks, launches as "
+        f"predicted")
+    rec["paged"] = pr
+    check(all(v == 0 for d in plain.values() for v in d.values()),
+          f"moe: a plain version ran on the card: {plain}")
+    del eng, bank, sp
+    no_pad_copies("phase 33")
+
+    # phase 34, full depth: the dispatch and combine repeat their bits;
+    # the kernel path against the plain path, recorded (a bf16 ulp in
+    # attention can flip the 8th expert of a token)
+    ptoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 256)),
+                            device="cuda")
+    with routing_spy() as kpicks:
+        (k1, _), _ = counted(total, lambda: M.prefill(
+            params, {"tokens": ptoks}, cfg))
+    k2, _ = M.prefill(params, {"tokens": ptoks}, cfg)
+    check(torch.equal(k1, k2), "moe: two bf16 prefills of one batch differ")
+    with ops.backend("torch"), routing_spy() as ppicks:
+        pl_, _ = M.prefill(params, {"tokens": ptoks}, cfg)
+    cos = F.cosine_similarity(k1.flatten(1), pl_.flatten(1), dim=1)
+    top1 = (k1.argmax(-1) == pl_.argmax(-1)).float().mean().item()
+    agree = routing_agreement(kpicks, ppicks)
+    check(bool(torch.isfinite(k1).all()) and len(kpicks) == cfg.n_layers,
+          f"moe: full-depth prefill logits not finite, or {len(kpicks)} "
+          f"routed layers")
+    log(f"moe: full-depth bf16 prefill (4 x 256): two runs bit-equal; "
+        f"kernels vs plain, recorded: cosine per row "
+        f"{['%.6f' % c for c in cos.tolist()]}, top-1 agreement {top1:.4f},"
+        f" routing decisions shared {agree:.6f}")
+    rec.update(prefill_bits_repeat=True,
+               prefill_logits_cosine=cos.tolist(), prefill_top1=top1,
+               routing_agreement=agree)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_exactness(seed: int, total: dict) -> dict:
+    """Phase 34 at 2 layers: granite at full width in f32 with no
+    dropping: a ragged drain through the kernels gives the plain path's
+    tokens and each request's solo tokens, and the paged drain with
+    prefix sharing gives the dense drain's."""
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    cfg = no_dropping(granite_config(n_layers=2, dtype="float32"))
+    params = M.init(cfg, seed, device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    system = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    reqs = [(np.concatenate([system, p]), g) for p, g in queue(
+        rng, 8, (8, 97), (4, 17), cfg.vocab_size)]
+    (kern, st), _ = counted(total, lambda: drain(cfg, params, reqs,
+                                                 slots=4))
+    with ops.backend("torch"):
+        plain, _ = drain(cfg, params, reqs, slots=4)
+    eng = DecodeEngine(cfg, slots=4, device="cuda",
+                       paged=PagedSpec(n_blocks=128, block_size=16,
+                                       share_prefix=True))
+    (paged, pst), pn = counted(total, lambda: serve_on(eng, params, reqs))
+    check(pn["flash_decode_paged"] > 0 and pn["flash_decode"] == 0
+          and pst.prefix_hits > 0, f"moe e2e paged: launches {pn}, prefix "
+                                   f"hits {pst.prefix_hits}")
+    for i, ((p, g), a, b, c) in enumerate(zip(reqs, kern, plain, paged)):
+        solo = M.generate(params, cfg, torch.as_tensor(p[None],
+                                                       device="cuda"),
+                          gen=g)[0].cpu().numpy()
+        check(np.array_equal(a.tokens, b.tokens)
+              and np.array_equal(a.tokens, c.tokens)
+              and np.array_equal(a.tokens, solo),
+              f"moe e2e f32: request {i}: kernels {a.tokens}, plain "
+              f"{b.tokens}, paged {c.tokens}, solo {solo}")
+    log(f"moe e2e: 2-layer f32 granite (no dropping), {len(reqs)} requests "
+        f"sharing a 64-token prefix, {st.waves} waves: kernel tokens == "
+        f"plain tokens == paged ({pst.prefix_hits} prefix hits) == solo "
+        f"generate")
+    del params
+    torch.cuda.empty_cache()
+    return dict(requests=len(reqs), waves=st.waves, tokens_equal=True,
+                paged_prefix_hits=pst.prefix_hits)
+
+
+def moe_kernel_cases(timer: Timer, cases: dict, seed: int) -> None:
+    """Phase 36: kernels 1 to 7 at granite-moe-1b-a400m's shapes on the
+    moe path, in bf16, each against its plain version, with its time, one
+    library call's and its bound (into ``cases``): lora_matmul at K 1024
+    to N 1024 (q) and 512 (v) at decode (8 rows) and prefill (8 x 512);
+    flash_attention at head dim 64 with 16 / 8 heads (GQA group 2), a
+    512-token prefill behind 16 prefix slots; flash_decode at the same
+    heads against a 1024-slot cache and the 16-slot prefix bank;
+    flash_decode_paged at the same heads in blocks of 16; the bank's
+    lora_bgmv_rows (8 rows) and lora_bgmv_seq (8 x 512) at K 1024 to N
+    1024 and 512 over 4 slots; lora_matmul_bwd at the round's M 1024, K
+    1024 to N 1024 and 512."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 36)
+    randn = randn_of(gen)
+    dtype, K, tag = torch.bfloat16, 1024, "granite "
+    for M_, N in ((8, 1024), (8, 512), (4096, 1024), (4096, 512)):
+        lora_case(cases, randn, timer, M_, K, N, dtype, tag)
+    B, S, n_p, Hq, Hkv, D = 8, 512, 16, 16, 8, 64
+    attn_case(cases, randn, timer, B, S, n_p, Hq, Hkv, D, dtype,
+              label="granite causal")
+    Tc = 1024
+    q, kc, vc, qp, kpc, pk, pv = decode_inputs(randn, gen, B, Tc, n_p, Hq,
+                                               Hkv, D, dtype)
+    decode_case(cases, timer, q, kc, vc, qp, kpc, pk, pv, 0,
+                f"granite B={B} T={Tc}+{n_p} prefix Hq={Hq} Hkv={Hkv} "
+                f"D={D} per-row q_pos")
+    paged_case(cases, randn, gen, timer, Hq, Hkv, D, dtype, tag)
+    for name, lead in (("lora_bgmv_rows", (8,)), ("lora_bgmv_seq", (8, 512))):
+        for N in (1024, 512):
+            bgmv_case(cases, randn, timer, name, lead, K, N, dtype, tag)
+    for N, proj in ((1024, "q"), (512, "v")):
+        cases["lora_matmul_bwd"].append(lora_bwd_case(
+            randn, timer, 1024, K, N, 8, dtype, f" (granite's {proj})"))
+
+
+def moe_phases(seed: int) -> dict:
+    """Phases 33 to 35 on granite-moe-1b-a400m; every launch is counted
+    into the ``moe`` path's record."""
+    total: dict = {}
+    t0 = time.perf_counter()
+    rec = moe_path(seed, total)
+    rec["e2e"] = moe_exactness(seed, total)
+    # phase 35: one HFSL round at the published size, as phase 9 runs
+    # qwen2-7b (a 5-class head, 2 clusters, 4 steps, batch 4, seq 256),
+    # then an f32 2-layer round kernels against plain
+    cfg = granite_config(peft=dataclasses.replace(
+        granite_config().peft, head_dim_out=5))
+    tr = train_round("moe train", cfg, n_clusters=2, steps=4, batch=4,
+                     sync_every=2, task_args=(5, 1000, 256, 0.5), seed=seed)
+    for k, v in tr["launches"].items():
+        total[k] = total.get(k, 0) + v
+    no_pad_copies("phase 35")
+    rec["train"] = tr
+    rec["train_e2e"] = f32_round_exactness(
+        "moe train e2e", cfg.with_(n_layers=2, dtype="float32"), seed)
+    rec["launches"] = total
+    rec["s"] = time.perf_counter() - t0
+    log(f"moe (phases 33-35): {rec['s']:.1f}s; launches {total}")
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4032,6 +4545,7 @@ def main(argv=None) -> int:
     attn256_cases(gen, timer, cases)
     rec["scan_bwd"] = scan_bwd_cases(gen, timer, cases)
     lora_bwd_hybrid_cases(gen, timer, cases)
+    moe_kernel_cases(timer, cases, args.seed)
     rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -4051,13 +4565,14 @@ def main(argv=None) -> int:
     rec.update(knowledge_flow(args.seed, rec["train"]["step_s"]))
     rec["flow_s"] = time.perf_counter() - t_flow
     log(f"knowledge flow (phases 29-32): {rec['flow_s']:.1f}s")
+    rec["moe"] = moe_phases(args.seed)
 
     kernels = []
     for name, cs in cases.items():
         head = cs[0]
         path = PATH_OF.get(name, "main")
         by_path = {p: rec[p]["launches"].get(name, 0)
-                   for p in (path,) + FLOW_PATHS}
+                   for p in (path,) + FLOW_PATHS + ("moe",)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

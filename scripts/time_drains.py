@@ -4,7 +4,7 @@ GPU, through that tree's own ``chip_smoke.py``.
 
     PYTHONPATH=<tree>/src python3 scripts/time_drains.py --tree <tree> \\
         [--label NAME] [--seed 0] \\
-        [--paths main,mamba,hybrid,train,scantrain]
+        [--paths main,mamba,hybrid,train,scantrain,relay,moe]
 
 Runs the tree's ``main_path`` (phases 4, 5, 13 and 19: qwen2-7b at its
 published size single-tenant, from a 4-domain bank, paged from the bank,
@@ -12,7 +12,11 @@ speculative), ``mamba_path`` (phase 17: falcon-mamba-7b single-tenant and
 from a bank), ``hybrid_path`` (phase 23: recurrentgemma-2b single-tenant
 and from a bank), ``train_phases`` (phases 9 to 11: the HFSL rounds) and
 ``scan_train_phases`` (phases 26 and 27: the falcon-mamba-7b and
-recurrentgemma-2b HFSL rounds; only with ``--paths scantrain``), or those
+recurrentgemma-2b HFSL rounds; only with ``--paths scantrain``),
+``relay_phase`` (phase 29 on a full-size qwen2-7b backbone: the host ms
+of each relay call; only with ``--paths relay``) and ``moe_phases``
+(phases 33 to 35: granite-moe-1b-a400m's drains, decode step and HFSL
+rounds; only with ``--paths moe``), or those
 of them ``--paths`` names, checks included, and prints the card's name
 and power limit, then one JSON line with each drain's tok/s, TTFT p50 /
 p99 and per-token latency p50, and each round's seconds a step (the
@@ -35,7 +39,7 @@ from pathlib import Path
 import torch
 
 KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "tok_latency_p50_s",
-        "step_s", "examples_per_s", "peak_mem_gib")
+        "step_s", "examples_per_s", "peak_mem_gib", "step_ms")
 
 
 def numbers(rec: dict) -> dict:
@@ -55,7 +59,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", default="main,mamba,hybrid,train",
                     help="comma-separated: main, mamba, hybrid, train, "
-                         "scantrain")
+                         "scantrain, relay, moe")
     args = ap.parse_args(argv)
     paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
@@ -92,8 +96,30 @@ def main(argv=None) -> int:
     if "scantrain" in paths:
         out["scantrain"] = {k: numbers(v) for k, v in
                             smoke.scan_train_phases(args.seed).items()}
+    if "relay" in paths:
+        out["relay_host_ms"] = relay_host_ms(smoke, args.seed)
+    if "moe" in paths:
+        out["moe"] = numbers(smoke.moe_phases(args.seed))
     print(json.dumps(out), flush=True)
     return 0
+
+
+def relay_host_ms(smoke, seed: int) -> dict:
+    """Phase 29 as the tree's ``knowledge_flow`` runs it (qwen2-7b at its
+    published size, a 5-class head): the host ms of each relay call."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2-7b")
+    cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+    backbone = M.init(cfg, seed, device="cuda")["backbone"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, _, _ = smoke.relay_phase(cfg, backbone, seed, tmp)
+    del backbone
+    torch.cuda.empty_cache()
+    return {"clean": rec["host_ms"], "lossy": rec["lossy_host_ms"]}
 
 
 if __name__ == "__main__":

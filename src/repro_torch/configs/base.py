@@ -2,8 +2,9 @@
 
 A copy of ``repro/configs/base.py`` (stdlib only), kept in the port so that
 ``repro_torch`` imports nothing of the JAX package. The port serves the
-``dense`` family; the other families' configs are registered so that
-asking for one fails with the ROADMAP item that ports it.
+dense, moe, ssm and hybrid families; the vlm and audio configs are
+registered so that building one fails with the ROADMAP item that ports
+it.
 
 Every assigned architecture is a `ModelConfig` registered under its public id
 (``--arch <id>``). Configs are plain frozen dataclasses so they can be hashed

@@ -35,8 +35,10 @@ packages; the wire copy is made only under an active plan. Without a plan,
 or with an all-off one, the accounting is the no-fault relay's.
 
 Torch tensors are mutable where JAX arrays are not: the reference copies
-trees by identity, the port clones them, so that an in-place step on a
-delivered tree never reaches the cloud's or another edge's adapters.
+trees by identity, the port clones them. The relay keeps private copies
+and every method hands back a clone of its result, so that an in-place
+step on a returned tree never reaches ``edges``, ``cloud`` or a bank slot
+behind the versions.
 """
 from __future__ import annotations
 
@@ -215,7 +217,7 @@ class KnowledgeRelay:
         self.edges[domain] = _clone(recv)
         self.edge_versions[domain] = self.cloud_version
         self._publish(domain)
-        return self.edges[domain]
+        return _clone(self.edges[domain])
 
     def cloud_aggregate(self, domains: Optional[list[str]] = None) -> dict:
         """Edges -> cloud: FedAvg over domain adapters (upload and
@@ -226,7 +228,7 @@ class KnowledgeRelay:
                                    payload=self.edges[d]) for d in ds]
         self.cloud = _avg(received)
         self.cloud_version += 1
-        return self.cloud
+        return _clone(self.cloud)
 
     # -- edge-end subnetwork (domain-specific, small-scale flow) ----------
     def edge_deliver(self, domain: str, n_clusters: int) -> dict:
@@ -244,11 +246,11 @@ class KnowledgeRelay:
             tel = telemetry.get()
             tel.count("relay.transfers", n_clusters)
             tel.count("relay.bytes.edge_to_end", nb)
-            return self.edges[domain]
+            return _clone(self.edges[domain])
         for _ in range(n_clusters):
             self._transfer(per, self.cm.cs, "edge_to_end",
                            payload=self.edges[domain])
-        return self.edges[domain]
+        return _clone(self.edges[domain])
 
     def edge_absorb(self, domain: str, cluster_adapters: list) -> dict:
         """Clusters -> edge: FedAvg (upload and aggregation, Fig 4 step
@@ -258,4 +260,4 @@ class KnowledgeRelay:
         self.edges[domain] = _avg(received)
         self.edge_versions[domain] += 1
         self._publish(domain)
-        return self.edges[domain]
+        return _clone(self.edges[domain])

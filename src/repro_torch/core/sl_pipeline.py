@@ -92,10 +92,11 @@ def pipeline_classify(params: dict, stage_tree: dict, tokens: torch.Tensor,
             # one client's slice; handing x on is the D2D hop
             for lp, la in zip(layers, adapters):
                 for i, k in enumerate(kinds):
-                    x, _ = _apply_seq(k, lp[f"s{i}"], la.get(f"s{i}", {}),
-                                      x, cfg, positions=positions,
-                                      make_cache=False, cache_len=None,
-                                      lengths=None, adapter_ids=None)
+                    x, _, _ = _apply_seq(k, lp[f"s{i}"],
+                                         la.get(f"s{i}", {}), x, cfg,
+                                         positions=positions,
+                                         make_cache=False, cache_len=None,
+                                         lengths=None, adapter_ids=None)
         # end point: the head over the finished microbatch
         pooled = rmsnorm(backbone["final_norm"], x).float().mean(dim=1)
         outs.append(pooled @ head["w"] + head["b"])

@@ -41,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import unported
 from repro_torch.models import model as M
 from repro_torch.models.attention import chunk_slots, write_slots
-from repro_torch.models.transformer import attn_window, groups_for
+from repro_torch.models.transformer import (ATTN_KINDS, attn_window,
+                                           groups_for)
 
 
 def _pow2floor(n: int) -> int:
@@ -68,7 +69,7 @@ def drafter_config(cfg: ModelConfig, *, d_model: int = 64,
 def _min_window(cfg: ModelConfig) -> int:
     """Smallest nonzero attention window in the stack (0: unwindowed)."""
     ws = [attn_window(cfg, kind) for _, kinds, _ in groups_for(cfg)
-          for kind in kinds if kind == "attn"]
+          for kind in kinds if kind in ATTN_KINDS]
     ws = [w for w in ws if w and w > 0]
     return min(ws) if ws else 0
 
@@ -144,7 +145,7 @@ def save_attn_slots(cfg: ModelConfig, caches: dict, pos, T: int) -> dict:
     out: dict = {}
     for name, kinds, _ in groups_for(cfg):
         for i, kind in enumerate(kinds):
-            if kind != "attn":
+            if kind not in ATTN_KINDS:
                 continue
             c = caches[name][f"s{i}"]
             S = c["pos"].shape[-1]
@@ -212,7 +213,7 @@ def rollback_caches(cfg: ModelConfig, caches: dict, snaps: dict, *, pos,
     for name, kinds, _ in groups_for(cfg):
         for i, kind in enumerate(kinds):
             key = f"s{i}"
-            if kind == "attn":
+            if kind in ATTN_KINDS:
                 _restore_attn(caches[name][key], snaps[name][key], qpos=qpos,
                               commit=commit, active=active,
                               window=attn_window(cfg, kind))

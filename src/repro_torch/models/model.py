@@ -1,4 +1,4 @@
-"""Public model API, dense, ssm and hybrid families (counterpart of
+"""Public model API, dense, moe, ssm and hybrid families (counterpart of
 ``repro/models/model.py``): spec, init, forward, the training losses
 (``lm_loss``, ``classify_loss``), classify, prefill, decode, the
 speculative verify pass and the serving primitives the engine drives.

@@ -1,9 +1,10 @@
-"""Decoder-stack assembly, dense, ssm and hybrid families (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-stack assembly, dense, moe, ssm and hybrid families
+(counterpart of ``repro/models/transformer.py``).
 
 A model is a list of groups, each a repeating pattern of sub-layers
-(``kinds``: ``attn``, ``ssm`` or ``rglru``, the last a recurrent block
-plus a gated MLP, Griffin-style). Dense and ssm models are one group;
+(``kinds``: ``attn``, ``moe`` (attention and a mixture-of-experts FFN),
+``ssm`` or ``rglru``, the last a recurrent block plus a gated MLP,
+Griffin-style). Dense, moe and ssm models are one group;
 recurrentgemma is a repeated ``(rglru, rglru, attn)`` group plus a
 ``tail`` group that runs once. The reference stacks a group's
 parameters along a leading dim and runs them with ``jax.lax.scan``; the
@@ -20,14 +21,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import unported
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
 
+# sub-layer kinds that carry attention, and so a KV cache that can be
+# paged, snapshotted and rolled back: a moe sub-layer is attention
+# followed by the expert FFN
+ATTN_KINDS = ("attn", "moe")
+
 # ROADMAP items ("Modules to port") that port the other families
 FAMILY_ITEMS = {
-    "moe": "later, remaining families",
     "vlm": "later, remaining families",
     "audio": "later, remaining families",
 }
@@ -35,8 +41,8 @@ FAMILY_ITEMS = {
 
 def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
     """[(group_name, kinds, n_repeat)] — static model structure."""
-    if cfg.family == "ssm":
-        return [("g0", ("ssm",), cfg.n_layers)]
+    if cfg.family in ("ssm", "moe"):
+        return [("g0", (cfg.family,), cfg.n_layers)]
     if cfg.family == "hybrid":
         pat, tail = tuple(cfg.hybrid.pattern), tuple(cfg.hybrid.tail)
         out = [("g0", pat, (cfg.n_layers - len(tail)) // len(pat))]
@@ -64,6 +70,9 @@ def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
         return {"ln1": rmsnorm_spec(d), "mix": rglru_mod.rglru_spec(cfg),
                 "ln2": rmsnorm_spec(d),
                 "mlp": mlp_spec(d, cfg.d_ff, attn_mod.param_dtype(cfg))}
+    if kind == "moe":
+        return {"ln1": rmsnorm_spec(d), "attn": attn_mod.attn_spec(cfg),
+                "ln2": rmsnorm_spec(d), "moe": moe_mod.moe_spec(cfg)}
     return {"ln1": rmsnorm_spec(d), "attn": attn_mod.attn_spec(cfg),
             "ln2": rmsnorm_spec(d),
             "mlp": mlp_spec(d, cfg.d_ff, attn_mod.param_dtype(cfg))}
@@ -134,14 +143,14 @@ def cache_group_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 def paged_subs(cfg: ModelConfig) -> list[tuple[str, str]]:
     """[(group, sub_key)] of the sub-layers eligible for the paged KV
-    layout: full-window (window 0) attention. Sliding-window layers keep
-    their W-slot rolling buffer and recurrent layers have O(1) state: a
-    config with no eligible sub-layer (ssm, and hybrid, whose attention is
-    all local) still serves through the paged engine, it just commits
-    nothing to the pool."""
+    layout: full-window (window 0) attention and moe. Sliding-window
+    layers keep their W-slot rolling buffer and recurrent layers have O(1)
+    state: a config with no eligible sub-layer (ssm, and hybrid, whose
+    attention is all local) still serves through the paged engine, it
+    just commits nothing to the pool."""
     return [(name, f"s{i}") for name, kinds, _ in groups_for(cfg)
             for i, k in enumerate(kinds)
-            if k == "attn" and not attn_window(cfg, k)]
+            if k in ATTN_KINDS and not attn_window(cfg, k)]
 
 
 def _layer_adapters(adapters: dict, name: str, n: int) -> list:
@@ -176,25 +185,33 @@ _RECURRENT = {
 }
 
 
-def _ffn(p: dict, x):
-    """The sub-layer's MLP block, where it has one (ssm has none)."""
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)) if "mlp" in p else x
+def _ffn(p: dict, x, cfg: ModelConfig):
+    """The sub-layer's feed-forward block: the MLP, or the moe FFN and its
+    aux loss; ssm has none. Returns (x, aux or None)."""
+    if "moe" in p:
+        h, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
+        return x + h, aux
+    if "mlp" in p:
+        return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), None
+    return x, None
 
 
 def _apply_seq(kind: str, p: dict, a: dict, x, cfg: ModelConfig, *,
                positions, make_cache: bool, cache_len, lengths,
                adapter_ids):
-    """One full-sequence sub-layer. Returns (x, cache or None)."""
+    """One full-sequence sub-layer. Returns (x, cache or None, aux or
+    None)."""
     if kind in _RECURRENT:
         h, c = _RECURRENT[kind][0](p["mix"], _select_state0(a, adapter_ids),
                                    rmsnorm(p["ln1"], x), cfg,
                                    make_cache=make_cache, lengths=lengths)
-        return _ffn(p, x + h), c
-    h, c = attn_mod.attention_seq(
-        p["attn"], a, rmsnorm(p["ln1"], x), cfg, positions=positions,
-        window=attn_window(cfg, kind), make_cache=make_cache,
-        cache_len=cache_len, lengths=lengths, adapter_ids=adapter_ids)
-    return _ffn(p, x + h), c
+    else:
+        h, c = attn_mod.attention_seq(
+            p["attn"], a, rmsnorm(p["ln1"], x), cfg, positions=positions,
+            window=attn_window(cfg, kind), make_cache=make_cache,
+            cache_len=cache_len, lengths=lengths, adapter_ids=adapter_ids)
+    x, aux = _ffn(p, x + h, cfg)
+    return x, c, aux
 
 
 def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
@@ -211,35 +228,41 @@ def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
     row b uses slot ``adapter_ids[b]``. ``remat`` re-runs each layer's
     forward in the backward instead of keeping its activations
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-    scanned layer body). Returns (x, caches | None, aux_sum)."""
+    scanned layer body). The moe sub-layers' aux losses are summed over
+    the layers, inside the re-materialised body. Returns (x, caches |
+    None, aux_sum)."""
     caches: dict = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, kinds, n in groups_for(cfg):
         per_layer = []
         for lp, la in zip(params[name], _layer_adapters(adapters, name, n)):
-            def body(x, lp=lp, la=la):
+            def body(x, aux, lp=lp, la=la):
                 lcache = {}
                 for i, k in enumerate(kinds):
                     key = f"s{i}"
-                    x, c = _apply_seq(k, lp[key], la.get(key, {}), x, cfg,
-                                      positions=positions,
-                                      make_cache=make_cache,
-                                      cache_len=cache_len, lengths=lengths,
-                                      adapter_ids=adapter_ids)
+                    x, c, a_ = _apply_seq(k, lp[key], la.get(key, {}), x,
+                                          cfg, positions=positions,
+                                          make_cache=make_cache,
+                                          cache_len=cache_len,
+                                          lengths=lengths,
+                                          adapter_ids=adapter_ids)
                     if c is not None:
                         lcache[key] = c
-                return x, lcache
+                    if a_ is not None:
+                        aux = aux + a_
+                return x, lcache, aux
 
             if remat:
-                x, lcache = checkpoint(body, x, use_reentrant=False)
+                x, lcache, aux = checkpoint(body, x, aux,
+                                            use_reentrant=False)
             else:
-                x, lcache = body(x)
+                x, lcache, aux = body(x, aux)
             per_layer.append(lcache)
         if make_cache:
             caches[name] = {key: {leaf: torch.stack([c[key][leaf]
                                                      for c in per_layer])
                                   for leaf in per_layer[0][key]}
                             for key in per_layer[0]}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, (caches if make_cache else None), aux
 
 
@@ -249,7 +272,8 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
     """Single-token step through all groups; ``caches`` are updated in
     place (each layer writes its slice of the (L, B, ...) leaves).
     ``pos`` (B,) per row; ``active`` (B,) bool freezes retired rows' caches;
-    ``adapter_ids`` (B,) as in :func:`stack_seq`. Returns (x, caches)."""
+    ``adapter_ids`` (B,) as in :func:`stack_seq`. A moe sub-layer's aux
+    loss is dropped, as in the reference. Returns (x, caches)."""
     for name, kinds, n in groups_for(cfg):
         gc = caches[name]
         for l, (lp, la) in enumerate(zip(params[name],
@@ -267,7 +291,7 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                         p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
                         pos=pos, window=attn_window(cfg, k), active=active,
                         adapter_ids=adapter_ids)
-                x = _ffn(p, x + h)
+                x, _ = _ffn(p, x + h, cfg)
     return x, caches
 
 
@@ -302,8 +326,7 @@ def stack_chunk(params: dict, adapters: dict, x: torch.Tensor,
                 h, _ = attn_mod.attention_chunk_paged(
                     p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg, start=start,
                     valid=valid, adapter_ids=adapter_ids)
-                x = x + h
-                x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+                x, _ = _ffn(p, x + h, cfg)
     return x, caches
 
 
@@ -342,7 +365,7 @@ def stack_verify(params: dict, adapters: dict, x: torch.Tensor,
                         p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
                         pos=pos, window=attn_window(cfg, k),
                         adapter_ids=adapter_ids, active=active)
-                x = _ffn(p, x + h)
+                x, _ = _ffn(p, x + h, cfg)
         snaps[name] = {key: {leaf: torch.stack([s[leaf] for s in lst])
                              for leaf in lst[0]}
                        for key, lst in per.items()}

@@ -43,7 +43,12 @@ forward ending in the forward kernel's h_final bit for bit, a padded
 row's gradients bit for bit the solo row's, the RG-LRU's saturated gate,
 and the autograd Functions on the card against autograd through the
 plain versions; a 2-layer falcon-mamba and a 3-layer recurrentgemma HFSL
-round through the kernels against the plain versions. A CUDA kernel has
+round through the kernels against the plain versions; the relay's
+returned trees, which an in-place step may edit without reaching the
+relay or its bank; the moe family's ``moe_apply`` on CUDA against the
+CPU, its forward and backward repeating their bits, and a 2-layer f32
+granite drain through the kernels against the plain versions, the paged
+drain and solo generation. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -1873,3 +1878,127 @@ def test_sl_step_matches_monolithic_grads_on_the_card(gen):
     for n_, o, gr in zip(got, old, grads):
         tol = GRAD_TOL[torch.float32] * max(1.0, gr.abs().max().item())
         assert (n_ - (o - gr)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("method", ["cloud_deliver", "edge_deliver",
+                                    "edge_absorb", "cloud_aggregate"])
+def test_relay_returns_no_alias_on_the_card(gen, method):
+    """An in-place step on the CUDA tree a relay method returns leaves the
+    relay's edges, cloud, versions and the bank's slots as they were."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.core.relay import KnowledgeRelay
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg = _flow_cfg()
+    cloud = _noisy_adapters(gen, cfg, 0)
+    ups = [_noisy_adapters(gen, cfg, i + 1) for i in range(2)]
+    doms = ["a", "b"]
+    bank = AdapterBank.create({d: cloud for d in doms})
+    r = KnowledgeRelay(cloud, doms, bank=bank)
+    got = {"cloud_deliver": lambda: r.cloud_deliver("a"),
+           "edge_deliver": lambda: r.edge_deliver("a", 4),
+           "edge_absorb": lambda: r.edge_absorb("a", ups),
+           "cloud_aggregate": r.cloud_aggregate}[method]()
+    before = [tree_map(torch.clone, t) for t in
+              (r.edges, r.cloud, bank.snapshot("a"), bank.snapshot("b"))]
+    versions = (dict(r.edge_versions), r.cloud_version, bank.version("a"))
+    for x in tree_leaves(got):
+        assert x.is_cuda
+        x.add_(1.0)
+    after = (r.edges, r.cloud, bank.snapshot("a"), bank.snapshot("b"))
+    for b, a in zip(before, after):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(b),
+                                                     tree_leaves(a)))
+    assert versions == (dict(r.edge_versions), r.cloud_version,
+                        bank.version("a"))
+
+
+# ---------------------------------------------------------------------------
+# the moe family on the card
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(dtype="float32", factor=None, **kw):
+    """granite-moe-1b-a400m's moe FFN at its published width (d 1024, 32
+    experts top-8, d_ff_expert 512) in a 2-layer config."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config("granite-moe-1b-a400m").with_(n_layers=2, dtype=dtype,
+                                                   **kw)
+    if factor is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=factor))
+    return cfg
+
+
+def _moe_layer(cfg, seed=0):
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_from_spec
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return init_from_spec(g, moe.moe_spec(cfg), torch.device("cuda"))
+
+
+@pytest.mark.parametrize("shape", [(8,), (4, 64), (2, 300)])
+@pytest.mark.parametrize("factor", [None, -1])
+def test_moe_apply_on_the_card_matches_the_cpu(gen, shape, factor):
+    """f32 ``moe_apply`` on CUDA against the same call on the CPU (TF32
+    off): y and aux within 1e-4, the same routing."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    cfg = _moe_cfg(factor=factor)
+    p = _moe_layer(cfg)
+    x = randn(gen, *shape, cfg.d_model, dtype=torch.float32)
+    y, aux = moe.moe_apply(p, x, cfg)
+    yc, auxc = moe.moe_apply(tree_map(lambda t: t.cpu(), p), x.cpu(), cfg)
+    close(y.cpu(), yc, torch.float32)
+    assert abs(aux.item() - auxc.item()) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_dispatch_and_backward_repeat_their_bits(gen, dtype):
+    """Two runs of the forward and its backward on CUDA give equal bits
+    (no atomic accumulation in the dispatch, the combine or their
+    gradients), at a prefill's size with drops."""
+    from repro_torch.models import moe
+    cfg = _moe_cfg("bfloat16" if dtype == torch.bfloat16 else "float32")
+    p = _moe_layer(cfg)
+    x = randn(gen, 4, 256, cfg.d_model, dtype=dtype)
+    g = randn(gen, 4, 256, cfg.d_model, dtype=dtype)
+    runs = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(p, xg, cfg)
+        ((y.float() * g.float()).sum() + aux).backward()
+        runs.append((y.detach(), aux.detach(), xg.grad))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_moe_drain_on_the_card(gen):
+    """A 2-layer f32 granite drain (full width, no dropping) through the
+    kernels gives the plain versions' tokens and each request's solo
+    tokens; the paged drain with prefix sharing gives the same."""
+    import numpy as np
+
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.models import model as M
+    cfg = _moe_cfg(factor=-1)
+    params = M.init(cfg, 0, device="cuda")
+    reqs = _queue(cfg, seed=3)
+    ops.reset_launch_counts()
+    kern, st = _serve(cfg, params, reqs)
+    n = ops.launch_counts()
+    assert n["flash_attention"] > 0 and n["flash_decode"] > 0 \
+        and n["lora_matmul"] > 0
+    with ops.backend("torch"):
+        plain, _ = _serve(cfg, params, reqs)
+    paged, pst = _serve(cfg, params, reqs,
+                        paged=PagedSpec(64, 16, share_prefix=True))
+    for (p, g), a, b, c in zip(reqs, kern, plain, paged):
+        solo = M.generate(params, cfg, torch.as_tensor(p[None],
+                                                       device="cuda"),
+                          gen=g)[0].cpu().numpy()
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a, solo)

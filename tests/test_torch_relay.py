@@ -217,6 +217,48 @@ def test_delivered_tree_does_not_alias_the_cloud(bank_setup):
     assert _equal(r.cloud, before)
 
 
+# each public method of the relay that hands back an adapter tree, called
+# on a relay of three domains attached to a bank
+RETURNS_A_TREE = {
+    "cloud_deliver": lambda r, ups: r.cloud_deliver("vision"),
+    "edge_deliver": lambda r, ups: r.edge_deliver("vision", 3),
+    "edge_absorb": lambda r, ups: r.edge_absorb("vision", ups),
+    "cloud_aggregate": lambda r, ups: r.cloud_aggregate(),
+}
+
+
+@pytest.mark.parametrize("plan", ["none", "both"])
+@pytest.mark.parametrize("method", sorted(RETURNS_A_TREE))
+def test_returned_tree_does_not_alias_the_relay(bank_setup, method, plan):
+    """An in-place step on the tree a relay method returns leaves the
+    relay's edges and cloud, its versions and the bank's slots as they
+    were, with and without a lossy link."""
+    adapters = bank_setup
+    doms = list(adapters)
+    bank = AdapterBank.create(adapters)
+    r = relay.KnowledgeRelay(adapters["nlp"], doms, bank=bank,
+                             faults=PLANS[plan](faults), max_retries=64)
+    ups = [tree_map(lambda x: x + 1.0, adapters["nlp"]),
+           tree_map(lambda x: x + 3.0, adapters["nlp"])]
+    got = RETURNS_A_TREE[method](r, ups)
+    edges = {d: tree_map(torch.clone, e) for d, e in r.edges.items()}
+    cloud = tree_map(torch.clone, r.cloud)
+    versions = (dict(r.edge_versions), r.cloud_version,
+                {d: bank.version(d) for d in doms})
+    slots = {d: bank.snapshot(d) for d in doms}
+    returned = tree_map(torch.clone, got)
+    for x in tree_leaves(got):
+        x.add_(1.0)
+    assert all(_equal(r.edges[d], edges[d]) for d in doms)
+    assert _equal(r.cloud, cloud)
+    assert versions == (dict(r.edge_versions), r.cloud_version,
+                        {d: bank.version(d) for d in doms})
+    assert all(_equal(bank.snapshot(d), slots[d]) for d in doms)
+    # and the tree was the relay's result before the step
+    want = r.cloud if method == "cloud_aggregate" else r.edges["vision"]
+    assert _equal(returned, want)
+
+
 # ---------------------------------------------------------------------------
 # int8 adapter transport
 # ---------------------------------------------------------------------------

@@ -149,11 +149,28 @@ def test_mesh_is_unported():
                                           mesh=object())
 
 
-def test_moe_is_unported():
-    cfg = get_config("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="remaining families"):
-        sl_pipeline.pipeline_classify({"backbone": {}, "adapters": {}}, {},
-                                      torch.zeros((4, 8)), cfg)
+@pytest.mark.parametrize("n_stages,n_micro", [(2, 2), (4, 4)])
+def test_moe_chain_matches_classify(n_stages, n_micro):
+    """Once refused: the moe family's chain (reduced granite-moe-1b-a400m,
+    4 layers, no dropping: a microbatch routes on its own, so only
+    ``capacity_factor=-1`` makes the chain's routing the monolithic
+    call's) against the port's and the reference's monolithic
+    ``classify``."""
+    jcfg, tcfg = (c.with_(moe=dataclasses.replace(c.moe, capacity_factor=-1))
+                  for c in _cfgs("granite-moe-1b-a400m"))
+    params = jax.tree.map(np.asarray, JM.init(jcfg, jax.random.PRNGKey(2)))
+    toks = np.random.default_rng(3).integers(
+        0, jcfg.vocab_size, (B, SEQ)).astype(np.int32)
+    want = np.asarray(jax.jit(lambda p, t: JM.classify(p, {"tokens": t},
+                                                       jcfg))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(toks)))
+    tp = from_jax(params)
+    mono = M.classify(tp, {"tokens": torch.as_tensor(toks)}, tcfg).numpy()
+    got = sl_pipeline.pipeline_classify(
+        tp, sl_pipeline.split_for_stages(tp, tcfg, n_stages),
+        torch.as_tensor(toks), tcfg, n_microbatches=n_micro).numpy()
+    np.testing.assert_allclose(got, mono, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------
