@@ -269,12 +269,38 @@ Phases, each of which exits nonzero on a failed check:
 36. kernels 1-3 at granite's shapes (LoRA K 1024 to N 1024 and 512,
    attention and decode at head dim 64 with 16/8 heads) against their
    plain versions, timed with the library call and the bound (run with
-   phase 3's cases).
+   phase 3's cases);
+37. llava-next-mistral-7b at its published size (32 layers, d 4096, 32/8
+   heads of 128, d_ff 14336, vocab 32000, window 4096, bf16, random
+   weights from the seed) drains phase 4's queue shape, each request with
+   its own (576, 4096) vision row, single-tenant and from a 4-domain
+   bank; every kernel's launches equal the prediction per admission and
+   per decode step (``family_launches``), no plain version runs; two
+   requests' full-depth prefill logits kernels vs plain (cosine > 0.99);
+38. whisper-small at its published size (12 + 12 layers, d 768, 12/12
+   heads of 64, 1500 frames, vocab 51865, bf16) drains 16 requests, each
+   with its own (1500, 768) frames row: an admission runs 12 + 12 + 12
+   ``flash_attention`` (encoder and cross non-causal, decoder causal), a
+   decode step 12 causal and 12 non-causal ``flash_decode``; launches as
+   predicted, the cross cache's size, full-depth logits as phase 37;
+39. exactness in f32: a 2-layer full-width llava drain (one request's
+   576 + 3,520 prompt and 64 generated tokens run past the 4096-slot
+   window) and a 2 + 2-layer whisper drain give, through the kernels, the
+   plain versions' tokens and each request's solo ``generate`` with its
+   own row; both families refuse mismatched extras keys, paged serving
+   and speculative decoding, as the reference does;
+40. kernels at these families' shapes (run with phase 3's cases):
+   ``flash_attention`` non-causal at whisper's encoder (1500 frames + 16
+   prefix slots) and cross attention (64 rows, 1500 keys), llava's
+   windowed prefill (576 + 512 tokens, D 128); ``flash_decode``
+   non-causal against whisper's cross cache (T 1500) and at llava's
+   4096-slot rolling buffer; ``lora_matmul`` and both ``lora_bgmv``
+   kernels at K 4096 and K 768.
 
-Each kernel's ``launches`` adds phases 29-35's runs to its own path's
+Each kernel's ``launches`` adds phases 29-39's runs to its own path's
 (``launches_by_path``: ``relay``, ``sl``, ``sl_train``, ``cli``,
-``moe``). Every full-size drain and round (phases 4, 5, 9,
-10, 13, 15, 17, 23, 26, 27, 33, 35) and phases 29-32
+``moe``, ``vlm``, ``audio``). Every full-size drain and round (phases 4,
+5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38) and phases 29-32
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -607,36 +633,42 @@ def compare(name: str, got, want, dtype) -> float:
 
 def attn_case(cases: dict, randn, timer: Timer, B: int, S: int, n_p: int,
               Hq: int, Hkv: int, D: int, dtype, *, label: str,
-              window: int = 0, sentinel: bool = False) -> None:
+              window: int = 0, sentinel: bool = False, causal: bool = True,
+              n_keys: int | None = None) -> None:
     """flash_attention at a prefill of B rows x S tokens behind n_p prefix
-    slots (position -1), causal, against its plain version, with its times
-    and bound (into ``cases``). ``sentinel`` puts the last 64 keys at the
-    +1e9 sentinel."""
+    slots (position -1), causal or not, against its plain version, with its
+    times and bound (into ``cases``). ``sentinel`` puts the last 64 keys at
+    the +1e9 sentinel; ``n_keys`` gives the keys (at positions 0 to n_keys
+    - 1) a length of their own (cross attention; default S)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    T = n_p + S
+    n_keys = S if n_keys is None else n_keys
+    T = n_p + n_keys
     q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
     kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
-                                   device="cuda"), q_pos])
+                                   device="cuda"),
+                        torch.arange(n_keys, dtype=torch.int32,
+                                     device="cuda")])
     if sentinel:
         kv_pos[-64:] = 10 ** 9
     q = randn(B, S, Hq, D, dtype=dtype)
     k, v = randn(B, T, Hkv, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype)
-    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, causal=causal)
     got = fa.flash_attention(q, k, v, backend="cuda", **kw)
     want = fa.flash_attention(q, k, v, backend="torch", **kw)
     torch.cuda.synchronize()
     err = compare(f"flash_attention D {D} {label} {dtype}", got, want, dtype)
-    vis = ref.visibility_mask(q_pos, kv_pos, window=window)
+    vis = ref.visibility_mask(q_pos, kv_pos, window=window, causal=causal)
     pairs = int(vis.sum().item()) * B * Hq
     elt = q.element_size()
     bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
                     4 * D * pairs, dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     cases["flash_attention"].append(dict(
-        shape=f"B={B} S={S} prefix={n_p} Hq={Hq} Hkv={Hkv} D={D} "
-              f"{label} {str(dtype)[6:]}",
+        shape=f"B={B} S={S} "
+              f"{'' if n_keys == S else f'T={n_keys} '}prefix={n_p} "
+              f"Hq={Hq} Hkv={Hkv} D={D} {label} {str(dtype)[6:]}",
         path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
         ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda", **kw)),
         plain_ms=timer(lambda: fa.flash_attention(q, k, v, backend="torch",
@@ -656,7 +688,8 @@ def bank_slots(*shape, dtype) -> tuple:
 
 
 def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
-                window: int, label: str, pids=None) -> None:
+                window: int, label: str, pids=None,
+                causal: bool = True) -> None:
     """flash_decode as the models call it (the cache kc / vc at positions
     kpc, the prefix bank pk / pv: shared, or a multi-tenant bank's stacked
     slots read through the rows' ids ``pids``) against its plain version,
@@ -664,22 +697,25 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
     ``cases``). The bound reads q, the output, every row's positions (and
     ids), each visible cache key's K and V once (the +1e9 sentinel tails
     and the keys outside the window are not needed) and each bank slot
-    that some row reads once: a shared bank once, not once a row."""
+    that some row reads once: a shared bank once, not once a row.
+    ``causal`` False is the cross attention's decode: every cache key but
+    the sentinels is visible, and the call takes no prefix bank (``pk``
+    None)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
 
     dtype = q.dtype
     B, Hq, D = q.shape
     Tc, Hkv = kc.shape[1], kc.shape[2]
-    n_p = pk.shape[-3]
+    n_p = 0 if pk is None else pk.shape[-3]
     kw = dict(q_pos=qp, kv_pos=kpc, prefix_k=pk, prefix_v=pv,
-              prefix_ids=pids, window=window)
+              prefix_ids=pids, window=window, causal=causal)
     got = fd.flash_decode(q, kc, vc, backend="cuda", **kw)
     want = fd.flash_decode(q, kc, vc, backend="torch", **kw)
     torch.cuda.synchronize()
     err = compare(f"flash_decode D {D} {dtype}", got, want, dtype)
     qp64, kp64 = qp.long()[:, None], kpc.long()
-    vis = kp64 <= qp64
+    vis = (kp64 <= qp64) if causal else (kp64 < 10 ** 8)
     if window:
         vis = vis & (qp64 - kp64 < window)
     vis = vis | (kp64 < 0)                                    # (B, Tc)
@@ -691,15 +727,19 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
                            + 2 * (cache_keys + n_read * n_p) * Hkv * D)
                     + 4 * (B + B * Tc) + (0 if pids is None else 4 * B),
                     4 * D * keys * Hq, dtype)
-    rows_k, rows_v = fd.select_rows(pk, pv, pids)
-    kd, vd, _ = fd.with_prefix(kc, vc, kpc, rows_k, rows_v)
+    if pk is None:
+        kd, vd = kc, vc
+    else:
+        rows_k, rows_v = fd.select_rows(pk, pv, pids)
+        kd, vd, _ = fd.with_prefix(kc, vc, kpc, rows_k, rows_v)
     qt, kt, vt = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
     mask = torch.cat([vis.new_ones(B, n_p), vis], 1)[:, None, None, :]
     cases["flash_decode"].append(dict(
         shape=f"{label} {str(dtype)[6:]}",
         **decode_plan(dtype, D, n_p + Tc, B, Hkv),
         max_abs_err=err, tol=TOL[dtype], visible_keys=keys,
-        bank="shared" if pids is None else f"{pk.shape[0]} slots by id",
+        bank="none" if pk is None else "shared" if pids is None
+        else f"{pk.shape[0]} slots by id",
         ms=timer(lambda: fd.flash_decode(q, kc, vc, backend="cuda", **kw)),
         ops_ms=timer(lambda: ops.flash_decode(q, kc, vc, **kw)),
         host_us=host_us(lambda: ops.flash_decode(q, kc, vc, **kw)),
@@ -1028,9 +1068,11 @@ def queue(rng, n, lens, gens, vocab):
              int(rng.integers(*gens))) for _ in range(n)]
 
 
-def serve_on(eng, params, reqs, domains=None):
-    """Submit ``reqs`` to ``eng`` and drain; completions in request order."""
-    uids = [eng.submit(p, g, domain=None if domains is None else domains[i])
+def serve_on(eng, params, reqs, domains=None, extras=None):
+    """Submit ``reqs`` to ``eng`` (request i with ``extras[i]``, its
+    modality row, if given) and drain; completions in request order."""
+    uids = [eng.submit(p, g, domain=None if domains is None else domains[i],
+                       extras=None if extras is None else extras[i])
             for i, (p, g) in enumerate(reqs)]
     comps, stats = eng.run(params)
     torch.cuda.synchronize()
@@ -1039,11 +1081,12 @@ def serve_on(eng, params, reqs, domains=None):
     return [by[u] for u in uids], stats
 
 
-def drain(cfg, params, reqs, slots, bank=None, domains=None, paged=None):
+def drain(cfg, params, reqs, slots, bank=None, domains=None, paged=None,
+          extras=None):
     from repro_torch.launch.engine import DecodeEngine
     eng = DecodeEngine(cfg, slots=slots, bank=bank, paged=paged,
                        device="cuda")
-    return serve_on(eng, params, reqs, domains)
+    return serve_on(eng, params, reqs, domains, extras)
 
 
 def domain_adapters(cfg, seed: int) -> dict:
@@ -3484,6 +3527,8 @@ def scan_train_exactness(seed: int) -> dict:
 
 # the paths these phases drive; each kernel's record adds their launches
 FLOW_PATHS = ("relay", "sl", "sl_train", "cli")
+# the later families' phases, each with its own launch record
+FAMILY_PATHS = ("moe", "vlm", "audio")
 N_STAGES, N_MICRO = 4, 4
 
 
@@ -4474,6 +4519,391 @@ def moe_phases(seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 37 to 40: the vlm and audio families
+# ---------------------------------------------------------------------------
+
+# llava-next-mistral-7b: layers, d_model, heads, kv heads, head dim, d_ff,
+# vocab, sliding window, vision rows
+LLAVA = (32, 4096, 32, 8, 128, 14336, 32000, 4096, 576)
+# whisper-small: encoder layers, decoder layers, d_model, heads, kv heads,
+# head dim, d_ff, vocab, frames
+WHISPER = (12, 12, 768, 12, 12, 64, 3072, 51865, 1500)
+
+
+def llava_config(**kw):
+    from repro_torch.configs.base import get_config
+    cfg = get_config("llava-next-mistral-7b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.sliding_window,
+           cfg.vlm.n_vis_tokens) == LLAVA
+          and cfg.attn_variant == "sliding" and cfg.dtype == "bfloat16",
+          "llava-next-mistral-7b is not at its published size")
+    return cfg.with_(**kw) if kw else cfg
+
+
+def whisper_config(**kw):
+    from repro_torch.configs.base import get_config
+    cfg = get_config("whisper-small")
+    check((cfg.audio.n_enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+           cfg.audio.n_audio_frames) == WHISPER and cfg.dtype == "bfloat16",
+          "whisper-small is not at its published size")
+    return cfg.with_(**kw) if kw else cfg
+
+
+def modality_rows(cfg, seed: int, n: int) -> list:
+    """One modality row a request, drawn from the seed x 0.1 on the card in
+    the model's dtype: ``vision_embeds`` (576, d) for a vlm, ``frames``
+    (n_frames, d) for an audio model."""
+    key, rows = (("vision_embeds", cfg.vlm.n_vis_tokens)
+                 if cfg.family == "vlm"
+                 else ("frames", cfg.audio.n_audio_frames))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((n, rows, cfg.d_model), generator=gen, device="cuda")
+         * 0.1).to(getattr(torch, cfg.dtype))
+    return [{key: x[i]} for i in range(n)]
+
+
+class model_calls:
+    """Counts the engine's admissions (``model.wave_prefill`` and
+    ``model.refill``) and the decode steps (``model.decode_step``) while
+    active."""
+    KINDS = {"wave_prefill": "admits", "refill": "admits",
+             "decode_step": "steps"}
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self.counts = {"admits": 0, "steps": 0}
+        self.saved = {f: getattr(M, f) for f in self.KINDS}
+        for f, kind in self.KINDS.items():
+            setattr(M, f, self._counted(self.saved[f], kind))
+        return self.counts
+
+    def _counted(self, fn, kind):
+        def counted(*a, **k):
+            self.counts[kind] += 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        for f, fn in self.saved.items():
+            setattr(M, f, fn)
+
+
+def family_launches(cfg, bank: bool, admits: int, steps: int) -> dict:
+    """The launches of ``admits`` prefills or refills and ``steps`` decode
+    steps. vlm: an admission runs flash_attention once a layer and the
+    LoRA kernel (``lora_matmul``; a bank's ``lora_bgmv_seq``) once a
+    target a layer; a step flash_decode once a layer and the LoRA kernel
+    (``lora_matmul``; ``lora_bgmv_rows``) once a target a layer. audio: an
+    admission runs flash_attention once an encoder layer and twice a
+    decoder layer (self, causal, and cross, not), ``lora_matmul`` once a
+    target an encoder or decoder layer (cross attention has no adapter); a
+    step flash_decode twice a decoder layer (self causal, cross not) and
+    ``lora_matmul`` once a target a decoder layer."""
+    from repro_torch.kernels import ops
+    n, t = cfg.n_layers, len(cfg.peft.lora_targets)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    if cfg.family == "audio":
+        ne = cfg.audio.n_enc_layers
+        want["flash_attention"] = admits * (ne + 2 * n)
+        want["flash_decode"] = steps * 2 * n
+        want["lora_matmul"] = t * (admits * (ne + n) + steps * n)
+    else:
+        want["flash_attention"] = admits * n
+        want["flash_decode"] = steps * n
+        if bank:
+            want["lora_bgmv_seq"] = admits * n * t
+            want["lora_bgmv_rows"] = steps * n * t
+        else:
+            want["lora_matmul"] = (admits + steps) * n * t
+    return want
+
+
+def family_drain(what: str, cfg, params, reqs, rows, total: dict, *,
+                 bank=None, domains=None, slots: int = 8) -> tuple:
+    """One drain of ``reqs`` with their modality ``rows``, its launches
+    held to :func:`family_launches` for the admissions and decode steps
+    it made, no plain version run; returns (completions, record)."""
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls(serving=True) as p, model_calls() as mc:
+        (comps, stats), launches = counted(total, lambda: drain(
+            cfg, params, reqs, slots, bank=bank, domains=domains,
+            extras=rows))
+    r = drain_record(stats, launches, torch.cuda.max_memory_allocated())
+    served_ok(cfg, comps, reqs, what)
+    want = family_launches(cfg, bank is not None, mc["admits"], mc["steps"])
+    check(launches == want and mc["admits"] == stats.waves > 1,
+          f"{what}: launches {launches}, predicted {want} ({stats.waves} "
+          f"waves, {mc})")
+    check(all(v == 0 for v in p.values()),
+          f"{what}: a plain version ran on the card: {dict(p)}")
+    r.update(admissions=mc["admits"], decode_steps=mc["steps"])
+    log(f"{what}: {drain_line(r)}; {mc['admits']} admissions and "
+        f"{mc['steps']} decode steps, launches as predicted; per-token p50 "
+        f"{r['tok_latency_p50_s'] * 1e3:.1f} ms")
+    return comps, r
+
+
+def full_depth_logits(what: str, cfg, params, reqs, rows) -> dict:
+    """Two requests' prefill logits at full depth through the kernels
+    against the plain versions (bf16: cosine and top-1, recorded; the
+    cosine must pass 0.99)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    n = min(len(r[0]) for r in reqs[:2])
+    batch = {"tokens": torch.as_tensor(np.stack([r[0][:n] for r in reqs[:2]]),
+                                       device="cuda")}
+    for k in rows[0]:
+        batch[k] = torch.stack([rows[0][k], rows[1][k]])
+    kl, _ = M.prefill(params, batch, cfg)
+    with ops.backend("torch"):
+        pl, _ = M.prefill(params, batch, cfg)
+    cos = F.cosine_similarity(kl.flatten(1), pl.flatten(1), dim=1)
+    top1 = (kl.argmax(-1) == pl.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(kl).all()) and bool((cos > 0.99).all()),
+          f"{what}: full-depth prefill logits kernels vs plain cosine "
+          f"{cos.tolist()}")
+    log(f"{what}: full-depth bf16 prefill (2 x {n} tokens with their rows) "
+        f"kernels vs plain: cosine {['%.6f' % c for c in cos.tolist()]}, "
+        f"top-1 agreement {top1:.2f}")
+    return dict(prefill_logits_cosine=cos.tolist(), prefill_top1=top1)
+
+
+def vlm_path(seed: int, total: dict) -> dict:
+    """Phase 37: llava-next-mistral-7b at its published size drains phase
+    4's queue shape, each request with its own (576, 4096) vision row,
+    single-tenant and from a 4-domain AdapterBank."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.models import model as M
+
+    cfg = llava_config()
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params["backbone"]))
+    check(n_params == cfg.param_count(),
+          f"vlm: {n_params} params, param_count {cfg.param_count()}")
+    log(f"vlm: llava-next-mistral-7b init {n_params / 1e9:.3f} B params "
+        f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB) "
+        f"in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed)
+    reqs = queue(rng, 16, (32, 513), (16, 65), cfg.vocab_size)
+    rows = modality_rows(cfg, seed + 37, len(reqs))
+    rec = {"config": f"llava-next-mistral-7b {cfg.n_layers} layers d "
+                     f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+                     f"{cfg.head_dim_} d_ff {cfg.d_ff} window "
+                     f"{cfg.sliding_window} vision rows "
+                     f"{cfg.vlm.n_vis_tokens} {cfg.dtype}, {n_params} params"}
+    _, rec["single"] = family_drain("vlm", cfg, params, reqs, rows, total)
+    bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
+    sp = bank.serving_params(params["backbone"])
+    doms = [bank.domains[int(i)] for i in np.random.default_rng(
+        seed + 10).integers(0, N_DOMAINS, len(reqs))]
+    bcomps, rec["bank"] = family_drain("vlm bank", cfg, sp, reqs, rows,
+                                       total, bank=bank, domains=doms)
+    check(len({tuple(c.tokens[:8]) for c in bcomps}) > 1,
+          "vlm bank: every request gave the same tokens")
+    rec.update(full_depth_logits("vlm", cfg, params, reqs, rows))
+    no_pad_copies("phase 37")
+    del params, bank, sp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def audio_path(seed: int, total: dict) -> dict:
+    """Phase 38: whisper-small at its published size drains 16 requests,
+    each with its own (1500, 768) frames row."""
+    from repro_torch.models import model as M
+
+    cfg = whisper_config()
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params["backbone"]))
+    log(f"audio: whisper-small init {n_params / 1e6:.1f} M params (the "
+        f"reference's 32768 learned decoder positions included; "
+        f"param_count {cfg.param_count() / 1e6:.1f} M counts none) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed + 38)
+    reqs = queue(rng, 16, (4, 65), (16, 65), cfg.vocab_size)
+    rows = modality_rows(cfg, seed + 38, len(reqs))
+    rec = {"config": f"whisper-small {cfg.audio.n_enc_layers} + "
+                     f"{cfg.n_layers} layers d {cfg.d_model} heads "
+                     f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim_} "
+                     f"frames {cfg.audio.n_audio_frames} vocab "
+                     f"{cfg.vocab_size} {cfg.dtype}, {n_params} params"}
+    _, rec["single"] = family_drain("audio", cfg, params, reqs, rows, total)
+    spec = M.cache_spec(cfg, 8, 128)["cross"]
+    rec["cross_cache_gb"] = sum(
+        int(np.prod(s.shape)) * torch.tensor([], dtype=s.dtype)
+        .element_size() for s in spec.values()) / 1e9
+    log(f"audio: the cross cache of 8 slots holds "
+        f"{rec['cross_cache_gb']:.3f} GB")
+    rec.update(full_depth_logits("audio", cfg, params, reqs, rows))
+    no_pad_copies("phase 38")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_exactness(seed: int, totals: dict) -> dict:
+    """Phase 39: 2-layer llava at full width and 2 + 2-layer whisper, f32:
+    a ragged drain through the kernels gives the plain versions' tokens
+    and each request's solo ``generate`` with its own row; one llava
+    request's 576 + 3,520 prompt and 64 generated tokens cross the 4096
+    window (the rolling buffer wraps). Then the refusals: mismatched
+    extras keys, paged serving and speculative decoding of both
+    families. Launches are counted into ``totals[what]``."""
+    import dataclasses as dc
+
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    rec = {}
+    for what, cfg, long in (
+            ("vlm e2e", llava_config(n_layers=2, dtype="float32"), 3520),
+            ("audio e2e", whisper_config(
+                n_layers=2, dtype="float32",
+                audio=dc.replace(whisper_config().audio, n_enc_layers=2)),
+             0)):
+        params = M.init(cfg, seed, device="cuda")
+        rng = np.random.default_rng(seed + 39)
+        reqs = queue(rng, 5, (8, 97), (4, 17), cfg.vocab_size)
+        if long:
+            reqs.append((rng.integers(0, cfg.vocab_size, long)
+                         .astype(np.int32), 64))
+        rows = modality_rows(cfg, seed + 39, len(reqs))
+        (kern, st), n = counted(totals[what], lambda: drain(
+            cfg, params, reqs, 2, extras=rows))
+        check(n["flash_attention"] > 0 and n["flash_decode"] > 0
+              and st.waves > 1, f"{what}: launches {n}, {st.waves} waves")
+        with ops.backend("torch"):
+            plain, _ = drain(cfg, params, reqs, 2, extras=rows)
+        for i, ((p, g), a, b) in enumerate(zip(reqs, kern, plain)):
+            solo = M.generate(params, cfg, torch.as_tensor(
+                p[None], device="cuda"), gen=g, extra_batch={
+                k: r[None] for k, r in rows[i].items()})[0].cpu().numpy()
+            check(np.array_equal(a.tokens, b.tokens)
+                  and np.array_equal(a.tokens, solo),
+                  f"{what}: request {i}: kernels {a.tokens}, plain "
+                  f"{b.tokens}, solo {solo}")
+        past = (cfg.vlm.n_vis_tokens + long + 64 - cfg.sliding_window
+                if long else 0)
+        log(f"{what}: {cfg.n_layers}-layer f32 ({cfg.d_model} wide), "
+            f"{len(reqs)} requests with their own rows, {st.waves} waves: "
+            f"kernel tokens == plain tokens == solo generate"
+            + (f"; one request ran {past} tokens past the "
+               f"{cfg.sliding_window}-slot window" if long else ""))
+        rec[what] = dict(requests=len(reqs), waves=st.waves,
+                         tokens_equal=True, past_window=past)
+        eng = DecodeEngine(cfg, slots=2, device="cuda")
+        eng.submit(reqs[0][0], 2, extras=rows[0])
+        eng.submit(reqs[1][0], 2)
+        refused = []
+        try:
+            eng.run(params)
+        except ValueError as e:
+            refused.append(f"extras: {e}")
+        try:
+            DecodeEngine(cfg, slots=2, device="cuda",
+                         paged=PagedSpec(n_blocks=16, block_size=16))
+        except ValueError as e:
+            refused.append(f"paged: {e}")
+        try:
+            DecodeEngine(cfg, slots=2, device="cuda", spec=SpecDecoder.init(
+                cfg, seed, device="cuda", k=2))
+        except NotImplementedError as e:
+            refused.append(f"spec: {e}")
+        check(len(refused) == 3, f"{what}: refusals {refused}")
+        log(f"{what}: refused as the reference does: {refused}")
+        rec[what]["refusals"] = refused
+        del params
+        torch.cuda.empty_cache()
+    return rec
+
+
+def family_kernel_cases(timer: Timer, cases: dict, seed: int) -> None:
+    """Phase 40: the kernels at these families' shapes in bf16, each
+    against its plain version, with its time, one library call's and its
+    bound (into ``cases``): flash_attention non-causal at whisper's
+    encoder (B 8, 1500 frames behind 16 prefix slots, 12 / 12 heads of
+    64), its cross attention (64 decoder rows against 1500 frames) and
+    llava's windowed prefill (576 vision rows + 512 tokens behind 16
+    prefix slots, 32 / 8 heads of 128, window 4096); flash_decode non-
+    causal against whisper's cross cache (B 8, T 1500) and at llava's
+    rolling buffer (4096 slots, 1152 positions written, 16 prefix slots);
+    lora_matmul at K 4096 (N 4096 and 1024, M 8 and 8 x 1088) and K 768
+    (N 768, M 8 and 8 x 1500); both lora_bgmv kernels at K 4096 and 768
+    over 4 slots."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    randn = randn_of(gen)
+    dtype = torch.bfloat16
+    attn_case(cases, randn, timer, 8, 1500, 16, 12, 12, 64, dtype,
+              label="whisper encoder non-causal", causal=False)
+    attn_case(cases, randn, timer, 8, 64, 0, 12, 12, 64, dtype,
+              label="whisper cross non-causal", causal=False, n_keys=1500)
+    attn_case(cases, randn, timer, 8, 576 + 512, 16, 32, 8, 128, dtype,
+              label="llava window 4096", window=4096)
+    B, F_, Hkv, D = 8, 1500, 12, 64
+    q = randn(B, 12, D, dtype=dtype)
+    kc, vc = randn(B, F_, Hkv, D, dtype=dtype), randn(B, F_, Hkv, D,
+                                                      dtype=dtype)
+    qp = torch.randint(4, 128, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    kpc = torch.arange(F_, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, F_).contiguous()
+    decode_case(cases, timer, q, kc, vc, qp, kpc, None, None, 0,
+                f"whisper cross B={B} T={F_} Hq=12 Hkv={Hkv} D={D} "
+                f"non-causal", causal=False)
+    W, n_p = 4096, 16
+    q, kc, vc, _, _, pk, pv = decode_inputs(randn, gen, B, W, n_p, 32, 8,
+                                            128, dtype)
+    qp = torch.randint(576 + 32, 1152, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    slots = torch.arange(W, dtype=torch.int32, device="cuda")[None]
+    kpc = torch.where(slots <= qp[:, None], slots,
+                      torch.full_like(slots, 10 ** 9)).contiguous()
+    decode_case(cases, timer, q, kc, vc, qp, kpc, pk, pv, W,
+                f"llava B={B} T={W} (rolling buffer, <= 1152 written)"
+                f"+{n_p} prefix Hq=32 Hkv=8 D=128 window {W}")
+    for K, shapes, tag in ((4096, ((8, 4096), (8, 1024), (8 * 1088, 4096),
+                                   (8 * 1088, 1024)), "llava "),
+                           (768, ((8, 768), (8 * 1500, 768)), "whisper ")):
+        for M_, N in shapes:
+            lora_case(cases, randn, timer, M_, K, N, dtype, tag)
+    for K, Ns, S, tag in ((4096, (4096, 1024), 1088, "llava "),
+                          (768, (768,), 64, "whisper ")):
+        for name, lead in (("lora_bgmv_rows", (8,)),
+                           ("lora_bgmv_seq", (8, S))):
+            for N in Ns:
+                bgmv_case(cases, randn, timer, name, lead, K, N, dtype, tag)
+
+
+def family_phases(seed: int) -> dict:
+    """Phases 37 to 39; each phase's launches are counted into its path's
+    record (``vlm``: 37 and the llava half of 39; ``audio``: 38 and the
+    whisper half)."""
+    t0 = time.perf_counter()
+    vlm_total: dict = {}
+    audio_total: dict = {}
+    vlm = vlm_path(seed, vlm_total)
+    audio = audio_path(seed, audio_total)
+    e2e = family_exactness(seed, {"vlm e2e": vlm_total,
+                                  "audio e2e": audio_total})
+    vlm["e2e"], audio["e2e"] = e2e["vlm e2e"], e2e["audio e2e"]
+    vlm["launches"], audio["launches"] = vlm_total, audio_total
+    s = time.perf_counter() - t0
+    log(f"vlm and audio (phases 37-39): {s:.1f}s; launches vlm {vlm_total}, "
+        f"audio {audio_total}")
+    return {"vlm": vlm, "audio": audio, "family_s": s}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4546,6 +4976,7 @@ def main(argv=None) -> int:
     rec["scan_bwd"] = scan_bwd_cases(gen, timer, cases)
     lora_bwd_hybrid_cases(gen, timer, cases)
     moe_kernel_cases(timer, cases, args.seed)
+    family_kernel_cases(timer, cases, args.seed)
     rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -4566,13 +4997,14 @@ def main(argv=None) -> int:
     rec["flow_s"] = time.perf_counter() - t_flow
     log(f"knowledge flow (phases 29-32): {rec['flow_s']:.1f}s")
     rec["moe"] = moe_phases(args.seed)
+    rec.update(family_phases(args.seed))
 
     kernels = []
     for name, cs in cases.items():
         head = cs[0]
         path = PATH_OF.get(name, "main")
         by_path = {p: rec[p]["launches"].get(name, 0)
-                   for p in (path,) + FLOW_PATHS + ("moe",)}
+                   for p in (path,) + FLOW_PATHS + FAMILY_PATHS}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -23,6 +23,12 @@ An ``IntegratedRuntime``'s state crosses with :func:`integrated_from_jax`
 into a port runtime built with the same config, tasks and seed, its
 speculative drafter's parameters included.
 
+The audio family's ``backbone.encdec`` tree carries its two layer stacks,
+``enc`` and ``dec``, with the leading layer dim (its ``enc_pos``,
+``dec_pos`` and ``enc_ln`` have none); they unstack into per-layer lists,
+as do the audio adapters' ``stack.enc`` and ``stack.dec``. Its decode
+caches (``self`` and ``cross``, each ``(L, B, ...)``) cross leaf by leaf.
+
 ssm and rglru layers cross like the others: their f32 leaves (``A_log``,
 ``D``, ``dt_proj_b``, ``a_param``, the ``state0`` prompts) stay f32, since
 every leaf keeps its dtype. Each group unstacks along its own layer dim,
@@ -40,6 +46,8 @@ import torch
 from repro_torch.models.params import tree_map
 
 _STACKED = ("layers", "stack")
+# the layer stacks of the audio family's backbone.encdec tree
+_ENCDEC_STACKS = ("enc", "dec")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -83,8 +91,13 @@ def from_jax(tree: dict, device="cpu") -> dict:
             if stacked:
                 return {g: [conv(layer) for layer in layers]
                         for g, layers in _unstack(t).items()}
-            return {k: conv(v, k in _STACKED) for k, v in t.items()}
+            return {k: encdec(v) if k == "encdec" else conv(v, k in _STACKED)
+                    for k, v in t.items()}
         return _tensor(t, device)
+
+    def encdec(t):
+        return {k: [conv(layer) for layer in _unstack({k: v})[k]]
+                if k in _ENCDEC_STACKS else conv(v) for k, v in t.items()}
     return conv(tree)
 
 
@@ -95,9 +108,14 @@ def to_numpy(params: dict) -> dict:
             if stacked:
                 return {g: _restack([conv(layer) for layer in layers])
                         for g, layers in t.items()}
-            return {k: conv(v, k in _STACKED) for k, v in t.items()}
+            return {k: encdec(v) if k == "encdec" else conv(v, k in _STACKED)
+                    for k, v in t.items()}
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def encdec(t):
+        return {k: _restack([conv(layer) for layer in v])
+                if k in _ENCDEC_STACKS else conv(v) for k, v in t.items()}
     return conv(params)
 
 

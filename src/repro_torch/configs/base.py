@@ -1,10 +1,8 @@
 """Model / run configuration system.
 
 A copy of ``repro/configs/base.py`` (stdlib only), kept in the port so that
-``repro_torch`` imports nothing of the JAX package. The port serves the
-dense, moe, ssm and hybrid families; the vlm and audio configs are
-registered so that building one fails with the ROADMAP item that ports
-it.
+``repro_torch`` imports nothing of the JAX package. The port serves every
+family: dense, moe, ssm, hybrid, vlm and audio.
 
 Every assigned architecture is a `ModelConfig` registered under its public id
 (``--arch <id>``). Configs are plain frozen dataclasses so they can be hashed

@@ -23,6 +23,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 def unported(what: str, item: str) -> NotImplementedError:
     """The error every not-yet-ported feature raises, naming the ROADMAP
-    item (``ROADMAP.md`` "Modules to port") that will port it."""
+    item (``ROADMAP.md`` "Modules to port") that will port it: the
+    multi-GPU modes ("multi-GPU", "multi-GPU sharding"); every model
+    family is ported."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP: {item})")

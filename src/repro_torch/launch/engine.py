@@ -43,6 +43,14 @@ across drains, so a later drain's matching prompt revives freed blocks.
 :meth:`DecodeEngine.serve_trace` admits a timed arrival trace as its
 timestamps come due, paged or dense.
 
+**Modality-conditioned requests** (the vlm and audio families) carry
+their own extras row (``submit(..., extras={"vision_embeds": (n_vis,
+d)})`` or ``{"frames": (n_frames, d)}``, no batch dim); every prefill
+and refill stacks the admitted rows' extras, so each slot stays bound to
+its own conditioning. Every request of one drain carries the same extras
+keys, or none. Paged serving refuses both families, as the reference
+does.
+
 **Speculative serving** (``spec=SpecDecoder``, ``core/spec_decode.py``):
 the drafter rides the same waves (its own prefill and refill beside the
 target's), and each decode segment is a number of draft-verify chunks
@@ -90,6 +98,7 @@ class Request:
     t_submit: float = 0.0              # time.perf_counter() at submit
     sla: Optional[str] = None          # service class label
     speculative: bool = True           # spec engine: draft for this row
+    extras: Optional[dict] = None      # per-request modality rows (no batch dim)
 
 
 @dataclasses.dataclass
@@ -179,10 +188,13 @@ class DecodeEngine:
             raise ValueError(
                 "paged serving composes with plain decode only "
                 "(speculative verify reads the dense slot layout)")
+        if paged is not None and cfg.family in ("audio", "vlm"):
+            raise ValueError(
+                f"paged serving does not support the {cfg.family} family "
+                "(modality prefixes address the dense slab)")
         if mesh is not None:
             raise unported("DecodeEngine(mesh=...)",
                            "later, multi-GPU sharding")
-        groups_for(cfg)                    # raises for unported families
         # speculative serving: greedy only (exact-match acceptance is what
         # keeps spec drains token for token the plain ones)
         if spec is not None:
@@ -230,7 +242,10 @@ class DecodeEngine:
                deadline_s: Optional[float] = None,
                speculative: bool = True,
                sla: Optional[str] = None) -> int:
-        """Enqueue one request; returns its uid. ``deadline_s`` is a budget
+        """Enqueue one request; returns its uid. ``extras`` is one modality
+        row per key (``{"vision_embeds": (n_vis, d)}`` or ``{"frames":
+        (n_frames, d)}``, numpy or torch, no batch dim), bound to this
+        request across wave packing. ``deadline_s`` is a budget
         from now: a row still live past it retires mid-wave as a
         ``timed_out`` completion with its partial tokens. ``sla`` labels
         the request's service class (per-class histograms and misses in
@@ -273,13 +288,11 @@ class DecodeEngine:
             raise ValueError("all requests in a drain must carry a domain "
                              "or none (mixing tenant-addressed and "
                              "merged-param requests is ambiguous)")
-        if extras is not None:
-            raise unported("submit(extras=...)", "later, remaining families")
         uid = self._uid
         self._uid += 1
         self._queue.append(Request(uid, tokens, int(max_new_tokens), domain,
                                    deadline_s, time.perf_counter(), sla,
-                                   bool(speculative)))
+                                   bool(speculative), extras))
         self._telemetry().count("engine.submitted")
         return uid
 
@@ -364,6 +377,27 @@ class DecodeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _check_extras(self) -> frozenset:
+        """The drain's extras keys: every queued request carries the same
+        keys, or none carries any."""
+        keys = {k for r in self._queue if r.extras for k in r.extras}
+        if keys and any(r.extras is None or set(r.extras) != keys
+                        for r in self._queue):
+            raise ValueError("all requests in a drain must carry the same "
+                             f"extras keys ({sorted(keys)}) or none")
+        return frozenset(keys)
+
+    def _stack_extras(self, cur_extras: list, keys: frozenset,
+                      live: list) -> dict:
+        """Each slot's extras rows stacked per key, on the engine's device
+        (an empty slot replicates the row of slot ``live[0]``)."""
+        if not keys:
+            return {}
+        fallback = cur_extras[live[0]]
+        rows = [e if e is not None else fallback for e in cur_extras]
+        return {k: torch.stack([self._tensor(r[k]) for r in rows])
+                for k in keys}
+
     def _wave_params(self, params, tenant: bool):
         """Per-dispatch params: re-read the bank so publishes are fresh."""
         return params if not tenant else \
@@ -382,6 +416,7 @@ class DecodeEngine:
         h_ttft, h_queue, h_tok = Histogram(), Histogram(), Histogram()
         sla_acc: dict[str, dict] = {}
         t_all = time.perf_counter()
+        extras_keys = self._check_extras()
         # one cache capacity per drain keeps every refill shape-stable
         # (timed arrivals not yet submitted join this drain too)
         cap = _pow2ceil(max(
@@ -405,6 +440,7 @@ class DecodeEngine:
         tenant = bool(self._queue) and self._queue[0].domain is not None
         ids = None                         # (B,) adapter slot ids of the wave
         cur_dom: list[Optional[str]] = [None] * B
+        cur_extras: list[Optional[dict]] = [None] * B
         t_admit = [0.0] * B
         t_first: list[Optional[float]] = [None] * B
 
@@ -477,7 +513,7 @@ class DecodeEngine:
                 for i, req in packed:
                     slot_req[i], slot_wave[i] = req, stats.waves - 1
                     remaining[i] = req.max_new_tokens
-                    cur_dom[i] = req.domain
+                    cur_dom[i], cur_extras[i] = req.domain, req.extras
                     spec_rows[i] = req.speculative
                     t_admit[i], t_first[i] = t_adm, None
                     h_queue.record(t_adm - req.t_submit)
@@ -501,11 +537,11 @@ class DecodeEngine:
                     tel.gauge("engine.pool_blocks_shared",
                               sum(1 for rc in self._alloc.refcount
                                   if rc > 1))
+                live = [i for i in range(B) if slot_req[i] is not None]
                 if tenant:
                     # full-wave ids for the segments, recomputed at every
                     # packing; a slot that never filled takes the first
                     # live row's domain (its tokens are discarded)
-                    live = [i for i in range(B) if slot_req[i] is not None]
                     ids = self.bank.adapter_ids(
                         [cur_dom[i] if cur_dom[i] is not None
                          else cur_dom[live[0]] for i in range(B)])
@@ -517,7 +553,8 @@ class DecodeEngine:
                         maxb, stats.waves - 1, tel)
                 elif caches is None:
                     # initial wave prefill: all B slots (empty slots carry
-                    # 1-token dummies and retire immediately)
+                    # 1-token dummies and retire immediately, with a live
+                    # slot's extras)
                     prompts = np.zeros((B, S_pad), np.int32)
                     lens = np.ones(B, np.int32)
                     for i, req in packed:
@@ -525,7 +562,9 @@ class DecodeEngine:
                         lens[i] = len(req.tokens)
                     with tel.span("engine.prefill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
-                        batch = {"tokens": self._tensor(prompts)}
+                        tokens = self._tensor(prompts)
+                        batch = {"tokens": tokens, **self._stack_extras(
+                            cur_extras, extras_keys, live)}
                         tok, caches, pos = M.wave_prefill(
                             wp, self.cfg, cap, batch, self._tensor(lens),
                             ids)
@@ -535,8 +574,8 @@ class DecodeEngine:
                             # token is discarded: a chunk's carry is always
                             # the target's committed token)
                             dtok, dcaches, dpos = M.wave_prefill(
-                                self.spec.params, self.spec.cfg, cap, batch,
-                                self._tensor(lens))
+                                self.spec.params, self.spec.cfg, cap,
+                                {"tokens": tokens}, self._tensor(lens))
                 else:
                     # in-wave refill: prefill only the admitted rows
                     # (pow2-padded row count) into their slots
@@ -544,15 +583,17 @@ class DecodeEngine:
                         packed, S_pad, tenant)
                     with tel.span("engine.refill", wave=stats.waves - 1,
                                   rows=len(packed), seq=S_pad):
-                        batch = {"tokens": self._tensor(prompts)}
+                        tokens = self._tensor(prompts)
+                        batch = {"tokens": tokens, **self._refill_extras(
+                            packed, len(row_idx), extras_keys)}
                         tok, caches, pos = M.refill(
                             wp, self.cfg, cap, batch, self._tensor(lens),
                             row_idx, tok, caches, pos, ids_rows)
                         if self.spec is not None:
                             dtok, dcaches, dpos = M.refill(
-                                self.spec.params, self.spec.cfg, cap, batch,
-                                self._tensor(lens), row_idx, dtok, dcaches,
-                                dpos)
+                                self.spec.params, self.spec.cfg, cap,
+                                {"tokens": tokens}, self._tensor(lens),
+                                row_idx, dtok, dcaches, dpos)
             # deadline sweep: a live row past its budget retires here with
             # the tokens it has so far
             now = time.perf_counter()
@@ -666,6 +707,13 @@ class DecodeEngine:
                 rdom + [rdom[0]] * (Br - len(rows)))
         return prompts, lens, row_idx, ids_rows
 
+    def _refill_extras(self, rows: list, Br: int, keys: frozenset) -> dict:
+        """The extras of an in-wave refill batch of ``Br`` rows: the
+        admitted rows' own, pad rows replicating the first."""
+        rex = [req.extras for _, req in rows]
+        return self._stack_extras(rex + [rex[0]] * (Br - len(rows)), keys,
+                                  [0])
+
     def _table_row(self, i: int, maxb: int) -> np.ndarray:
         """Slot i's block table: shared blocks, then owned ones, then the
         ``n_blocks`` sentinel."""
@@ -745,16 +793,27 @@ class DecodeEngine:
         return tok, caches, pos
 
     def serve(self, params, prompts, *, gen: int,
+              extra_batch: Optional[dict] = None,
               domains: Optional[list] = None
               ) -> tuple[np.ndarray, EngineStats]:
-        """Serve an (N, S) prompt batch in one drain, row i with adapter
-        slot ``domains[i]`` if given; returns ((N, gen) tokens in
-        submission order, stats)."""
+        """Serve an (N, S) prompt batch in one drain, row i with its
+        ``extra_batch`` row (leading dim N) if given and adapter slot
+        ``domains[i]`` if given; returns ((N, gen) tokens in submission
+        order, stats)."""
         prompts = np.asarray(prompts)
         if domains is not None and len(domains) != len(prompts):
             raise ValueError(f"domains ({len(domains)}) must name one "
                              f"adapter slot per prompt ({len(prompts)})")
+        for k, v in (extra_batch or {}).items():
+            shape = tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+            n = shape[0] if shape else 0
+            if n != len(prompts):
+                raise ValueError(
+                    f"extra_batch[{k!r}] leading dim ({n}) must carry one "
+                    f"row per prompt ({len(prompts)})")
         uids = [self.submit(p, gen,
+                            extras=None if extra_batch is None else
+                            {k: v[i] for k, v in extra_batch.items()},
                             domain=None if domains is None else domains[i])
                 for i, p in enumerate(prompts)]
         comps, stats = self.run(params)

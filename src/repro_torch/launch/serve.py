@@ -17,6 +17,12 @@ locally (presumed synchronized); only the adapters come from a checkpoint
   ``--draft-k`` tokens per verify pass. Greedy speculative serving gives
   ``--impl engine``'s tokens; a random drafter accepts few drafts.
 
+A vlm (``--arch llava-next-mistral-7b``) serves every prompt with a row
+of zero vision embeddings (n_vis, d_model), an audio model
+(``--arch whisper-small``) with a row of zero frames (n_frames, d_model),
+as the reference's CLI does: the vision tower and the audio front end are
+stubs in both packages.
+
 ``--trace-out`` / ``--metrics-out`` switch telemetry on and write a Chrome
 trace-event JSON / the counter and histogram snapshot as JSON, then print
 the telemetry report.
@@ -32,6 +38,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --impl loop [--device cpu --reduced] \\
       [--trace-out trace.json --metrics-out metrics.json]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-small --impl engine [--device cpu --reduced]
 """
 from __future__ import annotations
 
@@ -52,23 +60,44 @@ from repro_torch.models import model as M
 
 @torch.no_grad()
 def generate_loop(params: dict, cfg, prompts: torch.Tensor, *,
-                  gen: int) -> torch.Tensor:
+                  gen: int, extra_batch: dict | None = None
+                  ) -> torch.Tensor:
     """Greedy batched generation as a per-token Python loop: one
     ``prefill``, then one ``decode_step`` call a token (the reference's
     legacy ``generate_loop``, kept as the decode baseline;
     :func:`repro_torch.models.model.generate` gives the same tokens).
-    prompts: (B, S) int. Returns (B, gen) int32."""
+    prompts: (B, S) int; ``extra_batch`` the family's modality rows.
+    Returns (B, gen) int32."""
     S = prompts.shape[1]
-    logits, caches = M.prefill(params, {"tokens": prompts}, cfg,
-                               max_len=S + gen)
+    n_vis = cfg.vlm.n_vis_tokens if cfg.family == "vlm" else 0
+    logits, caches = M.prefill(params, {"tokens": prompts,
+                                        **(extra_batch or {})}, cfg,
+                               max_len=S + n_vis + gen)
     out = []
     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
     for i in range(gen):
         out.append(tok)
-        logits, caches = M.decode_step(params, tok, caches, S + i, cfg)
+        logits, caches = M.decode_step(params, tok, caches, S + n_vis + i,
+                                       cfg)
         tok = torch.argmax(logits[:, -1], dim=-1,
                            keepdim=True).to(torch.int32)
     return torch.cat(out, dim=1)
+
+
+def extra_batch(cfg, batch: int, device) -> dict | None:
+    """The CLI's modality rows: zero vision embeddings for a vlm, zero
+    frames for an audio model, in the model's dtype (the reference's
+    stand-ins); None for the other families."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.zeros(
+            (batch, cfg.vlm.n_vis_tokens, cfg.d_model), dtype=dt,
+            device=device)}
+    if cfg.family == "audio":
+        return {"frames": torch.zeros(
+            (batch, cfg.audio.n_audio_frames, cfg.d_model), dtype=dt,
+            device=device)}
+    return None
 
 
 def main(argv=None):
@@ -110,6 +139,7 @@ def main(argv=None):
         print(f"[serve] loaded adapters from {args.adapters} "
               f"(parameter-efficient deployment)")
     rng = np.random.default_rng(args.seed)
+    extra = extra_batch(cfg, args.batch, dev)
     engine = None
     if args.impl in ("engine", "spec"):
         spec = SpecDecoder.init(cfg, args.seed + 1337, device=dev,
@@ -121,7 +151,8 @@ def main(argv=None):
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.batch, args.prompt_len), dtype=np.int32)
         if engine is not None:
-            toks, stats = engine.serve(params, prompts, gen=args.gen)
+            toks, stats = engine.serve(params, prompts, gen=args.gen,
+                                       extra_batch=extra)
             acc = (f", acceptance {stats.acceptance_rate:.2f} "
                    f"({stats.accepted}/{stats.drafted})"
                    if engine.spec is not None else "")
@@ -138,7 +169,7 @@ def main(argv=None):
         with telemetry.get().span("serve.request", impl=args.impl,
                                   batch=args.batch, gen=args.gen):
             toks = gen_fn(params, cfg, torch.as_tensor(prompts, device=dev),
-                          gen=args.gen).cpu().numpy()
+                          gen=args.gen, extra_batch=extra).cpu().numpy()
         dt = time.perf_counter() - t0
         print(f"[serve] request {r}: generated {toks.shape} in {dt:.2f}s "
               f"({args.batch * args.gen / dt:.1f} tok/s); "

@@ -1,5 +1,6 @@
 """GQA attention with prefix-KV prompts, LoRA, sliding window and KV
-caching, dense and paged: the decoder parts of ``repro/models/attention.py``.
+caching, dense and paged, and the encoder-decoder's cross attention
+(counterpart of ``repro/models/attention.py``).
 
 Each layer owns ``n_p`` learned prefix key/value slots, visible to every
 query and carrying no rotary phase (position < 0 in the masking rules of
@@ -7,6 +8,9 @@ query and carrying no rotary phase (position < 0 in the masking rules of
 
 - prefill: full-sequence flash attention (``kernels/ops.py``), which also
   builds the layer's KV cache (a rolling buffer for the sliding variant);
+- cross attention (``kv_x``): keys and values from the encoder states,
+  not causal, no rotary phase; its decode reads a static per-request
+  cache of them (``cross=True``);
 - decode: single-token flash decode against the cache, after writing the
   token's K/V at slot ``pos`` (``pos % window`` for sliding). A paged
   cache (``{'k', 'v'}`` block pools (n_blocks, bs, Hkv, D) and a
@@ -85,20 +89,24 @@ def _lora_scale(cfg: ModelConfig) -> float:
     return cfg.peft.lora_alpha / max(cfg.peft.lora_rank, 1)
 
 
-def _qkv(params, adapters, x, cfg: ModelConfig, adapter_ids=None):
-    """q, k, v with LoRA, reshaped to (B, S, H, D)."""
+def _qkv(params, adapters, x, cfg: ModelConfig, kv_x=None,
+         adapter_ids=None):
+    """q, k, v with LoRA, reshaped to (B, S, H, D); k and v come from
+    ``kv_x`` (B, Skv, d) when given (cross attention), else from x."""
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     lora = (adapters or {}).get("lora", {})
     ls = _lora_scale(cfg)
+    kv_in = x if kv_x is None else kv_x
     q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
               adapter_ids)
-    k = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
+    k = _proj(kv_in, params["wk"], params.get("bk"), lora.get("k"), ls,
               adapter_ids)
-    v = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
+    v = _proj(kv_in, params["wv"], params.get("bv"), lora.get("v"), ls,
               adapter_ids)
     B, S = x.shape[:2]
-    return (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
-            v.reshape(B, S, nkv, hd))
+    Skv = kv_in.shape[1]
+    return (q.reshape(B, S, nh, hd), k.reshape(B, Skv, nkv, hd),
+            v.reshape(B, Skv, nkv, hd))
 
 
 def _prefix_slots(pfx: dict, B: int, adapter_ids=None):
@@ -126,10 +134,18 @@ def _with_prefix(k, v, adapters, B, adapter_ids=None):
 def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
                   cfg: ModelConfig, *, positions: torch.Tensor,
                   causal: bool = True, window: int = 0,
+                  kv_x: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  use_rope: bool = True,
                   make_cache: bool = False, cache_len: Optional[int] = None,
                   lengths: Optional[torch.Tensor] = None,
                   adapter_ids: Optional[torch.Tensor] = None):
     """Returns (out (B, S, d_model), cache or None).
+
+    ``kv_x`` (B, Skv, d) at ``kv_positions`` (Skv,) makes it cross
+    attention: k and v come from ``kv_x``, and no rotary phase is applied
+    (RoPE only for self-attention with ``use_rope``). Prefix slots stay at
+    position -1 ahead of the keys.
 
     ``lengths`` (B,) marks ragged right-padded rows: row b's valid tokens
     are columns ``[0, lengths[b])``. Padding sits on the right and masking
@@ -139,13 +155,16 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
     (B,) selects each row's adapters from stacked (n_slots, ...) leaves
     (multi-tenant serving)."""
     B, S = x.shape[:2]
-    q, k, v = _qkv(params, adapters, x, cfg, adapter_ids)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(params, adapters, x, cfg, kv_x, adapter_ids)
+    kv_positions = positions if kv_positions is None else kv_positions
+    if kv_x is None and use_rope:                     # self-attention: RoPE
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
 
     kp, vp, n_p = _with_prefix(k, v, adapters, B, adapter_ids)
     pos32 = positions.to(torch.int32)
-    kv_pos = torch.cat([pos32.new_full((n_p,), -1), pos32]) if n_p else pos32
+    kv32 = kv_positions.to(torch.int32)
+    kv_pos = torch.cat([kv32.new_full((n_p,), -1), kv32]) if n_p else kv32
     out = kops.flash_attention(q, kp, vp, q_pos=pos32, kv_pos=kv_pos,
                                window=window, causal=causal)
     out = out.reshape(B, S, -1)
@@ -196,6 +215,7 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
 def attention_decode(params: dict, adapters: Optional[dict],
                      x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
                      pos: torch.Tensor, window: int = 0,
+                     cross: bool = False, use_rope: bool = True,
                      active: Optional[torch.Tensor] = None,
                      adapter_ids: Optional[torch.Tensor] = None):
     """x: (B, 1, d). cache: {'k', 'v', 'pos'} of one layer, or a paged
@@ -204,7 +224,10 @@ def attention_decode(params: dict, adapters: Optional[dict],
     table when paged), so one wave mixes rows at different positions.
     ``active`` (B,) bool retires rows: a retired row's slot is left as it
     was. ``adapter_ids`` (B,) selects each row's adapters from stacked
-    (n_slots, ...) leaves. Returns (out (B, 1, d), cache)."""
+    (n_slots, ...) leaves. ``cross`` reads a static cross-attention cache
+    (encoder keys) as it is: no write, no prefix, no window, not causal.
+    ``use_rope`` False applies no rotary phase. Returns (out (B, 1, d),
+    cache)."""
     B = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     lora = (adapters or {}).get("lora", {})
@@ -213,10 +236,19 @@ def attention_decode(params: dict, adapters: Optional[dict],
 
     q = _proj(x, params["wq"], params.get("bq"), lora.get("q"), ls,
               adapter_ids)
-    q = rope(q.reshape(B, 1, nh, hd), pos[:, None], cfg.rope_theta)
+    q = q.reshape(B, 1, nh, hd)
+    if cross:
+        o = kops.flash_decode(q[:, 0], cache["k"], cache["v"], q_pos=pos,
+                              kv_pos=cache["pos"], window=0, causal=False)
+        o = o.reshape(B, 1, nh * hd).to(x.dtype)
+        return _proj(o, params["wo"], None, lora.get("o"), ls,
+                     adapter_ids), cache
     k1 = _proj(x, params["wk"], params.get("bk"), lora.get("k"), ls,
                adapter_ids)
-    k1 = rope(k1.reshape(B, 1, nkv, hd), pos[:, None], cfg.rope_theta)
+    k1 = k1.reshape(B, 1, nkv, hd)
+    if use_rope:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k1 = rope(k1, pos[:, None], cfg.rope_theta)
     v1 = _proj(x, params["wv"], params.get("bv"), lora.get("v"), ls,
                adapter_ids)
     v1 = v1.reshape(B, 1, nkv, hd)

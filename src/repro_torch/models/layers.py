@@ -1,5 +1,5 @@
 """Common layers (counterpart of ``repro/models/layers.py``): RMS norm,
-rotary embeddings, SwiGLU MLP, token embedding, the f32 LM head and the
+layer norm, rotary embeddings, SwiGLU MLP, token embedding, the f32 LM head and the
 cross-entropy loss.
 
 Each module has ``<mod>_spec(...) -> ParamSpec tree`` and a plain
@@ -28,6 +28,22 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def layernorm_spec(d: int) -> dict:
+    return {"scale": ParamSpec((d,), torch.float32, init="ones"),
+            "bias": ParamSpec((d,), torch.float32, init="zeros")}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 (biased variance, as ``jnp.var``), cast back."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
+        + params["bias"]
     return out.to(x.dtype)
 
 

@@ -1,7 +1,14 @@
-"""Public model API, dense, moe, ssm and hybrid families (counterpart of
+"""Public model API, every family (counterpart of
 ``repro/models/model.py``): spec, init, forward, the training losses
 (``lm_loss``, ``classify_loss``), classify, prefill, decode, the
 speculative verify pass and the serving primitives the engine drives.
+
+Modality inputs ride the batch beside ``tokens``, as in the reference: a
+vlm batch carries ``vision_embeds`` (B, n_vis, d_model), the (stubbed)
+vision tower's rows, which prefix the text embeddings (positions 0 to
+n_vis - 1; the text and the decode steps follow); an audio batch carries
+``frames`` (B, n_frames, d_model), which the encoder of
+``models/encdec.py`` consumes, and the decoder cross-attends its states.
 
 Params split at the top level into ``backbone`` (frozen under the paper's
 PEFT regime) and ``adapters`` (prefix-KV prompts, LoRA, classification
@@ -27,13 +34,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.device import resolve_device, unported
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models.attention import paged_write, param_dtype
 from repro_torch.models.layers import (cross_entropy, embed, embed_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec, init_from_spec
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import (adapter_stack_spec,
                                             cache_group_spec, paged_subs,
                                             rec_cache_part, stack_chunk,
@@ -44,15 +52,19 @@ from repro_torch.models.transformer import (adapter_stack_spec,
 def backbone_spec(cfg: ModelConfig) -> dict:
     dt = param_dtype(cfg)
     s: dict = {"embed": embed_spec(cfg.vocab_size, cfg.d_model, dt),
-               "final_norm": rmsnorm_spec(cfg.d_model),
-               "layers": stack_spec(cfg)}
+               "final_norm": rmsnorm_spec(cfg.d_model)}
+    if cfg.family == "audio":
+        s["encdec"] = encdec.encdec_stack_spec(cfg)
+    else:
+        s["layers"] = stack_spec(cfg)
     if not cfg.tie_embeddings:
         s["lm_head"] = embed_spec(cfg.vocab_size, cfg.d_model, dt)
     return s
 
 
 def adapter_spec(cfg: ModelConfig) -> dict:
-    a: dict = {"stack": adapter_stack_spec(cfg)}
+    a: dict = {"stack": encdec.encdec_adapter_spec(cfg)
+               if cfg.family == "audio" else adapter_stack_spec(cfg)}
     if cfg.peft.head_dim_out:
         a["head"] = {
             "w": ParamSpec((cfg.d_model, cfg.peft.head_dim_out),
@@ -79,34 +91,91 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
                paged=None) -> dict:
     """``paged=(n_blocks, block_size)`` gives the paged layout of the
-    eligible sub-layers (transformer.cache_group_spec)."""
+    eligible sub-layers (transformer.cache_group_spec); the audio family's
+    caches are ``encdec.encdec_cache_spec``'s."""
+    if cfg.family == "audio":
+        return encdec.encdec_cache_spec(cfg, batch, seq_len)
     return cache_group_spec(cfg, batch, seq_len, paged=paged)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Stand-ins for every model input of ``shape``: ``meta`` tensors of
+    the inputs' shapes and dtypes (the reference's ShapeDtypeStructs). A
+    vlm batch's ``seq_len`` counts its vision rows."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = param_dtype(cfg)
+
+    def spec(*shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        batch: dict = {"token": spec(B, 1)}
+    elif cfg.family == "vlm":
+        n_vis = cfg.vlm.n_vis_tokens
+        batch = {"tokens": spec(B, S - n_vis),
+                 "vision_embeds": spec(B, n_vis, cfg.d_model, dtype=dt)}
+    elif cfg.family == "audio":
+        batch = {"tokens": spec(B, S),
+                 "frames": spec(B, cfg.audio.n_audio_frames, cfg.d_model,
+                                dtype=dt)}
+    else:
+        batch = {"tokens": spec(B, S)}
+    if shape.kind == "train" and "tokens" in batch:
+        batch["labels"] = spec(*batch["tokens"].shape)
+    return batch
 
 
 def _head(params: dict) -> dict:
     return params["backbone"].get("lm_head", params["backbone"]["embed"])
 
 
+def _n_vis(cfg: ModelConfig) -> int:
+    """The vision rows in front of a vlm prompt (0 for other families)."""
+    return cfg.vlm.n_vis_tokens if cfg.family == "vlm" else 0
+
+
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
-    """Token embedding. Returns (x, positions)."""
-    extra = set(batch) - {"tokens", "labels"}
-    if extra:
-        raise unported(f"modality extras {sorted(extra)}",
-                       "later, remaining families")
+    """Token (+ vision) embedding. Returns (x, positions, n_vis): a vlm
+    batch's ``vision_embeds`` (B, n_vis, d) go in front of the text."""
     tokens = batch["tokens"]
     x = embed(params["backbone"]["embed"], tokens.long())
-    return x, torch.arange(tokens.shape[1], dtype=torch.int32,
-                           device=tokens.device)
+    n_vis = 0
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([vis, x], dim=1)
+        n_vis = vis.shape[1]
+    return x, torch.arange(x.shape[1], dtype=torch.int32,
+                           device=tokens.device), n_vis
+
+
+def _no_tenants(adapter_ids) -> None:
+    """The reference serves the encoder-decoder with one set of adapters."""
+    if adapter_ids is not None:
+        raise NotImplementedError(
+            "multi-tenant adapter_ids not supported for the audio "
+            "encoder-decoder family")
 
 
 def _hidden(params: dict, batch: dict, cfg: ModelConfig, adapter_ids,
             remat: bool = False):
-    """Final-normed hidden states (B, S, d) and the aux loss."""
+    """Final-normed hidden states (B, S, d) and the aux loss. An audio
+    batch runs the encoder over its ``frames`` and the decoder over its
+    tokens; a vlm batch's hidden states include its vision rows."""
     adapters = params.get("adapters", {}).get("stack", {})
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, _, aux = stack_seq(params["backbone"]["layers"], adapters, x, cfg,
-                          positions=positions, remat=remat,
-                          adapter_ids=adapter_ids)
+    if cfg.family == "audio":
+        _no_tenants(adapter_ids)
+        ed = params["backbone"]["encdec"]
+        enc_out = encdec.encode(ed, adapters, batch["frames"], cfg,
+                                remat=remat)
+        tok_emb = embed(params["backbone"]["embed"], batch["tokens"].long())
+        x, _ = encdec.decode_seq(ed, adapters, tok_emb, enc_out, cfg,
+                                 remat=remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, positions, _ = _embed_inputs(params, batch, cfg)
+        x, _, aux = stack_seq(params["backbone"]["layers"], adapters, x,
+                              cfg, positions=positions, remat=remat,
+                              adapter_ids=adapter_ids)
     return rmsnorm(params["backbone"]["final_norm"], x), aux
 
 
@@ -128,11 +197,20 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
             remat: Optional[bool] = None) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy (+ the aux loss); batch {'tokens',
-    'labels'} (B, S)."""
-    out = forward(params, {"tokens": batch["tokens"]}, cfg, mode="train",
-                  remat=remat)
-    loss = cross_entropy(out["logits"], batch["labels"]) + out["aux"]
+    'labels'} (B, S) and the family's modality input. A vlm's loss is
+    taken on the text only (the logits of its last S positions)."""
+    out = forward(params, _inputs(batch), cfg, mode="train", remat=remat)
+    logits, labels = out["logits"], batch["labels"]
+    if logits.shape[1] != labels.shape[1]:          # vlm: loss on text only
+        logits = logits[:, -labels.shape[1]:]
+    loss = cross_entropy(logits, labels) + out["aux"]
     return loss, {"aux": out["aux"]}
+
+
+def _inputs(batch: dict) -> dict:
+    """The model inputs of a batch: its tokens and modality rows, not its
+    labels."""
+    return {k: v for k, v in batch.items() if k not in ("labels", "label")}
 
 
 def classify(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -141,7 +219,7 @@ def classify(params: dict, batch: dict, cfg: ModelConfig, *,
     head logits (B, out). With ``adapter_ids`` the head is the bank's
     slot-leading (n_slots, d, out) stack and each row is scored by its own
     domain's head (mixed-domain accuracy in one call)."""
-    x, _ = _hidden(params, {"tokens": batch["tokens"]}, cfg, adapter_ids)
+    x, _ = _hidden(params, _inputs(batch), cfg, adapter_ids)
     pooled = x.float().mean(dim=1)
     h = params["adapters"]["head"]
     if adapter_ids is not None:
@@ -173,18 +251,31 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     ``tokens[b, :prompt_lens[b]]``, its cache positions past that carry the
     sentinel, and its logits are those of its own last valid token.
     ``adapter_ids`` (B,) serves a multi-tenant wave (see :func:`forward`).
-    Returns ((B, 1, vocab) f32 last-token logits, caches)."""
+    A vlm prompt's vision rows come first: its lengths are ``prompt_lens
+    + n_vis`` and ``max_len`` counts them. Returns ((B, 1, vocab) f32
+    last-token logits, caches)."""
     adapters = params.get("adapters", {}).get("stack", {})
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, caches, _ = stack_seq(params["backbone"]["layers"], adapters, x, cfg,
-                             positions=positions, make_cache=True,
-                             cache_len=max_len, lengths=prompt_lens,
-                             adapter_ids=adapter_ids)
-    if prompt_lens is None:
+    if cfg.family == "audio":
+        _no_tenants(adapter_ids)
+        ed = params["backbone"]["encdec"]
+        enc_out = encdec.encode(ed, adapters, batch["frames"], cfg)
+        tok_emb = embed(params["backbone"]["embed"], batch["tokens"].long())
+        lengths = prompt_lens
+        x, caches = encdec.decode_seq(ed, adapters, tok_emb, enc_out, cfg,
+                                      make_cache=True, cache_len=max_len,
+                                      lengths=lengths)
+    else:
+        x, positions, n_vis = _embed_inputs(params, batch, cfg)
+        lengths = None if prompt_lens is None else prompt_lens + n_vis
+        x, caches, _ = stack_seq(params["backbone"]["layers"], adapters, x,
+                                 cfg, positions=positions, make_cache=True,
+                                 cache_len=max_len, lengths=lengths,
+                                 adapter_ids=adapter_ids)
+    if lengths is None:
         x = x[:, -1:]
     else:                                  # per-row last VALID token
         rows = torch.arange(x.shape[0], device=x.device)
-        x = x[rows, prompt_lens.long() - 1][:, None]
+        x = x[rows, lengths.long() - 1][:, None]
     x = rmsnorm(params["backbone"]["final_norm"], x)
     return unembed(_head(params), x), caches
 
@@ -201,9 +292,14 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
     x = embed(params["backbone"]["embed"], token.long())
-    x, caches = stack_decode(params["backbone"]["layers"], adapters, x,
-                             caches, cfg, pos=pos, active=active,
-                             adapter_ids=adapter_ids)
+    if cfg.family == "audio":
+        x, caches = encdec.decode_step(params["backbone"]["encdec"],
+                                       adapters, x, caches, cfg, pos=pos,
+                                       active=active)
+    else:
+        x, caches = stack_decode(params["backbone"]["layers"], adapters, x,
+                                 caches, cfg, pos=pos, active=active,
+                                 adapter_ids=adapter_ids)
     x = rmsnorm(params["backbone"]["final_norm"], x)
     return unembed(_head(params), x), caches
 
@@ -251,18 +347,22 @@ def _decode_steps(params: dict, cfg: ModelConfig, steps: int, greedy: bool,
 def _prefill_state(params: dict, batch: dict, cfg: ModelConfig, cap,
                    prompt_lens, adapter_ids=None):
     """Prefill -> (tok0 (B, 1) int32, caches, pos0 (B,) int32); the dense
-    caches hold ``cap`` positions (the prompt width when ``cap`` is None,
-    as a paged commit needs no more)."""
+    caches hold ``cap`` prompt and generated positions (the prompt width
+    when ``cap`` is None, as a paged commit needs no more), a vlm's vision
+    rows on top."""
     tokens = batch["tokens"]
-    logits, caches = prefill(params, batch, cfg, max_len=cap,
+    n_vis = _n_vis(cfg)
+    logits, caches = prefill(params, batch, cfg,
+                             max_len=None if cap is None else cap + n_vis,
                              prompt_lens=prompt_lens,
                              adapter_ids=adapter_ids)
     tok0 = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
     B, S = tokens.shape
     if prompt_lens is None:
-        pos0 = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        pos0 = torch.full((B,), S + n_vis, dtype=torch.int32,
+                          device=tokens.device)
     else:
-        pos0 = prompt_lens.to(torch.int32)
+        pos0 = prompt_lens.to(torch.int32) + n_vis
     return tok0, caches, pos0
 
 
@@ -291,10 +391,8 @@ def refill(params: dict, cfg: ModelConfig, cap: int, batch: dict,
     tok_n, caches_n, pos_n = _prefill_state(params, batch, cfg, cap,
                                             prompt_lens, adapter_ids)
     src, dst = _pairs(row_idx, tok.shape[0], tok.device)
-    for g, grp in caches.items():
-        for s, sub in grp.items():
-            for leaf, old in sub.items():
-                old[:, dst] = caches_n[g][s][leaf][:, src].to(old.dtype)
+    for old, new in zip(tree_leaves(caches), tree_leaves(caches_n)):
+        old[:, dst] = new[:, src].to(old.dtype)
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos
@@ -442,7 +540,8 @@ def segment(params: dict, cfg: ModelConfig, steps: int, greedy: bool, tok,
 
 @torch.no_grad()
 def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor, *,
-             gen: int, greedy: bool = True,
+             gen: int, extra_batch: Optional[dict] = None,
+             greedy: bool = True,
              generator: Optional[torch.Generator] = None,
              prompt_lens: Optional[torch.Tensor] = None,
              adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -454,15 +553,17 @@ def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor, *,
     token for token as if served alone. ``adapter_ids`` (B,) serves a
     multi-tenant wave from AdapterBank params: row b generates with slot
     ``adapter_ids[b]``, token for token as if served alone with that
-    slot's adapters. Sampling (``greedy=False``) draws from
-    ``generator``."""
+    slot's adapters. ``extra_batch`` holds the family's modality rows
+    (``vision_embeds`` or ``frames``, leading dim B). Sampling
+    (``greedy=False``) draws from ``generator``."""
     S = prompts.shape[1]
     lens = None if prompt_lens is None else \
         torch.as_tensor(prompt_lens, device=prompts.device).to(torch.int32)
     ids = None if adapter_ids is None else \
         torch.as_tensor(adapter_ids, device=prompts.device).to(torch.int32)
-    tok0, caches, pos0 = _prefill_state(params, {"tokens": prompts}, cfg,
-                                        S + gen, lens, ids)
+    batch = {"tokens": prompts, **(extra_batch or {})}
+    tok0, caches, pos0 = _prefill_state(params, batch, cfg, S + gen, lens,
+                                        ids)
     remaining = torch.full((prompts.shape[0],), gen, dtype=torch.int32,
                            device=prompts.device)
     toks, _ = _decode_steps(params, cfg, gen, greedy, tok0, caches, pos0,
@@ -483,7 +584,11 @@ def verify_step(params: dict, tokens: torch.Tensor, caches: dict,
     offset j. The attention caches hold the whole chunk afterwards and the
     recurrent ones are unchanged (:func:`transformer.stack_verify`):
     ``core/spec_decode.py::rollback_caches`` is mandatory before the next
-    chunk."""
+    chunk. The vlm and audio families have no verify pass, as in the
+    reference."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"speculative verify not supported for family={cfg.family!r}")
     adapters = params.get("adapters", {}).get("stack", {})
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64) \

@@ -1,10 +1,11 @@
-"""Decoder-stack assembly, dense, moe, ssm and hybrid families
-(counterpart of ``repro/models/transformer.py``).
+"""Decoder-stack assembly, dense, vlm, moe, ssm and hybrid families
+(counterpart of ``repro/models/transformer.py``; the audio family's
+encoder-decoder stack is ``models/encdec.py``).
 
 A model is a list of groups, each a repeating pattern of sub-layers
 (``kinds``: ``attn``, ``moe`` (attention and a mixture-of-experts FFN),
 ``ssm`` or ``rglru``, the last a recurrent block plus a gated MLP,
-Griffin-style). Dense, moe and ssm models are one group;
+Griffin-style). Dense, vlm, moe and ssm models are one group;
 recurrentgemma is a repeated ``(rglru, rglru, attn)`` group plus a
 ``tail`` group that runs once. The reference stacks a group's
 parameters along a leading dim and runs them with ``jax.lax.scan``; the
@@ -19,7 +20,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.device import unported
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -32,13 +32,6 @@ from repro_torch.models.params import ParamSpec
 # followed by the expert FFN
 ATTN_KINDS = ("attn", "moe")
 
-# ROADMAP items ("Modules to port") that port the other families
-FAMILY_ITEMS = {
-    "vlm": "later, remaining families",
-    "audio": "later, remaining families",
-}
-
-
 def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
     """[(group_name, kinds, n_repeat)] — static model structure."""
     if cfg.family in ("ssm", "moe"):
@@ -49,9 +42,7 @@ def groups_for(cfg: ModelConfig) -> list[tuple[str, tuple[str, ...], int]]:
         if tail:
             out.append(("tail", tail, 1))
         return out
-    if cfg.family != "dense":
-        raise unported(f"the {cfg.family!r} family",
-                       FAMILY_ITEMS.get(cfg.family, "later"))
+    # dense, vlm (and the audio decoder's layout, built in encdec.py)
     return [("g0", ("attn",), cfg.n_layers)]
 
 
@@ -107,6 +98,12 @@ def sublayer_adapter_spec(cfg: ModelConfig, kind: str) -> dict:
                 "b": ParamSpec((p.lora_rank, dims[t]), dt, init="zeros")}
             for t in p.lora_targets}
     return out
+
+
+def _stack(tree, n: int) -> list:
+    """``n`` layers of a per-layer spec tree: the port's form of the
+    reference's leading stacking dim."""
+    return [tree for _ in range(n)]
 
 
 def stack_spec(cfg: ModelConfig) -> dict:

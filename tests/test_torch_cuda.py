@@ -48,7 +48,12 @@ returned trees, which an in-place step may edit without reaching the
 relay or its bank; the moe family's ``moe_apply`` on CUDA against the
 CPU, its forward and backward repeating their bits, and a 2-layer f32
 granite drain through the kernels against the plain versions, the paged
-drain and solo generation. A CUDA kernel has
+drain and solo generation; non-causal attention and cross attention (S
+queries against T != S keys, whisper's 1500 frames behind 16 prefix
+slots) and the non-causal decode against whisper's cross cache, and
+2-layer f32 llava and whisper drains, each request with its own modality
+row, through the kernels against the plain versions and solo
+generation. A CUDA kernel has
 no CPU mode, so without a GPU every test here skips; run them on the GPU
 machine with ``pytest -m gpu tests/test_torch_cuda.py``. This file imports
 no JAX (that machine has none).
@@ -2002,3 +2007,128 @@ def test_moe_drain_on_the_card(gen):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(a, solo)
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio families: non-causal attention, cross attention (S !=
+# T) and both families' drains
+# ---------------------------------------------------------------------------
+
+# (B, S, n_prefix, T, Hq, Hkv, D): the encoder (S = T frames behind 16
+# prefix slots, 1516 keys: no multiple of the 64-key tile) and cross
+# attention (S decoder rows against T encoder keys, S < T and S > T),
+# groups 1 and 4, head dims 64 and 128
+@pytest.mark.parametrize("case", [(2, 1500, 16, 1500, 12, 12, 64),
+                                  (3, 64, 0, 1500, 12, 12, 64),
+                                  (2, 5, 0, 70, 8, 2, 128),
+                                  (2, 130, 0, 33, 4, 1, 64),
+                                  (1, 1, 0, 1, 4, 4, 64),
+                                  (2, 200, 3, 515, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_non_causal_cross_kernel(gen, case, dtype):
+    B, S, n_p, T, Hq, Hkv, D = case
+    q = randn(gen, B, S, Hq, D, dtype=dtype)
+    k = randn(gen, B, n_p + T, Hkv, D, dtype=dtype)
+    v = randn(gen, B, n_p + T, Hkv, D, dtype=dtype)
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([torch.full((n_p,), -1, dtype=torch.int32,
+                                   device="cuda"),
+                        torch.arange(T, dtype=torch.int32, device="cuda")])
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=0, causal=False)
+    n0 = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == n0 + 1
+    close(got, fa.flash_attention_torch(q, k, v, **kw), dtype)
+    # every row sees every key: the rows' outputs are one softmax each,
+    # whatever the rows' positions
+    perm = torch.randperm(S, generator=gen, device="cuda")
+    moved = fa.flash_attention(q[:, perm], k, v, **kw)
+    assert torch.equal(moved, got[:, perm])
+
+
+# (B, T, Hq, Hkv, D): whisper's cross cache (T 1500 frames at D 64, 12 /
+# 12 heads), a partial last tile, one key, and a GQA group at D 128
+@pytest.mark.parametrize("case", [(8, 1500, 12, 12, 64), (3, 70, 8, 2, 128),
+                                  (2, 1, 4, 4, 64), (4, 65, 12, 12, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_non_causal_cross_kernel(gen, case, dtype):
+    """The cross-attention decode: every row's q_pos is its decoder
+    position, below most encoder keys, and every key is visible."""
+    B, T, Hq, Hkv, D = case
+    q = randn(gen, B, Hq, D, dtype=dtype)
+    k = randn(gen, B, T, Hkv, D, dtype=dtype)
+    v = randn(gen, B, T, Hkv, D, dtype=dtype)
+    qp = torch.randint(0, 64, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    kp = torch.arange(T, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, T).contiguous()
+    kw = dict(q_pos=qp, kv_pos=kp, window=0, causal=False)
+    n0 = fd.launches
+    got = ops.flash_decode(q, k, v, **kw)
+    assert fd.launches == n0 + 1
+    with ops.backend("torch"):
+        want = ops.flash_decode(q, k, v, **kw)
+    close(got, want, dtype)
+    with ops.backend("torch"):
+        causal = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp)
+    if T > 64:
+        assert not torch.allclose(got.float(), causal.float(), atol=1e-3)
+
+
+def _family_drain(arch, extras_of):
+    """A 2-layer f32 drain of ``arch`` at its published width, each request
+    with its own modality row, through the kernels and the plain versions,
+    and each request alone through ``generate``."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).with_(n_layers=2, dtype="float32")
+    if cfg.family == "audio":
+        cfg = cfg.with_(audio=cfg.audio.__class__(n_enc_layers=2,
+                                                  n_audio_frames=1500))
+    params = M.init(cfg, 0, device="cuda")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), g)
+            for n, g in ((5, 4), (9, 2), (17, 6), (3, 3), (11, 5))]
+    rows = [extras_of(cfg, i) for i in range(len(reqs))]
+
+    def drain():
+        eng = DecodeEngine(cfg, slots=2, device="cuda")
+        uids = [eng.submit(p, g, extras=rows[i])
+                for i, (p, g) in enumerate(reqs)]
+        comps, stats = eng.run(params)
+        by = {c.uid: c.tokens for c in comps}
+        return [by[u] for u in uids], stats
+
+    ops.reset_launch_counts()
+    kern, st = drain()
+    n = ops.launch_counts()
+    assert n["flash_attention"] > 0 and n["flash_decode"] > 0 \
+        and n["lora_matmul"] > 0 and st.waves > 1
+    with ops.backend("torch"):
+        plain, _ = drain()
+    for i, ((p, g), a, b) in enumerate(zip(reqs, kern, plain)):
+        solo = M.generate(params, cfg, torch.as_tensor(p[None],
+                                                       device="cuda"),
+                          gen=g, extra_batch={k: r[None] for k, r in
+                                              rows[i].items()})
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, solo[0].cpu().numpy())
+
+
+def _row(cfg, i, n):
+    g = torch.Generator(device="cuda").manual_seed(100 + i)
+    return torch.randn((n, cfg.d_model), generator=g, device="cuda") * 0.1
+
+
+def test_vlm_drain_on_the_card(gen):
+    _family_drain("llava-next-mistral-7b", lambda cfg, i: {
+        "vision_embeds": _row(cfg, i, cfg.vlm.n_vis_tokens)})
+
+
+def test_audio_drain_on_the_card(gen):
+    _family_drain("whisper-small", lambda cfg, i: {
+        "frames": _row(cfg, i, cfg.audio.n_audio_frames)})
