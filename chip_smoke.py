@@ -297,6 +297,26 @@ Phases, each of which exits nonzero on a failed check:
    4096-slot rolling buffer; ``lora_matmul`` and both ``lora_bgmv``
    kernels at K 4096 and K 768.
 
+41. the dry-run (``launch/dryrun.py``) over every ASSIGNED x INPUT_SHAPES
+   pair on ``meta``, one data row of the reference's 16 x 16 mesh on one
+   card: each pair ok or skipped with a reason, its fit on one H100, bytes,
+   flops, bottleneck and MFU bound (run in the background beside 42-44);
+42. ``launch/profile.py`` on the card: qwen2-7b's decode_32k (B 8, a
+   32,768-slot cache) and prefill_32k (B 2 x 32,768) steps, its train_4k
+   step where phase 41's count says it fits, and one decode step of
+   llava-next-mistral-7b and whisper-small at phases 37-38's drain shapes:
+   device time by kernel and group, launches, busy share, MFU, and the
+   measured peak memory within 20 % of the dry-run's estimate; beside
+   them flash_attention at (B 2, S 32,768, 28/4 heads, D 128, causal) and
+   flash_decode at (B 8, T 32,768 + 16) against their plain versions,
+   timed with the bound and the library call;
+43. ``python -m repro_torch.analysis`` (the port's tracelint) exits 0, and
+   a second drain of phase 4's queue on phase 4's backbone runs under
+   ``compile_guard(max_compiles=0)`` (inside phase 4);
+44. the five examples (``examples/torch_*.py``) on the card, each in a
+   subprocess with its own timeout, all at once; each must exit 0, and
+   each one's last line is recorded.
+
 Each kernel's ``launches`` adds phases 29-39's runs to its own path's
 (``launches_by_path``: ``relay``, ``sl``, ``sl_train``, ``cli``,
 ``moe``, ``vlm``, ``audio``). Every full-size drain and round (phases 4,
@@ -314,6 +334,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -325,10 +346,12 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks (the H100 SXM data sheet) and the kernels' counts have
+# one home, the port's roofline
+from repro_torch.launch.roofline import (HBM_BW, SM_CLOCK,  # noqa: E402
+                                         KernelCost, kernel_costs)
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2,
        # f32: sums of up to 3584 terms taken in another order than cuBLAS
        torch.float32: 1e-4}
@@ -353,11 +376,6 @@ PATH_OF = {"lora_bgmv_rows": "bank", "lora_bgmv_seq": "bank",
            "selective_scan": "mamba", "rglru_scan": "hybrid",
            "selective_scan_bwd": "train-ssm",
            "rglru_scan_bwd": "train-hybrid"}
-# the H100 SXM boost clock, and exponentials per second through the
-# special-function units: 16 per clock per SM (compute capability 9.0) x
-# 132 SMs
-SM_CLOCK = 1.98e9
-PEAK_EXP = 16 * 132 * SM_CLOCK
 # kernels of the attention, LoRA and RG-LRU paths, none of which an ssm
 # model runs
 NOT_SSM = ("lora_matmul", "flash_attention", "flash_decode",
@@ -428,10 +446,10 @@ def host_us(fn, calls: int = 1000, batch: int = 50) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    """Least time (ms) the card could take: bytes over the memory rate or
-    operations over the peak rate of the dtype, whichever is larger."""
-    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
-    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+    """Least time (ms) the card could take for work that is no kernel
+    call (a copy): bytes over the memory rate or operations over the peak
+    rate of the dtype, whichever is larger."""
+    return KernelCost(nbytes, flops, flops_dtype=dtype).bound()
 
 
 def tile_path(dtype) -> str:
@@ -660,10 +678,9 @@ def attn_case(cases: dict, randn, timer: Timer, B: int, S: int, n_p: int,
     torch.cuda.synchronize()
     err = compare(f"flash_attention D {D} {label} {dtype}", got, want, dtype)
     vis = ref.visibility_mask(q_pos, kv_pos, window=window, causal=causal)
-    pairs = int(vis.sum().item()) * B * Hq
-    elt = q.element_size()
-    bms, by = bound(elt * (2 * q.numel() + 2 * k.numel()) + 4 * (S + T),
-                    4 * D * pairs, dtype)
+    bms, by = kernel_costs("flash_attention", dtype, B=B, S=S, T=T, Hq=Hq,
+                           Hkv=Hkv, D=D,
+                           visible=int(vis.sum().item())).bound()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     cases["flash_attention"].append(dict(
         shape=f"B={B} S={S} "
@@ -689,7 +706,7 @@ def bank_slots(*shape, dtype) -> tuple:
 
 def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
                 window: int, label: str, pids=None,
-                causal: bool = True) -> None:
+                causal: bool = True, plain_timer=None) -> None:
     """flash_decode as the models call it (the cache kc / vc at positions
     kpc, the prefix bank pk / pv: shared, or a multi-tenant bank's stacked
     slots read through the rows' ids ``pids``) against its plain version,
@@ -700,7 +717,8 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
     that some row reads once: a shared bank once, not once a row.
     ``causal`` False is the cross attention's decode: every cache key but
     the sentinels is visible, and the call takes no prefix bank (``pk``
-    None)."""
+    None). ``plain_timer`` times the plain version, if given (phase 42's
+    32k cache). Returns the plain version's output."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
 
@@ -722,11 +740,9 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
     cache_keys = int(vis.sum().item())
     keys = cache_keys + B * n_p                      # every row sees its bank
     n_read = 1 if pids is None else len(set(pids.tolist()))  # bank slots
-    elt = q.element_size()
-    bms, by = bound(elt * (2 * q.numel()
-                           + 2 * (cache_keys + n_read * n_p) * Hkv * D)
-                    + 4 * (B + B * Tc) + (0 if pids is None else 4 * B),
-                    4 * D * keys * Hq, dtype)
+    bms, by = kernel_costs("flash_decode", dtype, B=B, Hq=Hq, Hkv=Hkv, D=D,
+                           Tc=Tc, keys=cache_keys, n_p=n_p, n_read=n_read,
+                           ids=pids is not None).bound()
     if pk is None:
         kd, vd = kc, vc
     else:
@@ -743,12 +759,13 @@ def decode_case(cases: dict, timer: Timer, q, kc, vc, qp, kpc, pk, pv,
         ms=timer(lambda: fd.flash_decode(q, kc, vc, backend="cuda", **kw)),
         ops_ms=timer(lambda: ops.flash_decode(q, kc, vc, **kw)),
         host_us=host_us(lambda: ops.flash_decode(q, kc, vc, **kw)),
-        plain_ms=timer(lambda: fd.flash_decode(q, kc, vc, backend="torch",
-                                               **kw)),
+        plain_ms=(plain_timer or timer)(lambda: fd.flash_decode(
+            q, kc, vc, backend="torch", **kw)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
         bound_ms=bms, bound_by=by))
     log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+    return want
 
 
 def randn_of(gen: torch.Generator):
@@ -774,9 +791,8 @@ def lora_case(cases: dict, randn, timer: Timer, M: int, K: int, N: int,
     torch.cuda.synchronize()
     err = compare(f"lora_matmul {label}M={M} N={N} {dtype}", got, want,
                   dtype)
-    elt = x.element_size()
-    bms, by = bound(elt * (M * K + K * N + K * r + r * N + N + M * N),
-                    2 * M * N * K + 2 * M * r * (K + N), dtype)
+    bms, by = kernel_costs("lora_matmul", dtype, M=M, K=K, N=N,
+                           r=r).bound()
     cases["lora_matmul"].append(dict(
         shape=f"{label}M={M} K={K} N={N} r={r} bias {str(dtype)[6:]}",
         path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
@@ -791,14 +807,17 @@ def lora_case(cases: dict, randn, timer: Timer, M: int, K: int, N: int,
 
 
 def decode_inputs(randn, gen: torch.Generator, B: int, Tc: int, n_p: int,
-                  Hq: int, Hkv: int, D: int, dtype) -> tuple:
+                  Hq: int, Hkv: int, D: int, dtype, s_qk: float = 1.0
+                  ) -> tuple:
     """flash_decode's operands as the models pass them: B rows against a
     Tc-slot cache, per-row q_pos, sentinels past each row's position, and
-    an n_p-slot shared prefix bank. Returns q, kc, vc, qp, kpc, pk, pv."""
-    q = randn(B, Hq, D, dtype=dtype)
-    kc, vc = randn(B, Tc, Hkv, D, dtype=dtype), randn(B, Tc, Hkv, D,
-                                                      dtype=dtype)
-    pk, pv = randn(n_p, Hkv, D, dtype=dtype), randn(n_p, Hkv, D, dtype=dtype)
+    an n_p-slot shared prefix bank; queries and keys drawn at scale
+    ``s_qk``. Returns q, kc, vc, qp, kpc, pk, pv."""
+    q = randn(B, Hq, D, dtype=dtype, s=s_qk)
+    kc, vc = randn(B, Tc, Hkv, D, dtype=dtype, s=s_qk), \
+        randn(B, Tc, Hkv, D, dtype=dtype)
+    pk, pv = randn(n_p, Hkv, D, dtype=dtype, s=s_qk), \
+        randn(n_p, Hkv, D, dtype=dtype)
     qp = torch.randint(32, Tc, (B,), generator=gen, device="cuda",
                        dtype=torch.int32)
     slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
@@ -840,11 +859,9 @@ def bgmv_case(cases: dict, randn, timer: Timer, name: str, lead: tuple,
               f"{name} {label}K={K} N={N} {dtype}: row {i} differs from "
               f"lora_matmul with its adapter by {bit_err}")
     M_ = x.numel() // K
-    used = len(set(ids.tolist()))
-    elt = x.element_size()
-    bms, by = bound(elt * (M_ * K + K * N + used * (K * r + r * N) + N
-                           + M_ * N) + 4 * ids.numel(),
-                    2 * M_ * N * K + 2 * M_ * r * (K + N), dtype)
+    bms, by = kernel_costs(name, dtype, M=M_, K=K, N=N, r=r,
+                           slots=len(set(ids.tolist())),
+                           ids=ids.numel()).bound()
     x2 = x.reshape(M_, K)
 
     def library():
@@ -1000,9 +1017,8 @@ def paged_case(cases: dict, randn, gen: torch.Generator, timer: Timer,
 
     vis = (kpd <= qp[:, None]) | (kpd < 0)               # (B, T)
     keys = int(vis.sum().item())
-    elt = q.element_size()
-    bms, by = bound(elt * (2 * q.numel() + 2 * keys * Hkv * D)
-                    + 4 * (B + B * maxb), 4 * D * keys * Hq, dtype)
+    bms, by = kernel_costs("flash_decode_paged", dtype, B=B, Hq=Hq, Hkv=Hkv,
+                           D=D, maxb=maxb, keys=keys).bound()
     qt = q[:, :, None]
     mask = vis[:, None, None, :]
 
@@ -1190,6 +1206,7 @@ def main_path(seed: int) -> tuple[dict, dict]:
         f" max_abs_err {(kl - pl).abs().max().item():.4f}, top-1 "
         f"{int(kl.argmax())} vs {int(pl.argmax())}")
     rec["prefill_logits_cosine"] = cos
+    rec["warm_drain"] = warm_drain(cfg, params, reqs, comps)
     spec_rec = spec_path(cfg, params, reqs, comps, rec, seed)
     from repro_torch.core.adapter_bank import AdapterBank
     bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
@@ -1198,6 +1215,22 @@ def main_path(seed: int) -> tuple[dict, dict]:
     del params, bank
     torch.cuda.empty_cache()
     return rec, bank_rec, paged_rec, spec_rec
+
+
+def warm_drain(cfg, params, reqs, comps) -> dict:
+    """Phase 43's guard, on phase 4's backbone: a second drain of its
+    queue runs under ``compile_guard(max_compiles=0)``: every kernel
+    library it needs was built and loaded before."""
+    from repro_torch.analysis.guards import compile_guard
+    with compile_guard(max_compiles=0) as log_:
+        again, stats = drain(cfg, params, reqs, slots=8)
+    same = all(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(again, comps))
+    log(f"phase 43: warm drain of phase 4's queue under compile_guard("
+        f"max_compiles=0): {log_.count} compilations, "
+        f"{stats.tok_per_s:.2f} tok/s, tokens as phase 4's: {same}")
+    return {"compiles": log_.count, "tok_per_s": stats.tok_per_s,
+            "same_tokens": same}
 
 
 def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
@@ -1557,9 +1590,8 @@ def lora_bwd_case(randn, timer: Timer, M: int, K: int, N: int, r: int,
     check(np.isfinite(err) and err <= tol,
           f"lora_matmul_bwd {label}: kernel vs plain max_abs_err {err} "
           f"beyond tol {tol}")
-    elt = x.element_size()
-    bms, by = bound(elt * (M * K + M * N + K * r + r * N)
-                    + 4 * (K * r + r * N), 4 * M * r * (K + N), dtype)
+    bms, by = kernel_costs("lora_matmul_bwd", dtype, M=M, K=K, N=N,
+                           r=r).bound()
 
     def library():
         g = dy @ b.t()
@@ -1615,8 +1647,9 @@ def train_kernel_cases(gen: torch.Generator, timer: Timer,
         want = lm.lora_matmul(dy, wt, bt, at, scale, backend="torch")
         torch.cuda.synchronize()
         err = compare(f"lora_matmul dx {proj}", got, want, torch.bfloat16)
-        bms, by = bound(2 * (M * N + N * K + N * r + r * K + M * K),
-                        2 * M * N * K + 2 * M * r * (K + N), torch.bfloat16)
+        # the forward kernel on (dy, Wᵀ, Bᵀ, Aᵀ): K and N trade places
+        bms, by = kernel_costs("lora_matmul", torch.bfloat16, M=M, K=N,
+                               N=K, r=r, bias=False).bound()
         cases["lora_matmul"].append(dict(
             shape=f"dx of {proj}: dy M={M} N={N} against W^T ({N}x{K}) "
                   f"r={r} bf16",
@@ -2214,16 +2247,9 @@ def scan_kernel_cases(gen: torch.Generator, timer: Timer,
                  path="a channel's states over 4 warps, ex2.approx, 16-step "
                       "tiles through a 4-stage cp.async ring")
         if timed:
-            elt = args[0].element_size()
-            n_h = B * Di * N
-            nbytes = elt * (3 * B * S * Di + 2 * B * S * N) \
-                + 4 * (Di * N + Di + n_h * (2 if with_h0 else 1))
-            exps = B * S * Di * N
-            # per (b, t, c, n): dt*A, h*dA + (dt x)*B, acc += h*C
-            flops = 6 * exps + 3 * B * S * Di
-            t_b, t_f, t_e = (nbytes / PEAK_BYTES,
-                             flops / PEAK_FLOPS[torch.float32],
-                             exps / PEAK_EXP)
+            kc = kernel_costs("selective_scan", dtype, B=B, S=S, Di=Di, N=N,
+                              h0=with_h0)
+            t = kc.terms()
             c.update(
                 ms=timer(lambda: ss.selective_scan(*args)),
                 plain_ms=timer(lambda: ss.selective_scan(
@@ -2231,9 +2257,8 @@ def scan_kernel_cases(gen: torch.Generator, timer: Timer,
                 library_ms=None,
                 library="none: no single PyTorch call computes a "
                         "selective scan",
-                bound_ms=max(t_b, t_f, t_e) * 1e3,
-                bound_by="bytes" if t_b >= max(t_f, t_e) else "operations",
-                bytes_ms=t_b * 1e3, exp_ms=t_e * 1e3, flops_ms=t_f * 1e3)
+                bound_ms=kc.bound()[0], bound_by=kc.bound()[1],
+                bytes_ms=t["bytes"], exp_ms=t["exp"], flops_ms=t["flops"])
         cases["selective_scan"].append(c)
         log(f"kernel selective_scan {c}")
 
@@ -2660,21 +2685,9 @@ def lru_kernel_cases(gen: torch.Generator, timer: Timer,
                       f"{p['ahead']} ahead, {p['blocks']} blocks, "
                       f"{p['route']}")
         if timed:
-            n = B * S * W
-            elt = args[0].element_size()
-            nbytes = 4 * elt * n + 4 * W + 4 * B * W * (
-                1 if h0_kind == "none" else 2)
-            # per element through the special-function units: a power of
-            # 2 and a reciprocal for each sigmoid, the power of 2 of a_t,
-            # the square root
-            mufu = 6 * n
-            # per element on the f32 cores: a product and an add for each
-            # sigmoid, r log_a, a_t², 1 - a_t², its max with 0, two
-            # products, the chain's multiply and add
-            flops = 12 * n
-            t_b, t_f, t_e = (nbytes / PEAK_BYTES,
-                             flops / PEAK_FLOPS[torch.float32],
-                             mufu / PEAK_EXP)
+            kc = kernel_costs("rglru_scan", dtype, B=B, S=S, W=W,
+                              h0=h0_kind != "none")
+            t = kc.terms()
             # the serial chain: S dependent FMUL + FADD, 4 clocks each
             t_c = S * 8 / SM_CLOCK
             c.update(
@@ -2683,9 +2696,8 @@ def lru_kernel_cases(gen: torch.Generator, timer: Timer,
                 library_ms=None,
                 library="none: no single PyTorch call computes an RG-LRU "
                         "scan",
-                bound_ms=max(t_b, t_f, t_e) * 1e3,
-                bound_by="bytes" if t_b >= max(t_f, t_e) else "operations",
-                bytes_ms=t_b * 1e3, mufu_ms=t_e * 1e3, flops_ms=t_f * 1e3,
+                bound_ms=kc.bound()[0], bound_by=kc.bound()[1],
+                bytes_ms=t["bytes"], mufu_ms=t["exp"], flops_ms=t["flops"],
                 chain_ms=t_c * 1e3)
         cases["rglru_scan"].append(c)
         log(f"kernel rglru_scan {c}")
@@ -3062,7 +3074,7 @@ def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd,
     16 or 21) and, with the checkpoints, their ``ck_bytes`` written
     once."""
     from scripts.time_lora_kernels import device_us
-    ck_terms = dict(terms, bytes=terms["bytes"] + ck_bytes / PEAK_BYTES * 1e3)
+    ck_terms = dict(terms, bytes=terms["bytes"] + ck_bytes / HBM_BW * 1e3)
     for key, fn, t in (("fwd", plain_fwd, terms),
                        ("fwd_ck", ck_fwd, ck_terms)):
         dev = device_us(fn, timer.flush)
@@ -3168,34 +3180,21 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                       "reverse; each chunk's states recomputed into "
                       "registers, then walked back")
         if timed_:
-            elt = args[0].element_size()
-            n, n_h = B * S * D_, B * D_ * N
-            nbytes = elt * (5 * n + 4 * B * S * N) + 4 * (
-                D_ * N + D_ + n_h * (2 if h0_kind != "none" else 1))
-            exps = n * N
-            # per (b, t, c, n): the forward's step for the states (dt A,
-            # h dA, (dt x) B, the add) and the reverse step (g += dy C, g
-            # B, the ddt term, the dB and dC terms, g dA)
-            flops = 18 * exps
+            h0_ = h0_kind != "none"
             # ms: the whole _launch_bwd call (outputs allocated, the
             # kernel, dB / dC summed over the blocks, casts)
             timed(c, timer, "selective_scan_bwd_kernel",
                   lambda: ss._launch_bwd(*args, dy, ck=ck, **kw),
                   lambda: ss.selective_scan_bwd_torch(*args, dy, **kw),
-                  dict(bytes=nbytes / PEAK_BYTES * 1e3,
-                       exp=exps / PEAK_EXP * 1e3,
-                       flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
+                  kernel_costs("selective_scan_bwd", dtype, B=B, S=S, Di=D_,
+                               N=N, h0=h0_).terms(),
                   dict(bytes="bytes", exp="operations", flops="operations"))
             # the forward's terms by phase 16's rule
-            fwd_bytes = elt * (3 * n + 2 * B * S * N) + 4 * (
-                D_ * N + D_ + n_h * (2 if h0_kind != "none" else 1))
             fwd_times(c, timer, "selective_scan_kernel",
                       lambda: ss._launch(*args),
                       lambda: ss._launch(*args, ck=ck),
-                      dict(bytes=fwd_bytes / PEAK_BYTES * 1e3,
-                           exp=exps / PEAK_EXP * 1e3,
-                           flops=(6 * exps + 3 * n)
-                           / PEAK_FLOPS[torch.float32] * 1e3),
+                      kernel_costs("selective_scan", dtype, B=B, S=S, Di=D_,
+                                   N=N, h0=h0_).terms(),
                       ck.numel() * ck.element_size())
         cases["selective_scan_bwd"].append(c)
         log(f"kernel selective_scan_bwd {c}")
@@ -3274,35 +3273,23 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                       "g chains on two warps, the gradients by all warps "
                       "in 16-byte vectors")
         if timed_:
-            n = B * S * W_
-            elt = args[0].element_size()
-            nbytes = 7 * elt * n + 4 * (W_ + (W_ if h0_kind == "shared"
-                                              else 0 if h0_kind == "none"
-                                              else B * W_) + B * W_)
-            # per element through the special-function units: the two
-            # sigmoids (2 each), a_t, the square root, 1 / s
-            mufu = 7 * n
-            # per element on the f32 cores: the gates (8), the chain (2),
-            # the reverse step (g += dhs, g s, dx, di, da, dr, g a: 16)
-            flops = 26 * n
+            bt = kernel_costs("rglru_scan_bwd", dtype, B=B, S=S, W=W_, h0={
+                "per row": "row"}.get(h0_kind, h0_kind)).terms()
+            ft = kernel_costs("rglru_scan", dtype, B=B, S=S, W=W_,
+                              h0=h0_kind != "none").terms()
             # ms: the whole _launch_bwd call (outputs allocated, the
             # kernel, the rows' da_param partials summed when asked)
             timed(c, timer, "rglru_scan_bwd_kernel",
                   lambda: rg._launch_bwd(*args, dhs, need_a=False, ck=ck),
                   lambda: rg.rglru_bwd_torch(*args, dhs, need_a=False),
-                  dict(bytes=nbytes / PEAK_BYTES * 1e3,
-                       mufu=mufu / PEAK_EXP * 1e3,
-                       flops=flops / PEAK_FLOPS[torch.float32] * 1e3),
+                  dict(bytes=bt["bytes"], mufu=bt["exp"], flops=bt["flops"]),
                   dict(bytes="bytes", mufu="operations", flops="operations"))
             # the forward's terms by phase 21's rule
-            fwd_bytes = 4 * elt * n + 4 * W_ + 4 * B * W_ * (
-                1 if h0_kind == "none" else 2)
             fwd_times(c, timer, "rglru_scan_kernel",
                       lambda: rg._launch(*args, 8.0),
                       lambda: rg._launch(*args, 8.0, ck=ck),
-                      dict(bytes=fwd_bytes / PEAK_BYTES * 1e3,
-                           mufu=6 * n / PEAK_EXP * 1e3,
-                           flops=12 * n / PEAK_FLOPS[torch.float32] * 1e3),
+                      dict(bytes=ft["bytes"], mufu=ft["exp"],
+                           flops=ft["flops"]),
                       ck.numel() * ck.element_size())
         cases["rglru_scan_bwd"].append(c)
         log(f"kernel rglru_scan_bwd {c}")
@@ -4904,6 +4891,283 @@ def family_phases(seed: int) -> dict:
     return {"vlm": vlm, "audio": audio, "family_s": s}
 
 
+# ---------------------------------------------------------------------------
+# phases 41 to 44: the tools
+# ---------------------------------------------------------------------------
+
+# phase 42's steps: the dry-run's one-data-row shapes of qwen2-7b, and one
+# decode step of llava and whisper at phases 37-38's drain shapes (8
+# slots; llava's 4096-slot rolling buffer, whisper's 128-slot self cache
+# beside its 1500 cross frames); each with the steps it is timed over
+# (the device-bound prefill, 3.3 s a step, spreads by under 1 %)
+PROFILES = (("qwen2-7b", "decode_32k", 5), ("qwen2-7b", "prefill_32k", 2),
+            ("qwen2-7b", "train_4k", 5),
+            ("llava-next-mistral-7b", ("decode_4096", 4096, 8, "decode"), 5),
+            ("whisper-small", ("decode_128", 128, 8, "decode"), 5))
+EXAMPLES = ("quickstart", "hfsl_finetune", "integrated_runtime",
+            "scheduler_demo", "sl_inference")
+EXAMPLE_TIMEOUT_S = 400
+
+
+def _env() -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def dryrun_start(out: str) -> subprocess.Popen:
+    """Phase 41, started in the background: the dry-run over every
+    ASSIGNED x INPUT_SHAPES pair on ``meta`` (host work only)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--json", out], cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_phase(proc: subprocess.Popen, out: str) -> dict:
+    """Phase 41's result: each pair ok or skipped, none an error."""
+    text, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"phase 41: the dry-run sweep exited "
+          f"{proc.returncode}:\n{text[-4000:]}")
+    results = json.loads(Path(out).read_text())
+    from repro_torch.launch import dryrun
+    check(len(results) == len(dryrun.ASSIGNED) * 4,
+          f"phase 41: {len(results)} pairs")
+    for r in results:
+        check(r["status"] in ("ok", "skipped"),
+              f"phase 41: {r['arch']} x {r['shape']}: {r['status']} "
+              f"{r.get('error')}")
+        log(f"phase 41: {dryrun.summary(r)}")
+    log(text.strip().splitlines()[-2])
+    return {f"{r['arch']} {r['shape']}": {
+        k: r.get(k) for k in ("status", "reason", "batch", "fits_one_h100",
+                              "memory_analysis", "model_flops", "mfu_bound",
+                              "kernel_calls")}
+        | ({"flops": r["roofline"]["flops_per_device"],
+            "bytes": r["roofline"]["bytes_per_device"],
+            "bottleneck": r["roofline"]["bottleneck"],
+            "compute_s": r["roofline"]["compute_s"],
+            "memory_s": r["roofline"]["memory_s"]}
+           if r["status"] == "ok" else {}) for r in results}
+
+
+def once_ms(fn):
+    """``fn()`` and its CUDA-event ms: one call of a plain version too
+    slow to repeat (the call that the kernel is compared with)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+# phase 42's 32k cases draw queries and keys at this scale: scores of
+# std 4, so each row's softmax rests on a few of its up to 32k keys and
+# the outputs are O(1). Unit draws leave the softmax nearly flat and a
+# late row's output near 1e-2, under the tolerance, where a lost key
+# tile or split would pass unseen.
+SHARP = 2.0
+
+
+def lost_tile_reading(name: str, got, want, dtype) -> float:
+    """The reading of a deliberately broken case: the kernel fed with
+    keys masked out (at the +1e9 sentinel, which no query sees) computes
+    what a kernel that lost those tiles would. It must fail the
+    comparison that the real case passes; its max_abs_err."""
+    tol = TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    check(not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{name}: a lost key tile passes the comparison (max_abs_err "
+          f"{err}, tol {tol})")
+    return err
+
+
+def kernels_32k(gen: torch.Generator, timer: Timer, cases: dict) -> None:
+    """Phase 42's kernel cases, the first at 32k keys on the card:
+    flash_attention at qwen2-7b's prefill_32k (B 2, S 32,768, 28/4
+    heads, D 128, causal) and flash_decode at its decode_32k (B 8, a
+    32,768-slot cache and 16 prefix slots), each against its plain
+    version (queries and keys at scale ``SHARP``), timed beside its bound
+    and the library call (into ``cases``); and each fed with keys lost
+    (flash_attention its last 64-key tile, flash_decode a split's worth
+    at the end of each row), which must fail the same comparison."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    randn = randn_of(gen)
+    B, S, Hq, Hkv, D, dtype = 2, 32768, 28, 4, 128, torch.bfloat16
+    q = randn(B, S, Hq, D, dtype=dtype, s=SHARP)
+    k = randn(B, S, Hkv, D, dtype=dtype, s=SHARP)
+    v = randn(B, S, Hkv, D, dtype=dtype)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kw = dict(q_pos=pos, kv_pos=pos, window=0, causal=True)
+    got = fa.flash_attention(q, k, v, backend="cuda", **kw)
+    want, plain_ms = once_ms(lambda: fa.flash_attention(
+        q, k, v, backend="torch", **kw))
+    err = compare("flash_attention 32k", got, want, dtype)
+    lost = pos.clone()
+    lost[-64:] = 10 ** 9                      # the last 64-key tile
+    lost_err = lost_tile_reading(
+        "flash_attention 32k", fa.flash_attention(
+            q, k, v, backend="cuda", **(kw | {"kv_pos": lost})), want, dtype)
+    mean_abs = want.float().abs().mean().item()
+    del got, want
+    bms, by = kernel_costs("flash_attention", dtype, B=B, S=S, T=S, Hq=Hq,
+                           Hkv=Hkv, D=D, visible=S * (S + 1) // 2).bound()
+    # SDPA's causal flash path takes no GQA: K and V repeated to the 28
+    # query heads outside the timed call
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+              for t in (k, v))
+    cases["flash_attention"].append(dict(
+        shape=f"B={B} S={S} prefix=0 Hq={Hq} Hkv={Hkv} D={D} causal "
+              f"bfloat16, q and k at scale {SHARP} (qwen2-7b's prefill_32k)",
+        path=tile_path(dtype), max_abs_err=err, tol=TOL[dtype],
+        want_mean_abs=mean_abs, lost_tile_err=lost_err,
+        ms=timer(lambda: fa.flash_attention(q, k, v, backend="cuda", **kw)),
+        plain_ms=plain_ms,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        library="SDPA is_causal, K/V repeated to the query heads",
+        bound_ms=bms, bound_by=by))
+    log(f"kernel flash_attention {cases['flash_attention'][-1]}")
+    del q, k, v, qt, kt, vt
+    Tc, n_p = 32768, 16
+    args = decode_inputs(randn, gen, 8, Tc, n_p, Hq, Hkv, D, dtype,
+                         s_qk=SHARP)
+    want = decode_case(cases, timer, *args, 0,
+                       f"B=8 T={Tc}+{n_p} prefix Hq={Hq} Hkv={Hkv} D={D} "
+                       f"per-row q_pos, q and k at scale {SHARP} (qwen2-7b's "
+                       "decode_32k)", plain_timer=Timer(reps=1))
+    q, kc, vc, qp, kpc, pk, pv = args
+    # a split's worth of keys lost at the end of each row: the last
+    # tiles_per_split x 64 cache keys through its position (one tile
+    # alone holds as few as 1 of a row's keys, too few to show reliably)
+    n_lost = decode_plan(dtype, D, n_p + Tc, 8, Hkv)["splits"][
+        "tiles_per_split"] * 64
+    slots = torch.arange(Tc, dtype=torch.int32, device="cuda")[None]
+    last = (slots > (qp - n_lost)[:, None]) & (slots <= qp[:, None])
+    lost = torch.where(last, torch.full_like(kpc, 10 ** 9), kpc)
+    cases["flash_decode"][-1].update(
+        want_mean_abs=want.float().abs().mean().item(),
+        lost_tile_err=lost_tile_reading(
+            "flash_decode 32k", fd.flash_decode(
+                q, kc, vc, backend="cuda", q_pos=qp, kv_pos=lost,
+                prefix_k=pk, prefix_v=pv), want, dtype))
+    cases["flash_decode"][-1]["lost_keys"] = n_lost
+    log(f"kernel flash_decode 32k: outputs' mean |x| "
+        f"{cases['flash_decode'][-1]['want_mean_abs']:.4f}, each row's "
+        f"last {n_lost} keys lost reads max_abs_err "
+        f"{cases['flash_decode'][-1]['lost_tile_err']:.4f}")
+    torch.cuda.empty_cache()
+
+
+def profile_phase(seed: int, dry: dict) -> dict:
+    """Phase 42's steps (``PROFILES``), each run on the card by
+    ``launch/profile.py``: its peak memory held within 20 % of the
+    dry-run's estimate; qwen2-7b's train_4k only where phase 41's sweep
+    (``dry``) says it fits one H100."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import profile as P
+    out = {}
+    for arch, shape, reps in PROFILES:
+        swept = dry.get(f"{arch} {shape}")
+        if swept is not None and not swept["fits_one_h100"]:
+            peak = swept["memory_analysis"]["peak_memory_in_bytes"]
+            check(shape == "train_4k", f"phase 42: {arch} {shape} does "
+                  f"not fit: {peak} B")
+            reason = f"phase 41's peak {peak} B does not fit one H100"
+            log(f"phase 42: {arch} {shape} not run: {reason}")
+            out[f"{arch} {shape}"] = {"status": "refused", "reason": reason}
+            continue
+        if isinstance(shape, tuple):
+            shape = InputShape(*shape)
+        r = P.profile_step(arch, shape, seed=seed, reps=reps,
+                           verbose=False)
+        name = f"{arch} {r['shape']}"
+        check(r["status"] == "ok", f"phase 42: {name} refused: "
+              f"{r.get('reason')}")
+        log(f"phase 42:\n{P.report(r)}")
+        check(0.8 <= r["peak_over_estimate"] <= 1.2,
+              f"phase 42: {name}: peak {r['peak_bytes']} B is "
+              f"{r['peak_over_estimate']:.3f} of the dry-run's estimate "
+              f"{r['peak_estimate_bytes']} B")
+        out[name] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def lint_phase() -> dict:
+    """Phase 43's lint: ``python -m repro_torch.analysis`` exits 0."""
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=300)
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    check(res.returncode == 0, f"phase 43: the port's lint exited "
+          f"{res.returncode}:\n{res.stdout[-4000:]}{res.stderr[-2000:]}")
+    log(f"phase 43: {last}")
+    return {"rc": res.returncode, "last_line": last}
+
+
+def examples_start() -> dict:
+    """Phase 44, started: the five examples on the card, each in a
+    subprocess of its own, all at once."""
+    return {e: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"torch_{e}.py")],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for e in EXAMPLES}
+
+
+def examples_phase(procs: dict, t0: float) -> dict:
+    """Phase 44's result: each example within its timeout from ``t0``,
+    its last line; a nonzero exit fails."""
+    out = {}
+    for e, p in procs.items():
+        try:
+            text, _ = p.communicate(timeout=max(
+                1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"phase 44: examples/torch_{e}.py ran past "
+                               f"{EXAMPLE_TIMEOUT_S}s")
+        lines = text.strip().splitlines()
+        check(p.returncode == 0, f"phase 44: examples/torch_{e}.py exited "
+              f"{p.returncode}:\n" + "\n".join(lines[-30:]))
+        out[e] = {"rc": p.returncode, "s": time.perf_counter() - t0,
+                  "last_line": lines[-1] if lines else ""}
+        log(f"phase 44: torch_{e}.py rc 0 by {out[e]['s']:.1f}s: "
+            f"{out[e]['last_line']}")
+    return out
+
+
+def tools_phases(seed: int, gen: torch.Generator, timer: Timer,
+                 cases: dict) -> dict:
+    """Phases 41 to 44. The dry-run sweep (host work), the examples and
+    the lint run side by side first; the 32k kernels and the profiled
+    steps (host-bound decode steps timed on the host's clock) run after
+    them, alone."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "dryrun.json")
+        procs = {"dryrun": dryrun_start(out)}
+        try:
+            procs |= examples_start()
+            rec = {"lint": lint_phase()}
+            rec["examples"] = examples_phase(
+                {e: procs[e] for e in EXAMPLES}, t0)
+            rec["dryrun"] = dryrun_phase(procs["dryrun"], out)
+            rec["alongside_s"] = time.perf_counter() - t0
+            kernels_32k(gen, timer, cases)
+            rec["profiles"] = profile_phase(seed, rec["dryrun"])
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    rec["tools_s"] = time.perf_counter() - t0
+    log(f"tools (phases 41-44): {rec['tools_s']:.1f}s")
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4923,13 +5187,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    src = ROOT / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: {src}/repro_torch not found: run from a "
-              "checkout of the repository", file=sys.stderr)
-        return 2
     t_start = time.perf_counter()
-    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4948,7 +5206,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     log(f"max clocks (sm, memory): {clocks}; bounds use "
         f"{SM_CLOCK / 1e6:.0f} MHz and "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s")
+        f"{HBM_BW / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()
     nvcc = _build.build_all()
@@ -4998,6 +5256,7 @@ def main(argv=None) -> int:
     log(f"knowledge flow (phases 29-32): {rec['flow_s']:.1f}s")
     rec["moe"] = moe_phases(args.seed)
     rec.update(family_phases(args.seed))
+    rec["tools"] = tools_phases(args.seed, gen, timer, cases)
 
     kernels = []
     for name, cs in cases.items():

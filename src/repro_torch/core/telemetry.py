@@ -198,7 +198,7 @@ class Telemetry:
         self._local = threading.local()
         self._epoch = time.perf_counter()
         # Perfetto needs a wall-clock epoch; never used for durations.
-        self._epoch_wall = time.time()
+        self._epoch_wall = time.time()    # tracelint: ignore[R3] trace epoch
 
     # -- recording ----------------------------------------------------------
     def count(self, name: str, n: float = 1) -> None:
@@ -240,7 +240,7 @@ class Telemetry:
         self.hists.clear()
         self.spans.clear()
         self._epoch = time.perf_counter()
-        self._epoch_wall = time.time()
+        self._epoch_wall = time.time()    # tracelint: ignore[R3] trace epoch
 
     # -- reading ------------------------------------------------------------
     def hist_summary(self, name: str) -> Optional[dict]:

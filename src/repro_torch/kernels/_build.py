@@ -8,7 +8,9 @@ edited source is rebuilt and an unchanged one is reused. :func:`build_all`
 starts one ``nvcc`` per source, all at once, and waits for them.
 
 Every C entry point returns the ``cudaError_t`` of its launch; the Python
-wrappers raise when it is not 0.
+wrappers raise when it is not 0. Each ``nvcc`` run and each first load of
+a library in the process is reported to the callables in ``LISTENERS``
+(``analysis.guards.compile_guard`` counts them).
 """
 from __future__ import annotations
 
@@ -31,6 +33,14 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# callables(event) told of each compilation: "nvcc <name>" when a
+# library is built, "load <name>" when the process first loads it
+LISTENERS: list = []
+
+
+def _report(event: str) -> None:
+    for fn in list(LISTENERS):
+        fn(event)
 
 
 def _nvcc() -> str:
@@ -59,6 +69,7 @@ def _start(name: str):
     cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    _report(f"nvcc {name}")
     return proc, tmp, out
 
 
@@ -91,6 +102,7 @@ def load(name: str) -> ctypes.CDLL:
         if job is not None:
             _finish(name, job)
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+        _report(f"load {name}")
     return lib
 
 

@@ -1,3 +1,4 @@
+// tracelint: kernel-op=flash_attention oracle=attention
 // Flash attention for prefill (GQA, prefix-KV, sliding window, position
 // masks), the Hopper replacement of the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention_pallas (body _kernel).

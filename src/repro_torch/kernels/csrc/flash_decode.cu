@@ -1,3 +1,4 @@
+// tracelint: kernel-op=flash_decode oracle=decode_attention
 // Flash decode: one query token per row against its KV cache, the Hopper
 // replacement of the TPU kernel
 // repro/kernels/flash_decode.py::flash_decode_pallas (body _kernel), whose

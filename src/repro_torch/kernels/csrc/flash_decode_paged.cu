@@ -1,3 +1,4 @@
+// tracelint: kernel-op=flash_decode_paged oracle=paged_decode_attention
 // Paged flash decode: one query token per row against a block-pool KV cache
 // addressed through a per-row block table, with the layer's prefix-KV slots
 // in front. The Hopper replacement of the TPU kernel

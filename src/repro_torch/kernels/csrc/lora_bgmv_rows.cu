@@ -1,3 +1,4 @@
+// tracelint: kernel-op=lora_bgmv oracle=lora_bgmv
 // Multi-tenant LoRA projection at decode, one adapter per row:
 // y[m] = x[m] W + s (x[m] A[ids[m]]) B[ids[m]] (+ bias), the Hopper
 // replacement of the TPU kernel

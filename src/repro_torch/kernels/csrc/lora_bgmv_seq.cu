@@ -1,3 +1,4 @@
+// tracelint: kernel-op=lora_bgmv oracle=lora_bgmv
 // Multi-tenant LoRA projection at prefill, one adapter per sequence:
 // y[b] = x[b] W + s (x[b] A[ids[b]]) B[ids[b]] (+ bias), the Hopper
 // replacement of the TPU kernel

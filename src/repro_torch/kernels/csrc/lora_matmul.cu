@@ -1,3 +1,4 @@
+// tracelint: kernel-op=lora_matmul oracle=lora_matmul
 // LoRA-fused projection y = x W + s (x A) B (+ bias), the Hopper
 // replacement of the TPU kernel
 // repro/kernels/lora_matmul.py::lora_matmul_pallas (body _kernel).

@@ -1,3 +1,4 @@
+// tracelint: kernel-op=lora_matmul oracle=lora_matmul_bwd
 // Adapter gradients of the LoRA-fused projection y = x W + s (x A) B:
 //   dA = s x^T (dy B^T)   (K, r) f32
 //   dB = s (x A)^T dy     (r, N) f32

@@ -1,3 +1,4 @@
+// tracelint: kernel-op=rglru oracle=rglru
 // RG-LRU recurrence, the Hopper replacement of the TPU kernel
 // repro/kernels/rglru_scan.py::rglru_pallas (body _kernel):
 //

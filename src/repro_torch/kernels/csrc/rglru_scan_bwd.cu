@@ -1,3 +1,4 @@
+// tracelint: kernel-op=rglru oracle=rglru
 // The VJP of the RG-LRU recurrence (csrc/rglru_scan.cu). No TPU kernel is
 // replaced: the reference differentiates the recurrence through XLA
 // (repro/kernels/ops.py::_rglru_assoc), so this kernel was added to keep

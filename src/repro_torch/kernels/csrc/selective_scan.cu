@@ -1,3 +1,4 @@
+// tracelint: kernel-op=selective_scan oracle=selective_scan
 // Mamba-1 selective scan, the Hopper replacement of the TPU kernel
 // repro/kernels/selective_scan.py::selective_scan_pallas (body _kernel):
 //

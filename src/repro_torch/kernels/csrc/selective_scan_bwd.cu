@@ -1,3 +1,4 @@
+// tracelint: kernel-op=selective_scan oracle=selective_scan
 // The VJP of the Mamba-1 selective scan (csrc/selective_scan.cu). No TPU
 // kernel is replaced: the reference differentiates the scan through XLA
 // (repro/kernels/ops.py::_selective_scan_assoc), so this kernel was added

@@ -404,6 +404,7 @@ class DecodeEngine:
             {**params, "adapters": self.bank.stacked}
 
     # -- serving ------------------------------------------------------------
+    # tracelint: hot
     @torch.no_grad()
     def run(self, params) -> tuple[list[Completion], EngineStats]:
         """Drain the queue as one ragged continuous-batching wave.
@@ -627,9 +628,9 @@ class DecodeEngine:
                         caches, dcaches, pos,
                         self._tensor(remaining.astype(np.int32)),
                         self._tensor(spec_rows), ids)
-                    toks = toks.cpu().numpy()  # the one sync: segment done
-                    counts = counts.cpu().numpy()
-                    dr, ac = int(dr), int(ac)
+                    toks = toks.cpu().numpy()  # tracelint: ignore[R2] the one sync: segment done
+                    counts = counts.cpu().numpy()  # tracelint: ignore[R2] same fetch, already synced
+                    dr, ac = int(dr), int(ac)  # tracelint: ignore[R2] already synced
                     ssp.set(drafted=dr, accepted=ac)
                 stats.drafted += dr
                 stats.accepted += ac
@@ -644,7 +645,7 @@ class DecodeEngine:
                         self.greedy, tok, caches, pos,
                         self._tensor(remaining.astype(np.int32)), self._gen,
                         ids)
-                    toks = toks.cpu().numpy()  # the one sync: segment done
+                    toks = toks.cpu().numpy()  # tracelint: ignore[R2] the one sync: segment done
                 counts = np.minimum(seg, remaining)
                 executed = seg * B
             t_seg1 = time.perf_counter()

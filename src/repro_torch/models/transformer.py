@@ -233,7 +233,9 @@ def stack_seq(params: dict, adapters: dict, x: torch.Tensor,
     for name, kinds, n in groups_for(cfg):
         per_layer = []
         for lp, la in zip(params[name], _layer_adapters(adapters, name, n)):
-            def body(x, aux, lp=lp, la=la):
+            # kinds bound here too: a recompute under remat runs after the
+            # loop has moved on to the next group
+            def body(x, aux, lp=lp, la=la, kinds=kinds):
                 lcache = {}
                 for i, k in enumerate(kinds):
                     key = f"s{i}"

@@ -2132,3 +2132,88 @@ def test_vlm_drain_on_the_card(gen):
 def test_audio_drain_on_the_card(gen):
     _family_drain("whisper-small", lambda cfg, i: {
         "frames": _row(cfg, i, cfg.audio.n_audio_frames)})
+
+
+# ---------------------------------------------------------------------------
+# the tools' twins: the kernels at 32k keys, a warm drain that compiles
+# nothing
+# ---------------------------------------------------------------------------
+
+# queries and keys of the 32k cases at this scale: scores of std 4, so each
+# row's softmax rests on a few of its keys and the outputs are O(1) (unit
+# draws leave it nearly flat, a late row's output near 1e-2, under the
+# tolerance, where a lost key tile would pass unseen)
+SHARP = 2.0
+
+
+def _misses(got, want, dtype):
+    """``got`` (the kernel with keys masked out, as a kernel that lost
+    their tiles computes) fails the comparison that the real case
+    passes."""
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    assert not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_at_32k_keys(gen):
+    """qwen2-7b's prefill_32k attention (B 2, S 32,768, 28/4 heads, D 128,
+    causal) against the plain version: the first run at 32k keys. With
+    its last 64-key tile masked out the kernel misses it."""
+    B, S, Hq, Hkv, D = 2, 32768, 28, 4, 128
+    q = randn(gen, B, S, Hq, D, dtype=torch.bfloat16, s=SHARP)
+    k = randn(gen, B, S, Hkv, D, dtype=torch.bfloat16, s=SHARP)
+    v = randn(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    kw = dict(q_pos=pos, kv_pos=pos, window=0, causal=True)
+    want = fa.flash_attention(q, k, v, backend="torch", **kw)
+    close(fa.flash_attention(q, k, v, backend="cuda", **kw), want,
+          torch.bfloat16)
+    lost = pos.clone()
+    lost[-64:] = 10 ** 9
+    _misses(fa.flash_attention(q, k, v, backend="cuda",
+                               **(kw | {"kv_pos": lost})), want,
+            torch.bfloat16)
+
+
+def test_flash_decode_at_32k_keys(gen):
+    """qwen2-7b's decode_32k attention (B 8 against a 32,768-slot cache
+    behind 16 shared prefix slots, ragged positions) against the plain
+    version. With a split's worth of keys masked out at the end of each
+    row the kernel misses it."""
+    B, T, n_p, Hq, Hkv, D = 8, 32768, 16, 28, 4, 128
+    q = randn(gen, B, Hq, D, dtype=torch.bfloat16, s=SHARP)
+    k = randn(gen, B, T, Hkv, D, dtype=torch.bfloat16, s=SHARP)
+    v = randn(gen, B, T, Hkv, D, dtype=torch.bfloat16)
+    pk = randn(gen, n_p, Hkv, D, dtype=torch.bfloat16, s=SHARP)
+    pv = randn(gen, n_p, Hkv, D, dtype=torch.bfloat16)
+    qp = torch.randint(32, T, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    sentinel = torch.full_like(slots, 10 ** 9)
+    kp = torch.where(slots <= qp[:, None], slots, sentinel).contiguous()
+    kw = dict(q_pos=qp, prefix_k=pk, prefix_v=pv)
+    want = fd.flash_decode(q, k, v, backend="torch", kv_pos=kp, **kw)
+    close(fd.flash_decode(q, k, v, backend="cuda", kv_pos=kp, **kw), want,
+          torch.bfloat16)
+    n_lost = fd.split_plan(D, n_p + T)[0] * fd.TILE
+    last = (slots > (qp - n_lost)[:, None]) & (slots <= qp[:, None])
+    lost = torch.where(last, sentinel, kp)
+    _misses(fd.flash_decode(q, k, v, backend="cuda", kv_pos=lost, **kw),
+            want, torch.bfloat16)
+
+
+def test_a_warm_drain_compiles_nothing(gen):
+    """A second drain of the same queue builds and loads no kernel
+    library: ``compile_guard(max_compiles=0)`` holds."""
+    from repro_torch.analysis.guards import compile_guard
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2-7b").reduced()
+    params = M.init(cfg, 0, device="cuda")
+    reqs = _queue(cfg)
+    first, _ = _serve(cfg, params, reqs)
+    with compile_guard(max_compiles=0) as log:
+        again, _ = _serve(cfg, params, reqs)
+    assert log.count == 0
+    for a, b in zip(first, again):
+        assert (a == b).all()

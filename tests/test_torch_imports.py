@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, so that they run on
-a machine without JAX."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither JAX nor anything
+of the JAX package ``repro``, so that they run on a machine without
+JAX."""
 import re
 import subprocess
 import sys
@@ -8,7 +9,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
                        re.MULTILINE)
 
