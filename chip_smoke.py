@@ -315,12 +315,34 @@ Phases, each of which exits nonzero on a failed check:
    ``compile_guard(max_compiles=0)`` (inside phase 4);
 44. the five examples (``examples/torch_*.py``) on the card, each in a
    subprocess with its own timeout, all at once; each must exit 0, and
-   each one's last line is recorded.
+   each one's last line is recorded;
+45. the dense main path on a 1x1 NCCL device mesh (``launch/mesh.py::
+   single_process_mesh``; inside phase 4, on its backbone): phase 5's
+   queue and bank adapters drained by ``DecodeEngine(mesh=)`` from a
+   slot-sharded bank and a backbone placed by ``place_params``, against
+   the same drain without a mesh: the same tokens (else each request's first token and the
+   full-size mixed prefill logits' cosine and top-1), the same launches
+   of every kernel, no plain version; tok/s of both;
+46. ``make_hfsl_round(mesh=)`` on phase 9's qwen2-7b round (state and
+   batch bank placed per ``hfsl_round_rules``) against the round
+   without a mesh: the same launches, losses and adapters within bf16's
+   tolerance; then ``IntegratedRuntime(mesh=)`` on vit-edge: one produce
+   of two domains, one upgrade (its adapters stay on the mesh), one
+   produce;
+47. the mesh path's kernels at the shapes one rank of a 2x2 mesh hands
+   them for qwen2-7b (run with phase 3's cases): ``lora_matmul`` and
+   both ``lora_bgmv`` kernels at q's 1792 and v's 256 output columns and
+   4 wave rows (4 x 512 at prefill), ``flash_attention`` at B 4 with
+   14 / 2 heads, ``flash_decode`` at B 4 with 14 / 2 heads, shared and
+   bank prefix;
+48. the dry-run with ``--multi-pod`` for qwen2-7b on ``meta``: one data
+   row of the 2 x 16 x 16 mesh, each batch its global batch / 32.
 
-Each kernel's ``launches`` adds phases 29-39's runs to its own path's
-(``launches_by_path``: ``relay``, ``sl``, ``sl_train``, ``cli``,
-``moe``, ``vlm``, ``audio``). Every full-size drain and round (phases 4,
-5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38) and phases 29-32
+Each kernel's ``launches`` adds phases 29-39's and 45-46's runs to its
+own path's (``launches_by_path``: ``relay``, ``sl``, ``sl_train``,
+``cli``, ``moe``, ``vlm``, ``audio``, ``mesh``, ``mesh_train``).
+Every full-size drain and round (phases 4,
+5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38, 45, 46) and phases 29-32
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -841,7 +863,7 @@ def bgmv_case(cases: dict, randn, timer: Timer, name: str, lead: tuple,
     a = randn(n_slots, K, r, dtype=dtype, s=K ** -0.5)
     b = randn(n_slots, r, N, dtype=dtype, s=0.1)
     bias = randn(N, dtype=dtype, s=0.1)
-    ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+    ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0][:lead[0]], dtype=torch.int32,
                        device="cuda")
     fn = bg.lora_bgmv_rows if name == "lora_bgmv_rows" else bg.lora_bgmv_seq
     got = fn(x, w, a, b, ids, scale, bias, backend="cuda")
@@ -1212,9 +1234,11 @@ def main_path(seed: int) -> tuple[dict, dict]:
     bank = AdapterBank.create(domain_adapters(cfg, seed + 1))
     bank_rec = bank_path(cfg, params["backbone"], bank, reqs, seed)
     paged_rec = paged_path(cfg, params["backbone"], bank, seed, bank_rec)
+    mesh_rec = mesh_drain(cfg, params["backbone"], bank, reqs,
+                          bank_rec["domains"])
     del params, bank
     torch.cuda.empty_cache()
-    return rec, bank_rec, paged_rec, spec_rec
+    return rec, bank_rec, paged_rec, spec_rec, mesh_rec
 
 
 def warm_drain(cfg, params, reqs, comps) -> dict:
@@ -1301,7 +1325,8 @@ def bank_path(cfg, backbone: dict, bank, reqs: list, seed: int) -> dict:
     log(f"bank: one prompt through {N_DOMAINS} domains: {distinct} distinct "
         f"token rows")
     rec.update(mixed_prefill_cosine=coss, mixed_prefill_max_abs_err=errs,
-               mixed_prefill_bit_equal=same, distinct_domain_rows=distinct)
+               mixed_prefill_bit_equal=same, distinct_domain_rows=distinct,
+               domains=doms)
     no_pad_copies("phase 5")
     return rec
 
@@ -5168,6 +5193,288 @@ def tools_phases(seed: int, gen: torch.Generator, timer: Timer,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 45 to 48: the dense main path on a device mesh
+# ---------------------------------------------------------------------------
+
+# the paths whose launches a kernel's record also reports
+MESH_PATHS = ("mesh", "mesh_train")
+
+
+def mesh_drain(cfg, backbone: dict, bank, reqs: list, doms: list) -> dict:
+    """Phase 45: phase 5's queue, domains and bank adapters on phase 4's
+    qwen2-7b backbone, drained on a 1x1 NCCL mesh (``DecodeEngine(mesh=)``,
+    the backbone placed by ``place_params``, a slot-sharded bank), held to
+    the same drain without a mesh: the same tokens (else each request's
+    first token and the full-size prefill logits' cosine), the same
+    launches of every kernel, no plain version; tok/s of both."""
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules as R
+
+    adapters = {d: bank.snapshot(d) for d in bank.domains}
+
+    def run(eng, params):
+        ops.reset_launch_counts()
+        with plain_calls(serving=True) as plain:
+            comps, stats = serve_on(eng, params, reqs, doms)
+        launches = ops.launch_counts()
+        check(all(v == 0 for v in plain.values()),
+              f"phase 45: a plain version ran: {plain}")
+        return comps, stats, launches
+
+    t0 = time.perf_counter()
+    p_comps, p_stats, p_launches = run(
+        DecodeEngine(cfg, slots=8, bank=bank, device="cuda"),
+        bank.serving_params(backbone))
+    rec = {"meshless_tok_per_s": p_stats.tok_per_s,
+           "meshless_wall_s": p_stats.wall_s,
+           "meshless_tok_latency_p50_s": p_stats.tok_latency_hist["p50"]}
+    with single_process_mesh() as mesh:
+        bank_m = AdapterBank.create(adapters, mesh=mesh)
+        bb_m = M.place_params({"backbone": backbone}, cfg, mesh)["backbone"]
+        sp = bank_m.serving_params(bb_m)
+        comps, stats, launches = run(
+            DecodeEngine(cfg, slots=8, bank=bank_m, mesh=mesh,
+                         device="cuda"), sp)
+        check(launches == p_launches,
+              f"phase 45: mesh drain launches {launches}, without a mesh "
+              f"{p_launches}")
+        served_ok(cfg, comps, reqs, "mesh")
+        no_pad_copies("phase 45")
+        same = [bool(np.array_equal(a.tokens, b.tokens))
+                for a, b in zip(comps, p_comps)]
+        first = [int(a.tokens[0]) == int(b.tokens[0])
+                 for a, b in zip(comps, p_comps)]
+        S = 256
+        rng = np.random.default_rng(45)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (N_DOMAINS, S)),
+                               device="cuda")
+        ids = bank.adapter_ids(bank.domains)
+        with R.use_rules(mesh, R.serving_rules()):
+            ml, _ = M.prefill(sp, {"tokens": toks}, cfg, adapter_ids=ids)
+        ml = ml.full_tensor()
+        pl, _ = M.prefill(bank.serving_params(backbone), {"tokens": toks},
+                          cfg, adapter_ids=ids)
+        cos = F.cosine_similarity(ml.flatten().float(), pl.flatten().float(),
+                                  dim=0).item()
+        top = bool((ml.argmax(-1) == pl.argmax(-1)).all())
+        check(all(same) or (all(first) and cos > 0.999 and top),
+              f"phase 45: mesh vs mesh-less tokens equal {same}, first "
+              f"tokens {first}, prefill logits cosine {cos}, top-1 {top}")
+        wq = bb_m["layers"]["g0"][0]["s0"]["attn"]["wq"]
+        rec.update(
+            mesh="1x1 (data, model), nccl", launches=launches,
+            tokens=stats.tokens, wall_s=stats.wall_s,
+            tok_per_s=stats.tok_per_s,
+            tok_latency_p50_s=stats.tok_latency_hist["p50"],
+            same_tokens=sum(same),
+            requests=len(same), prefill_logits_cosine=cos,
+            prefill_top1_equal=top,
+            prefill_bit_equal=bool(torch.equal(ml, pl)),
+            wq_placements=str(tuple(wq.placements)),
+            bank_placements=str(tuple(
+                _leaves(bank_m.stacked["stack"])[0].placements)))
+        del bank_m, bb_m, sp
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"phase 45: 1x1 NCCL mesh bank drain {rec['tok_per_s']:.2f} tok/s "
+        f"(per-token p50 "
+        f"{rec['tok_latency_p50_s'] * 1e3:.1f} ms) beside "
+        f"{rec['meshless_tok_per_s']:.2f} without a mesh (p50 "
+        f"{rec['meshless_tok_latency_p50_s'] * 1e3:.1f} ms); tokens equal on "
+        f"{sum(same)} of {len(same)} requests; launches equal "
+        f"{launches}; full-size mixed prefill logits mesh vs mesh-less "
+        f"cosine {cos:.6f}, bit-equal {rec['prefill_bit_equal']}; wq "
+        f"{rec['wq_placements']}, bank {rec['bank_placements']}; "
+        f"{rec['phase_s']:.1f}s")
+    return rec
+
+
+def mesh_train(seed: int) -> dict:
+    """Phase 46: phase 9's HFSL round (qwen2-7b at its published size, 2
+    clusters x 4 steps x batch 4, seq 256) on a 1x1 NCCL mesh
+    (``make_hfsl_round(mesh=)``, state and batch bank placed per
+    ``hfsl_round_rules``) against the same round without a mesh: losses
+    and adapters within bf16's tolerance, the same launches, no plain
+    version; then ``IntegratedRuntime(mesh=)`` on vit-edge: one produce of
+    two domains, one upgrade, one produce, its placements kept."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import hfsl
+    from repro_torch.core.integrated import IntegratedRuntime
+    from repro_torch.data.pipeline import BatchBank
+    from repro_torch.data.synthetic import ClassificationTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.sharding import rules as R
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-7b")
+    cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+    C, steps = 2, 4
+    opt = adamw(5e-3)
+    state = hfsl.init_hfsl_state(seed, cfg, C, opt, M.init, device="cuda")
+    bank = classify_bank((5, 1000, 256, 0.5), C, 4, steps, seed, 5)
+    rnd = hfsl.make_hfsl_round(cfg, opt, M.classify_loss, steps=steps,
+                               sync_every=2)
+
+    def timed(fn, *a):
+        ops.reset_launch_counts()
+        with plain_calls(scans=True) as plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(all(v == 0 for v in plain.values()),
+              f"phase 46: a plain version ran: {plain}")
+        return out, wall, ops.launch_counts()
+
+    (out_u, m_u), wall_u, l_u = timed(rnd, state, bank.arrays, 0)
+    rec = {"meshless_wall_s": wall_u, "meshless_step_s": wall_u / steps}
+    with single_process_mesh() as mesh:
+        rules = R.hfsl_round_rules(cfg.family)
+        spec = hfsl.hfsl_state_spec(cfg, C, opt, M.model_spec)
+        sh = hfsl.hfsl_state_shardings(cfg, C, opt, M.model_spec, mesh,
+                                       rules)
+        state_m = R.distribute_tree(state, sh, mesh)
+        rows = [{k: v[i] for k, v in bank.arrays.items()}
+                for i in range(bank.steps)]
+        bank_m = BatchBank.from_iterator(iter(rows), bank.steps, mesh=mesh,
+                                         rules=rules, device="cuda")
+        rnd_m = hfsl.make_hfsl_round(cfg, opt, M.classify_loss, steps=steps,
+                                     sync_every=2, mesh=mesh, rules=rules,
+                                     state_spec=spec)
+        walls = []
+        for _ in range(2):                 # the first fills DTensor's caches
+            (out_m, m_m), wall, l_m = timed(rnd_m, state_m, bank_m.arrays, 0)
+            check(l_m == l_u, f"phase 46: mesh round launches {l_m}, "
+                              f"without a mesh {l_u}")
+            walls.append(wall)
+        loss_err = (m_m["loss"] - m_u["loss"]).abs().max().item()
+        ad_err = max((a.full_tensor().float() - b.float()).abs().max().item()
+                     for a, b in zip(_leaves(out_m["adapters_c"]),
+                                     _leaves(out_u["adapters_c"])))
+        tol = TOL[torch.bfloat16]
+        check(loss_err <= tol and ad_err <= tol,
+              f"phase 46: mesh round vs without: losses {loss_err}, "
+              f"adapters {ad_err} beyond {tol}")
+        no_pad_copies("phase 46")
+        placed = str(tuple(_leaves(out_m["adapters_c"])[0].placements))
+        rec.update(mesh="1x1 (data, model), nccl", launches=l_m,
+                   cold_wall_s=walls[0], wall_s=walls[1],
+                   step_s=walls[1] / steps, loss_max_abs_err=loss_err,
+                   adapters_max_abs_err=ad_err,
+                   losses=m_m["loss"].tolist(),
+                   meshless_losses=m_u["loss"].tolist(),
+                   adapters_c_placements=placed)
+        log(f"phase 46: qwen2-7b HFSL round on the 1x1 mesh "
+            f"{walls[1]:.3f}s (cold {walls[0]:.3f}) beside {wall_u:.3f}s "
+            f"without; losses max_abs_err {loss_err:.2e}, adapters "
+            f"{ad_err:.2e}; launches equal {l_m}; adapters_c {placed}")
+        del state_m, bank_m, out_m, state, out_u, bank
+        torch.cuda.empty_cache()
+
+        vit = get_config("vit-edge")
+        tasks = {n: ClassificationTask(5, 64, 48, class_strength=0.6,
+                                       seed=s) for n, s in (("nlp", 0),
+                                                            ("cv", 7))}
+        t0 = time.perf_counter()
+        rt = IntegratedRuntime(vit, tasks, mesh=mesh, n_clusters=2,
+                               steps_per_upgrade=4, batch=16,
+                               serve_batch=16, serve_gen=4, serve_slots=8,
+                               seed=seed, device="cuda")
+        build_s = time.perf_counter() - t0
+        profit, cost = rt.produce(["nlp", "cv"])
+        check(0.0 <= profit <= rt.profit_scale and cost.tokens == 16 * 4,
+              f"phase 46: runtime produce {profit}, {cost.tokens} tokens")
+        v0 = rt.bank.version("nlp")
+        _, up = rt.upgrade("nlp")
+        check(rt.bank.version("nlp") == v0 + 1, "phase 46: no publish")
+        after = str(tuple(_leaves(rt.domains["nlp"].adapters_c)[0]
+                          .placements))
+        check(after.startswith("(Shard(dim=0)"),
+              f"phase 46: adapters_c left the mesh: {after}")
+        profit2, cost2 = rt.produce("nlp")
+        check(0.0 <= profit2 <= rt.profit_scale,
+              f"phase 46: runtime produce {profit2}")
+        rec["runtime"] = dict(
+            build_s=build_s, produce_s=cost.latency_s,
+            produce_tok_per_s=cost.tok_per_s, profit=profit,
+            upgrade_s=up.latency_s, upgrade_ex_per_s=up.ex_per_s,
+            profit_after=profit2, accuracy=rt.domains["nlp"].accuracy,
+            adapters_c_placements=after)
+        log(f"phase 46: vit-edge IntegratedRuntime on the mesh: built in "
+            f"{build_s:.1f}s, produce {cost.latency_s:.3f}s "
+            f"({cost.tok_per_s:.2f} tok/s) profit {profit:.1f}, upgrade "
+            f"{up.latency_s:.3f}s ({up.ex_per_s:.1f} examples/s), produce "
+            f"{cost2.latency_s:.3f}s profit {profit2:.1f}; adapters_c "
+            f"{after}")
+        del rt
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def mesh_kernel_cases(gen: torch.Generator, timer: Timer,
+                      cases: dict) -> None:
+    """Phase 47: each kernel of the mesh path at the shapes one rank of a
+    2x2 (`data`, `model`) mesh hands it for qwen2-7b: q's 3584 output
+    columns and v's 512 split in two (1792, 256), 28 / 4 heads in two (14
+    / 2), 8 wave rows in two (4 a `data` rank)."""
+    randn = randn_of(gen)
+    K, dtype, label = 3584, torch.bfloat16, "2x2 rank: "
+    for M_, N in ((4, 1792), (4, 256), (4 * 512, 1792), (4 * 512, 256)):
+        lora_case(cases, randn, timer, M_, K, N, dtype, label=label)
+    for name, lead in (("lora_bgmv_rows", (4,)), ("lora_bgmv_seq", (4, 512))):
+        for N in (1792, 256):
+            bgmv_case(cases, randn, timer, name, lead, K, N, dtype,
+                      label=label)
+    B, S, n_p, Hq, Hkv, D = 4, 512, 16, 14, 2, 128
+    attn_case(cases, randn, timer, B, S, n_p, Hq, Hkv, D, dtype,
+              label="causal, 2x2 rank")
+    q, kc, vc, qp, kpc, pk, pv = decode_inputs(randn, gen, B, 1024, n_p, Hq,
+                                               Hkv, D, dtype)
+    decode_case(cases, timer, q, kc, vc, qp, kpc, pk, pv, 0,
+                f"{label}B={B} T=1024+{n_p} prefix Hq={Hq} Hkv={Hkv} D={D} "
+                f"per-row q_pos")
+    bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
+    ids = torch.tensor([1, 3, 0, 1], dtype=torch.int32, device="cuda")
+    decode_case(cases, timer, q, kc, vc, qp, kpc, bk, bv, 0,
+                f"{label}B={B} T=1024+{n_p} prefix of {N_DOMAINS} domains by "
+                f"id Hq={Hq} Hkv={Hkv} D={D} per-row q_pos", pids=ids)
+
+
+def multipod_phase() -> dict:
+    """Phase 48: the dry-run with ``--multi-pod`` for qwen2-7b on
+    ``meta``: one card is one of the 2 x 16 x 16 mesh's 32 data rows, so
+    each shape's batch is its global batch / 32 (long_500k keeps 1)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    results = dryrun.sweep([("qwen2-7b", s) for s in INPUT_SHAPES],
+                           multi_pod=True)
+    for r, (name, shape) in zip(results, INPUT_SHAPES.items()):
+        check(r["status"] == "ok", f"phase 48: {name}: {r}")
+        check(r["batch"] == max(1, shape.global_batch // 32)
+              and r["data_rows"] == 32
+              and r["mesh"] == "1 (one data row of the 2x16x16 mesh)",
+              f"phase 48: {name}: batch {r['batch']}, {r['mesh']}")
+        log(f"phase 48: {dryrun.summary(r)}")
+    return {"pairs": [{k: r[k] for k in ("shape", "batch", "global_batch",
+                                         "mesh", "fits_one_h100",
+                                         "mfu_bound")}
+                      for r in results],
+            "phase_s": time.perf_counter() - t0}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5235,13 +5542,15 @@ def main(argv=None) -> int:
     lora_bwd_hybrid_cases(gen, timer, cases)
     moe_kernel_cases(timer, cases, args.seed)
     family_kernel_cases(timer, cases, args.seed)
-    rec["main"], rec["bank"], rec["paged"], rec["spec"] = \
+    mesh_kernel_cases(gen, timer, cases)
+    rec["main"], rec["bank"], rec["paged"], rec["spec"], rec["mesh"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
         f"beside single-tenant {rec['main']['tok_per_s']:.2f} tok/s")
     rec["e2e"] = end_to_end(args.seed)
     rec["classify"] = classify_phase(args.seed)
     rec.update(train_phases(args.seed))
+    rec["mesh_train"] = mesh_train(args.seed)
     rec["loop"] = paper_loop(args.seed)
     rec["mamba"], rec["mamba_bank"] = mamba_path(args.seed)
     rec["mamba_e2e"] = mamba_exactness(args.seed)
@@ -5257,13 +5566,15 @@ def main(argv=None) -> int:
     rec["moe"] = moe_phases(args.seed)
     rec.update(family_phases(args.seed))
     rec["tools"] = tools_phases(args.seed, gen, timer, cases)
+    rec["multipod"] = multipod_phase()
 
     kernels = []
     for name, cs in cases.items():
         head = cs[0]
         path = PATH_OF.get(name, "main")
         by_path = {p: rec[p]["launches"].get(name, 0)
-                   for p in (path,) + FLOW_PATHS + FAMILY_PATHS}
+                   for p in (path,) + FLOW_PATHS + FAMILY_PATHS
+                   + MESH_PATHS}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

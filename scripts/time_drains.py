@@ -80,9 +80,11 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     out = {"label": args.label, "source": str(path)}
     if "main" in paths:
-        main, bank, paged, spec_rec = smoke.main_path(args.seed)
+        main, bank, paged, spec_rec, *mesh = smoke.main_path(args.seed)
         out.update(main=numbers(main), bank=numbers(bank),
                    paged=numbers(paged), spec=numbers(spec_rec))
+        if mesh:                      # a tree with phase 45's mesh drain
+            out["mesh"] = numbers(mesh[0])
     if "mamba" in paths:
         mamba, mamba_bank = smoke.mamba_path(args.seed)
         out.update(mamba=numbers(mamba), mamba_bank=numbers(mamba_bank))

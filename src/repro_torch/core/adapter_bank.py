@@ -21,8 +21,13 @@ rows from different domains (S-LoRA / Punica-style multi-tenant serving):
   adapter tree that does not alias the bank.
 
 The bank never holds the backbone: :meth:`serving_params` pairs the shared
-frozen backbone with the stacked adapters per wave. Slot-sharding over a
-mesh (``mesh=``) is not ported yet.
+frozen backbone with the stacked adapters per wave.
+
+**Slot sharding** (``mesh=``): every leaf becomes a DTensor with its slot
+dim on the `slots` axes ((`pod`, `data`); :meth:`shardings`), the other
+dims replicated; a slot count that does not divide stays replicated. A
+publish writes the slot on the rank that holds it, so the placement
+survives the swap; a snapshot is a whole copy on every rank.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 from repro_torch.core import telemetry
-from repro_torch.core.device import unported
+from repro_torch.sharding import dtensor as dt
 
 
 def _leaves(tree) -> list:
@@ -53,12 +58,25 @@ def _stack(trees: list):
 
 
 def _slice(tree, slot: int):
-    """A copy of slot ``slot`` of every leaf (never a view of the bank)."""
+    """A copy of slot ``slot`` of every leaf (never a view of the bank;
+    whole on every rank for a slot-sharded bank)."""
     if isinstance(tree, dict):
         return {k: _slice(v, slot) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_slice(v, slot) for v in tree]
-    return tree[slot].clone()
+    return dt.whole(tree)[slot].clone()
+
+
+def _write(cur, slot: int, new) -> None:
+    """``cur[slot] = new`` in place; a DTensor leaf writes its slot on the
+    rank that holds it."""
+    if dt.is_dt(cur):
+        new = dt.whole(new)              # a collective: every rank takes it
+        loc, start = dt.local_rows(cur)
+        if start <= slot < start + loc.shape[0]:
+            loc[slot - start].copy_(new)
+        return
+    cur[slot].copy_(new)
 
 
 def _pairs(cur, new, where: str) -> list:
@@ -85,6 +103,7 @@ def _pairs(cur, new, where: str) -> list:
 @torch.no_grad()
 def _all_finite(leaves: list) -> bool:
     """Every leaf finite, from one device reduction and one host read."""
+    leaves = [dt.whole(t) for t in leaves]
     flags = torch.stack([torch.isfinite(t).all().to(device=leaves[0].device)
                          for t in leaves])
     return bool(flags.all())
@@ -93,12 +112,16 @@ def _all_finite(leaves: list) -> bool:
 class AdapterBank:
     """Stacked per-domain adapter store with slot-indexed publish/serve."""
 
-    def __init__(self, domains: Sequence[str], stacked: dict, *, mesh=None):
-        if mesh is not None:
-            raise unported("AdapterBank(mesh=...)",
-                           "later, multi-GPU sharding")
+    def __init__(self, domains: Sequence[str], stacked: dict, *, mesh=None,
+                 rules: Optional[dict] = None):
         self.domains = tuple(domains)
         self._slot = {d: i for i, d in enumerate(self.domains)}
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.sharding.rules import distribute_tree
+            stacked = distribute_tree(stacked,
+                                      self.shardings(stacked, mesh, rules),
+                                      mesh)
         self.stacked = stacked
         self.versions: Dict[str, int] = {d: 0 for d in self.domains}
         # last-known-good serving copies: per-domain snapshot of the slot
@@ -108,16 +131,24 @@ class AdapterBank:
         self._lkg_version: Dict[str, int] = {}
         self.rollbacks: Dict[str, int] = {d: 0 for d in self.domains}
 
+    @staticmethod
+    def shardings(stacked: dict, mesh, rules: Optional[dict] = None) -> dict:
+        """Partition-spec tree: each leaf's slot dim (dim 0) on the `slots`
+        axes, the rest replicated."""
+        from repro_torch.models.params import tree_map
+        from repro_torch.sharding.rules import dim_sharding
+        n = _leaves(stacked)[0].shape[0]
+        spec = dim_sharding(mesh, n, "slots", rules=rules)
+        return tree_map(lambda _: spec, stacked)
+
     @classmethod
     def create(cls, adapters_by_domain: Dict[str, dict], *,
-               mesh=None) -> "AdapterBank":
-        """Stack one adapter tree per domain into the serving layout."""
+               mesh=None, rules: Optional[dict] = None) -> "AdapterBank":
+        """Stack one adapter tree per domain into the serving layout (with
+        a ``mesh``: slot-sharded over its `data` axis)."""
         domains = list(adapters_by_domain)
-        if mesh is not None:               # before any stacking work
-            raise unported("AdapterBank.create(mesh=...)",
-                           "later, multi-GPU sharding")
         stacked = _stack([adapters_by_domain[d] for d in domains])
-        return cls(domains, stacked)
+        return cls(domains, stacked, mesh=mesh, rules=rules)
 
     # -- addressing ---------------------------------------------------------
     @property
@@ -194,7 +225,7 @@ class AdapterBank:
             for key in self.stacked:
                 for cur, new in _pairs(self.stacked[key], adapters[key],
                                        f"publish({domain!r}) {key}"):
-                    cur[slot].copy_(new)
+                    _write(cur, slot, new)
             self.versions[domain] += 1
             sp.set(version=self.versions[domain])
         tel.count("bank.publishes")

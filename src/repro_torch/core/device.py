@@ -23,8 +23,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 def unported(what: str, item: str) -> NotImplementedError:
     """The error every not-yet-ported feature raises, naming the ROADMAP
-    item (``ROADMAP.md`` "Modules to port") that will port it: the
-    multi-GPU modes ("multi-GPU", "multi-GPU sharding"); every model
-    family is ported."""
+    item that will port it: "later, multi-GPU sharding" (``ROADMAP.md``
+    1-E2), the mesh modes still to come: paged and speculative serving on
+    a mesh, the moe family's expert parallelism, the ssm and hybrid
+    families' rules (and every family but dense in a mesh round),
+    ``long_decode_rules`` and the SL chain's `stage` axis. Every model
+    family and the dense main path on a mesh are ported."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP: {item})")

@@ -27,10 +27,21 @@ come back as stacked ``(steps,)`` tensors.
 Two entry points share one step body (:func:`_make_step_body`):
 :func:`make_hfsl_step` (one step per call) and :func:`make_hfsl_round`
 (``steps`` steps per call).
+
+Mesh. ``make_hfsl_round(mesh=...)`` runs the round on a (`data`, `model`)
+device mesh (the dense family): the train state and the batch bank are
+DTensors with their cluster dim on (`pod`, `data`)
+(:func:`hfsl_state_shardings`, ``BatchBank.pack(mesh=)``). Each `data`
+rank runs its own clusters through the cluster loop, against the backbone
+split over `model` (tensor parallelism inside a cluster, the hand-written
+kernels on local shards); FedAvg is a local sum plus an ``all_reduce``
+over the cluster axes, in f32 (:class:`_Clusters`). The output state
+keeps the input's placements.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,12 +50,14 @@ import torch
 from repro_torch.core import telemetry
 from repro_torch.core.device import unported
 from repro_torch.core.peft import value_and_grad
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import ParamSpec, tree_leaves, tree_map
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_by_global_norm)
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.rules import (hfsl_round_rules, partition_specs,
+                                        use_rules)
 
 _TRAIN_KEYS = ("adapters_c", "opt", "step")    # donated; backbone never is
-_MULTI_GPU = "later, multi-GPU"
 
 
 def _cluster(tree, c: int):
@@ -60,6 +73,165 @@ def _stack_clusters(trees: list):
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(n,) per-cluster values shaped to broadcast against leaf ``x``."""
     return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+# ---------------------------------------------------------------------------
+# Specs / init
+# ---------------------------------------------------------------------------
+
+def _cluster_stack(tree, n: int):
+    """A leading `cluster` dim on every adapter ParamSpec; inner `fsdp`
+    axes are dropped (`cluster` already takes the (pod, data) axes)."""
+    def f(s: ParamSpec) -> ParamSpec:
+        inner = tuple(None if a == "fsdp" else a for a in s.axes) \
+            if s.axes else (None,) * len(s.shape)
+        return ParamSpec((n, *s.shape), s.dtype, ("cluster", *inner),
+                         init=s.init, scale=s.scale)
+    return tree_map(f, tree)
+
+
+def hfsl_state_spec(cfg, n_clusters: int, optimizer: Optimizer,
+                    model_spec_fn: Callable) -> dict:
+    """ParamSpec tree of the whole HFSL train state. The optimizer state
+    is declared from ``optimizer.init``'s structure: a cluster-leading
+    step and f32 moments shaped like ``adapters_c``."""
+    ms = model_spec_fn(cfg)
+    adapters_c = _cluster_stack(ms["adapters"], n_clusters)
+    meta = tree_map(lambda s: torch.empty(s.shape[1:], dtype=s.dtype,
+                                          device="meta"), adapters_c)
+
+    def f32_like(s: ParamSpec) -> ParamSpec:
+        return ParamSpec(s.shape, torch.float32, s.axes, init="zeros")
+
+    opt = {k: ParamSpec((n_clusters,), torch.int32, ("cluster",),
+                        init="zeros") if k == "step"
+           else (None if v is None else tree_map(f32_like, adapters_c))
+           for k, v in optimizer.init(meta).items()}
+    return {"backbone": ms["backbone"], "adapters_c": adapters_c,
+            "opt": opt, "step": ParamSpec((), torch.int32, (),
+                                          init="zeros")}
+
+
+def hfsl_state_shardings(cfg, n_clusters: int, optimizer: Optimizer,
+                         model_spec_fn: Callable, mesh,
+                         rules: Optional[dict] = None) -> dict:
+    """Partition-spec tree of the whole train state on ``mesh`` (default
+    rules ``hfsl_round_rules``): the adapter replicas and the optimizer
+    moments put their cluster dim on (`pod`, `data`), the backbone splits
+    where its dims divide. ``sharding.rules.distribute_tree(state, specs,
+    mesh)`` places a state so."""
+    rules = rules or hfsl_round_rules(cfg.family)
+    return partition_specs(hfsl_state_spec(cfg, n_clusters, optimizer,
+                                           model_spec_fn), mesh, rules)
+
+
+# ---------------------------------------------------------------------------
+# The cluster dim, whole or split over a mesh
+# ---------------------------------------------------------------------------
+
+class _Clusters:
+    """The cluster dim as one rank sees it. Without a mesh every cluster is
+    local and every operation is the plain one. On a mesh, a rank holds
+    the clusters of its (`pod`, `data`) coordinates (``n_local`` from
+    ``lo``); cluster means are a local f32 sum and an ``all_reduce`` over
+    those axes, per-cluster vectors are gathered whole, and each cluster's
+    adapters and optimizer moments become DTensors on the `model` sub-mesh
+    for its forward and update, split over `model` as the matching
+    leaves of ``train`` (the round's input train state) are."""
+
+    def __init__(self, mesh=None, rules=None, train=None):
+        self.mesh, self.rules, self.like = mesh, rules, train
+        self.split: list = []            # mesh dims the clusters split over
+        self.sub = None                  # the `model` sub-mesh
+        self.lo, self.n_local = 0, None
+        if mesh is None:
+            return
+        from torch.distributed.tensor import Shard
+        leaf = tree_leaves(train["adapters_c"])[0]
+        self.n = leaf.shape[0]
+        md = dt.model_dim(mesh)
+        self.split = [i for i, p in enumerate(leaf.placements)
+                      if isinstance(p, Shard) and p.dim == 0 and i != md]
+        loc, self.lo = dt.local_rows(leaf)
+        self.n_local = loc.shape[0]
+        if md is not None:
+            self.sub = mesh[mesh.mesh_dim_names[md]]
+
+    # -- per-cluster vectors and means
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        """(n,) -> this rank's (n_local,)."""
+        return v if self.mesh is None else v[self.lo:self.lo + self.n_local]
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's (n_local, ...) -> every cluster's (n, ...)."""
+        import torch.distributed as dist
+        for i in reversed(self.split):   # minor axis first
+            g = self.mesh.get_group(i)
+            parts = [torch.empty_like(v)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, v.contiguous(), group=g)
+            v = torch.cat(parts)
+        return v
+
+    def mean0(self, xf: torch.Tensor) -> torch.Tensor:
+        """f32 mean over every cluster, (1, ...)."""
+        if self.mesh is None:
+            return xf.mean(0, keepdim=True)
+        return self.sum0(xf) / self.n
+
+    def sum0(self, xf: torch.Tensor) -> torch.Tensor:
+        """f32 sum over every cluster, (1, ...)."""
+        import torch.distributed as dist
+        s = xf.sum(0, keepdim=True)
+        for i in self.split:
+            dist.all_reduce(s, group=self.mesh.get_group(i))
+        return s
+
+    # -- one cluster's trees on the model sub-mesh
+    def wrap(self, tree, like):
+        """Cluster slices (plain, local) -> DTensors on the `model`
+        sub-mesh, split over `model` as the matching cluster-leading leaf
+        of ``like`` is (its dim ``d`` is the slice's ``d - 1``)."""
+        if self.sub is None:
+            return tree
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        md = dt.model_dim(self.mesh)
+
+        def f(x, ref):
+            if not dt.is_dt(ref):
+                return x
+            p = ref.placements[md]
+            p = Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+            return DTensor.from_local(x, self.sub, [p], run_check=False)
+        return tree_map(f, tree, like)
+
+    def backbone(self, tree):
+        """The backbone on the `model` sub-mesh: each leaf gathered over
+        the other axes (its FSDP split), its `model` split kept (a mesh
+        without a `model` axis: whole, plain)."""
+        if self.mesh is None:
+            return tree
+        from torch.distributed.tensor import DTensor, Replicate
+        md = dt.model_dim(self.mesh)
+
+        def f(x):
+            if not dt.is_dt(x):
+                return x
+            pl = [x.placements[i] if i == md else Replicate()
+                  for i in range(self.mesh.ndim)]
+            loc = x.redistribute(self.mesh, pl).to_local()
+            if self.sub is None:
+                return loc
+            return DTensor.from_local(loc, self.sub, [pl[md]],
+                                      run_check=False)
+        return tree_map(f, tree)
+
+    @staticmethod
+    def unwrap(out: tuple) -> tuple:
+        """A cluster update's (adapters, opt, loss, aux) as local
+        tensors."""
+        return tuple(tree_map(lambda x: x.to_local() if dt.is_dt(x) else x,
+                              t) for t in out)
 
 
 # ---------------------------------------------------------------------------
@@ -92,20 +264,35 @@ def init_opt_state(optimizer: Optimizer, adapters_c):
 # Train step
 # ---------------------------------------------------------------------------
 
-def fedavg(adapters_c):
+def fedavg(adapters_c, clusters: Optional[_Clusters] = None):
     """FedAvg over the cluster dim: f32 mean, broadcast back to every
-    cluster in the leaf dtype."""
+    cluster in the leaf dtype (on a mesh, the mean over every rank's
+    clusters)."""
+    c = clusters or _Clusters()
     return tree_map(
-        lambda x: x.float().mean(0, keepdim=True).expand_as(x).to(x.dtype)
+        lambda x: c.mean0(x.float()).expand_as(x).to(x.dtype)
         .contiguous(), adapters_c)
 
 
 def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
-                         clip_norm: float, microbatches: int) -> Callable:
+                         clip_norm: float, microbatches: int,
+                         clusters: Optional[_Clusters] = None) -> Callable:
     """Per-cluster local step: grads (optionally accumulated over
-    ``microbatches`` splits of the cluster batch) -> one optimizer update."""
+    ``microbatches`` splits of the cluster batch) -> one optimizer update.
+    On a mesh, the cluster's adapters and moments run as DTensors on the
+    `model` sub-mesh and come back as local tensors."""
+    c = clusters or _Clusters()
 
     def one_cluster(backbone, adapters, opt_state, batch):
+        if c.sub is not None:
+            adapters = c.wrap(adapters, c.like["adapters_c"])
+            opt_state = c.wrap(opt_state, c.like["opt"])
+            with use_rules(c.sub, c.rules):
+                out = _update(backbone, adapters, opt_state, batch)
+            return c.unwrap(out)
+        return _update(backbone, adapters, opt_state, batch)
+
+    def _update(backbone, adapters, opt_state, batch):
         def inner(a, mb):
             return loss_fn({"backbone": backbone, "adapters": a}, mb, cfg)
 
@@ -143,21 +330,24 @@ def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
     return one_cluster
 
 
-def fedavg_masked(adapters_c, mask):
+def fedavg_masked(adapters_c, mask, clusters: Optional[_Clusters] = None):
     """Partial-participation FedAvg: mean over the clusters ``mask`` keeps,
     broadcast back to those clusters ONLY — a masked-out (dropped or
     straggling) cluster's replica passes through bit-unchanged. With an
     all-ones mask the plain-mean result is selected, so the full-
-    participation case equals :func:`fedavg` bit for bit."""
-    m = mask.float()
-    cnt = m.sum().clamp_min(1.0)             # 0 survivors -> no-op round
-    full = (m > 0).all()
+    participation case equals :func:`fedavg` bit for bit. ``mask`` has
+    one entry per cluster of every rank."""
+    c = clusters or _Clusters()
+    m_all = mask.float()
+    cnt = m_all.sum().clamp_min(1.0)         # 0 survivors -> no-op round
+    full = (m_all > 0).all()
+    m = c.local(m_all)
 
     def f(x):
         mm = _bcast(m, x)
         xf = x.float()
-        plain = xf.mean(0, keepdim=True)
-        masked = (xf * mm).sum(0, keepdim=True) / cnt
+        plain = c.mean0(xf)
+        masked = c.sum0(xf * mm) / cnt
         avg = torch.where(full, plain, masked).expand_as(x).to(x.dtype)
         return torch.where(mm > 0, avg, x)
 
@@ -173,12 +363,12 @@ def _clusters_finite(tree) -> torch.Tensor:
 
 
 def _sync_at_boundary(adapters_c, new_step, *, sync_every: int,
-                      always_sync: bool, mask=None):
+                      always_sync: bool, mask=None, clusters=None):
     """FedAvg at ``sync_every`` multiples of the step counter (a device
     tensor: the choice is a select, not a host branch). With ``mask``
     (participation, (n,)) only surviving clusters are averaged."""
-    avg = fedavg if mask is None else functools.partial(fedavg_masked,
-                                                        mask=mask)
+    avg = functools.partial(fedavg, clusters=clusters) if mask is None \
+        else functools.partial(fedavg_masked, mask=mask, clusters=clusters)
     if always_sync or sync_every == 1:
         return avg(adapters_c)
     do_sync = (new_step % sync_every) == 0
@@ -188,7 +378,8 @@ def _sync_at_boundary(adapters_c, new_step, *, sync_every: int,
 
 def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
                     sync_every: int, clip_norm: float, always_sync: bool,
-                    microbatches: int, faulted: bool = False) -> Callable:
+                    microbatches: int, faulted: bool = False,
+                    clusters: Optional[_Clusters] = None) -> Callable:
     """``step(state, batch) -> (state, metrics)``; batch leaves carry a
     leading cluster dim.
 
@@ -201,9 +392,14 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
     device, no host sync). The differentiated per-cluster step is the same
     as the plain body's, and every guard is a select, so with an all-ones
     mask and no corruption the outputs equal the plain body's bit for
-    bit."""
+    bit.
+
+    ``clusters`` (a mesh round's :class:`_Clusters`) makes the state's
+    cluster-leading leaves this rank's clusters, and the step's per-cluster
+    metrics every cluster's."""
+    cl = clusters or _Clusters()
     one_cluster = _make_cluster_update(cfg, optimizer, loss_fn, clip_norm,
-                                       microbatches)
+                                       microbatches, cl)
 
     def vstep(state, batch):
         n = state["opt"]["step"].shape[0]
@@ -221,10 +417,11 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
         new_step = state["step"] + 1
         adapters_c = _sync_at_boundary(adapters_c, new_step,
                                        sync_every=sync_every,
-                                       always_sync=always_sync)
+                                       always_sync=always_sync, clusters=cl)
+        loss_c = cl.gather(loss_c)
         metrics = {"loss": loss_c.mean(), "loss_per_cluster": loss_c}
         for k in (aux_c or {}):
-            metrics[k] = aux_c[k].mean()
+            metrics[k] = cl.gather(aux_c[k]).mean()
         return {**state, "adapters_c": adapters_c, "opt": opt_c,
                 "step": new_step}, metrics
 
@@ -234,16 +431,17 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
         # corruption is injected AFTER the differentiated step, so the
         # unflagged clusters run the plain body's exact arithmetic while the
         # guard below sees a genuinely non-finite update
+        corrupt_l = cl.local(corrupt)
         new_a = tree_map(
-            lambda x: torch.where(_bcast(corrupt, x),
+            lambda x: torch.where(_bcast(corrupt_l, x),
                                   torch.full_like(x, float("nan")), x)
             if x.is_floating_point() else x, new_a)
-        loss_c = torch.where(corrupt, torch.full_like(loss_c, float("nan")),
-                             loss_c)
+        loss_c = torch.where(corrupt_l,
+                             torch.full_like(loss_c, float("nan")), loss_c)
         part = mask > 0
         ok = (_clusters_finite(new_a) & _clusters_finite(new_opt)
               & torch.isfinite(loss_c))
-        eff = part & ok
+        eff = cl.local(part) & ok
 
         def sel(new, old):
             return tree_map(lambda n_, o: torch.where(_bcast(eff, n_), n_, o),
@@ -255,7 +453,8 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
         adapters_c = _sync_at_boundary(adapters_c, new_step,
                                        sync_every=sync_every,
                                        always_sync=always_sync,
-                                       mask=part.float())
+                                       mask=part.float(), clusters=cl)
+        loss_c, ok, eff = cl.gather(loss_c), cl.gather(ok), cl.gather(eff)
         # where-masked means (a guarded cluster's loss is NaN, and NaN * 0
         # would poison the mean); the all-effective case selects the plain
         # mean, so fault-free metrics equal the plain body's
@@ -274,7 +473,7 @@ def _make_step_body(cfg, optimizer: Optimizer, loss_fn: Callable, *,
                    "skipped": (part & ~ok).to(torch.int32).sum(),
                    "dropped": n - npart}
         for k in (aux_c or {}):
-            metrics[k] = mmean(aux_c[k])
+            metrics[k] = mmean(cl.gather(aux_c[k]))
         return {**state, "adapters_c": adapters_c, "opt": opt_c,
                 "step": new_step}, metrics
 
@@ -332,23 +531,42 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
     tensors (never the backbone's), which the returned state then holds.
 
     Numerics equal ``steps`` sequential :func:`make_hfsl_step` calls on the
-    same batches: the two share one step body. ``mesh``, ``rules`` and
-    ``state_spec`` (the reference's mesh-native round) are not ported."""
-    for name, v in (("mesh", mesh), ("rules", rules),
-                    ("state_spec", state_spec)):
-        if v is not None:
-            raise unported(f"make_hfsl_round({name}=...)", _MULTI_GPU)
+    same batches: the two share one step body.
+
+    ``mesh`` makes the round mesh-native (dense family): ``state`` and
+    ``bank`` are DTensors placed per :func:`hfsl_state_shardings` and
+    ``BatchBank.pack(mesh=...)`` (``state_spec``, the
+    :func:`hfsl_state_spec` tree, is required with it); each rank runs its
+    own clusters under ``rules`` (default ``hfsl_round_rules``) on the
+    `model` sub-mesh, FedAvg all-reduces over the cluster axes, and the
+    output state has the input's placements. Metrics come back whole on
+    every rank."""
+    if mesh is not None and state_spec is None:
+        raise ValueError("make_hfsl_round(mesh=...) requires state_spec= "
+                         "(the hfsl_state_spec tree) to place the round's "
+                         "train state")
+    if mesh is not None and cfg.family != "dense":
+        raise unported(f"make_hfsl_round(mesh=...) for the {cfg.family} "
+                       "family", "later, multi-GPU sharding")
+    rules = rules or (hfsl_round_rules(cfg.family) if mesh is not None
+                      else None)
     if remat is not None:
         loss_fn = functools.partial(loss_fn, remat=remat)
-    bodies = {f: _make_step_body(cfg, optimizer, loss_fn,
-                                 sync_every=sync_every, clip_norm=clip_norm,
-                                 always_sync=always_sync,
-                                 microbatches=microbatches, faulted=f)
-              for f in (False, True)}
+    def bodies(clusters):
+        return {f: _make_step_body(cfg, optimizer, loss_fn,
+                                   sync_every=sync_every,
+                                   clip_norm=clip_norm,
+                                   always_sync=always_sync,
+                                   microbatches=microbatches, faulted=f,
+                                   clusters=clusters)
+                for f in (False, True)}
+
+    plain_bodies = bodies(None) if mesh is None else None
 
     def round_core(train: dict, backbone, bank: dict, offset, faulted: bool,
-                   mask=None, corrupt=None) -> tuple[dict, dict]:
-        step = bodies[faulted]
+                   mask=None, corrupt=None,
+                   steps_fns=None) -> tuple[dict, dict]:
+        step = (steps_fns or plain_bodies)[faulted]
         lead = next(iter(bank.values()))
         rows = (torch.as_tensor(offset, device=lead.device)
                 + torch.arange(steps, device=lead.device)) % lead.shape[0]
@@ -376,7 +594,10 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
         # is the caller's clock around a synchronize
         tel = telemetry.get()
         with tel.span("hfsl.round_dispatch", steps=steps, clean=clean):
-            if clean:
+            if mesh is not None:
+                out, metrics = _mesh_round(state, bank, offset, clean, mask,
+                                           corrupt)
+            elif clean:
                 out, metrics = round_core(train, state["backbone"], bank,
                                           offset, False)
             else:
@@ -392,13 +613,54 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
                                device=dev))
                 out, metrics = round_core(train, state["backbone"], bank,
                                           offset, True, mask, corrupt)
-            if donate:
+            if donate and mesh is None:
                 out = {k: _write_into(state[k], out[k]) for k in _TRAIN_KEYS}
         tel.count("hfsl.rounds")
         tel.count("hfsl.steps", steps)
         if not clean:
             tel.count("hfsl.faulted_rounds")
         return {**out, "backbone": state["backbone"]}, metrics
+
+    def _mesh_round(state, bank, offset, clean, mask, corrupt):
+        """One round on the mesh: this rank's clusters of the local
+        shards, the output wrapped back into the input's placements."""
+        from torch.distributed.tensor import DTensor
+        train = {k: state[k] for k in _TRAIN_KEYS}
+        cl = _Clusters(mesh, rules, train)
+        for leaf in bank.values():
+            if dt.is_dt(leaf) and dt.local_rows(leaf, 1)[1] != cl.lo:
+                raise ValueError("the batch bank's cluster dim is not "
+                                 "split like the train state's: pack it "
+                                 "with BatchBank.pack(mesh=, rules=)")
+        local = {k: tree_map(lambda x: x.to_local() if dt.is_dt(x) else x,
+                             v) for k, v in train.items()}
+        bank_l = {k: v.to_local() if dt.is_dt(v) else v
+                  for k, v in bank.items()}
+        dev = local["step"].device
+        n = state["opt"]["step"].shape[0]
+        if not clean:
+            mask = (torch.ones((n,), dtype=torch.float32, device=dev)
+                    if mask is None else torch.as_tensor(
+                        np.asarray(mask), dtype=torch.float32, device=dev))
+            corrupt = (torch.zeros((n,), dtype=torch.bool, device=dev)
+                       if corrupt is None else torch.as_tensor(
+                           np.asarray(corrupt), dtype=torch.bool,
+                           device=dev))
+        out_l, metrics = round_core(local, cl.backbone(state["backbone"]),
+                                    bank_l, offset, not clean, mask,
+                                    corrupt, steps_fns=bodies(cl))
+
+        def back(x, ref):
+            if not dt.is_dt(ref):
+                return x
+            return DTensor.from_local(x, ref.device_mesh, ref.placements,
+                                      run_check=False)
+        def write(d, s):
+            (d.to_local() if dt.is_dt(d) else d).copy_(s)
+            return d
+        fn = write if donate else (lambda d, s: back(s, d))
+        return {k: tree_map(fn, train[k], out_l[k])
+                for k in _TRAIN_KEYS}, metrics
 
     return round_fn
 
@@ -418,5 +680,6 @@ def sync_bytes(adapters_c) -> int:
     """Bytes moved per FedAvg round: each cluster uploads + downloads its
     adapter replica (the parameter-efficient flow)."""
     leaves = tree_leaves(adapters_c)
-    per_replica = sum(x[0].numel() * x.element_size() for x in leaves)
+    per_replica = sum(math.prod(x.shape[1:]) * x.element_size()
+                      for x in leaves)
     return 2 * leaves[0].shape[0] * per_replica

@@ -25,11 +25,19 @@ drafter (``core/spec_decode.py``, seeded from ``seed + 997``) proposes
 drafted and accepted tokens in its RoundCost. It excludes ``paged``, as in
 the reference.
 
-Entry points run on ``cuda`` unless ``device="cpu"`` is passed. The
-reference's mesh-native runtime (``mesh=``) is not ported (ROADMAP).
+Entry points run on ``cuda`` unless ``device="cpu"`` is passed.
+
+With a (`data`, `model`) ``mesh`` both sides of the loop are laid out on
+it once, at construction: the backbone and every domain's HFSL state per
+``hfsl_round_rules`` (cluster dims on `data`), one cluster-sharded batch
+bank per domain, a slot-sharded adapter bank and a mesh engine; the
+upgrade round is ``make_hfsl_round(mesh=...)`` and classify runs under
+``serving_rules``. Every rank constructs the runtime alike and takes the
+same actions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional, Sequence
@@ -41,7 +49,7 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import hfsl, telemetry
 from repro_torch.core.adapter_bank import AdapterBank
 from repro_torch.core.comm import CostModel, RoundCost
-from repro_torch.core.device import resolve_device, unported
+from repro_torch.core.device import resolve_device
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.scheduler import SchedulerEnv, mlcp_policy
 from repro_torch.core.spec_decode import SpecDecoder
@@ -50,6 +58,9 @@ from repro_torch.data.pipeline import BatchBank
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import adamw
+from repro_torch.models.params import tree_map
+from repro_torch.sharding.dtensor import whole
+from repro_torch.sharding import rules as R
 
 
 @dataclasses.dataclass
@@ -90,10 +101,8 @@ class IntegratedRuntime:
                  spec_layers: int = 2,
                  tel: Optional[telemetry.Telemetry] = None,
                  paged=None, device=None):
-        if mesh is not None:
-            raise unported("IntegratedRuntime(mesh=...)",
-                           "later, multi-GPU sharding")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.tasks = tasks                       # domain -> ClassificationTask
         self.n_clusters = n_clusters
@@ -117,6 +126,17 @@ class IntegratedRuntime:
         self.backbone = params["backbone"]       # shared frozen FM
         self.opt = adamw(lr)
         self.batch = batch
+        round_rules = state_spec = state_sh = None
+        if mesh is not None:
+            # one spec tree places the state here and is the round's
+            # state_spec, so the two agree by construction
+            round_rules = R.hfsl_round_rules(cfg.family)
+            state_spec = hfsl.hfsl_state_spec(cfg, n_clusters, self.opt,
+                                              M.model_spec)
+            state_sh = R.partition_specs(state_spec, mesh, round_rules)
+            self.backbone = R.distribute_tree(self.backbone,
+                                              state_sh["backbone"], mesh)
+        self._state_sh = state_sh                # restore() re-places here
         self.domains: dict[str, DomainState] = {}
         self._banks: dict[str, BatchBank] = {}
         for i, name in enumerate(tasks):
@@ -124,6 +144,8 @@ class IntegratedRuntime:
             # hands one init to every domain too)
             state = hfsl.init_hfsl_state(seed + i, cfg, n_clusters, self.opt,
                                          lambda c, s, device=None: params)
+            if state_sh is not None:             # cluster replicas on `data`
+                state = {**state, **self._place(state)}
             data = tasks[name].dataset(200 * n_clusters, seed=seed + 11 + i)
             parts = partition_by_classes(data["label"], n_clusters,
                                          cfg.peft.head_dim_out,
@@ -131,7 +153,8 @@ class IntegratedRuntime:
             # one epoch of per-cluster batches lives on the device for the
             # whole runtime; every upgrade round gathers from it
             self._banks[name] = BatchBank.pack(data, parts, batch,
-                                               seed=seed + i,
+                                               seed=seed + i, mesh=mesh,
+                                               rules=round_rules,
                                                device=self.device)
             self.domains[name] = DomainState(
                 name, state["adapters_c"], state["opt"], state["step"])
@@ -139,10 +162,12 @@ class IntegratedRuntime:
         # FedAvg inside; the domain's state tensors are updated in place
         self._round = hfsl.make_hfsl_round(
             cfg, self.opt, M.classify_loss, steps=self.steps,
-            sync_every=self.sync_every, donate=True)
+            sync_every=self.sync_every, donate=True, mesh=mesh,
+            rules=round_rules, state_spec=state_spec)
         # one multi-tenant bank for every domain's serving adapters
         self.bank = AdapterBank.create(
-            {n: self._consensus_adapters(n) for n in self.domains})
+            {n: self._consensus_adapters(n) for n in self.domains},
+            mesh=mesh)
         # speculative produce rounds: a tiny recurrent drafter proposes
         # spec_k tokens per verify pass (the paper's small edge model
         # assisting the large one); DecodeEngine refuses it with paged
@@ -154,7 +179,7 @@ class IntegratedRuntime:
         self.engine = DecodeEngine(cfg, slots=min(serve_slots, serve_batch),
                                    seed=seed, bank=self.bank, tel=tel,
                                    paged=paged, spec=self.spec,
-                                   device=self.device)
+                                   mesh=mesh, device=self.device)
         self.records: list[RoundRecord] = []
         self._eval_cache: dict[str, dict] = {
             n: tasks[n].dataset(150, seed=seed + 91 + i)
@@ -165,6 +190,11 @@ class IntegratedRuntime:
     # -- internals ---------------------------------------------------------
     def _telemetry(self) -> telemetry.Telemetry:
         return self.tel if self.tel is not None else telemetry.get()
+
+    def _place(self, state: dict) -> dict:
+        """An HFSL state's train leaves laid out on the round's mesh."""
+        return {k: R.distribute_tree(state[k], self._state_sh[k], self.mesh)
+                for k in ("adapters_c", "opt", "step")}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -179,10 +209,13 @@ class IntegratedRuntime:
     @torch.no_grad()
     def _classify(self, params: dict, tokens: np.ndarray,
                   ids: torch.Tensor) -> np.ndarray:
-        """Argmax predictions of the bank's multi-tenant classify path."""
-        logits = M.classify(params, {"tokens": torch.as_tensor(
-            tokens, device=self.device)}, self.cfg, adapter_ids=ids)
-        return logits.argmax(-1).cpu().numpy()
+        """Argmax predictions of the bank's multi-tenant classify path
+        (under ``serving_rules`` on a mesh)."""
+        with (R.use_rules(self.mesh, R.serving_rules())
+              if self.mesh is not None else contextlib.nullcontext()):
+            logits = M.classify(params, {"tokens": torch.as_tensor(
+                tokens, device=self.device)}, self.cfg, adapter_ids=ids)
+        return whole(logits).argmax(-1).cpu().numpy()
 
     def _measure(self, domain: str) -> float:
         """Eval accuracy through the bank's multi-tenant classify path
@@ -208,7 +241,7 @@ class IntegratedRuntime:
         bank = self._banks[domain]
         state = {"backbone": self.backbone, "adapters_c": d.adapters_c,
                  "opt": d.opt_state, "step": d.step}
-        step0 = int(state["step"])
+        step0 = int(whole(state["step"]))
         fr, self._fault_round = self._fault_round, self._fault_round + 1
         chaos = self.faults is not None and self.faults.active
         part_n, dropped_n = self.n_clusters, 0
@@ -373,12 +406,15 @@ class IntegratedRuntime:
         def i32(v):
             return torch.tensor(v, dtype=torch.int32)
 
+        def whole_tree(tree):            # a mesh state, whole on every rank
+            return tree_map(whole, tree)
+
         doms = {}
         for n, d in self.domains.items():
             doms[n] = {
-                "adapters_c": d.adapters_c,
-                "opt": d.opt_state,
-                "step": d.step,
+                "adapters_c": whole_tree(d.adapters_c),
+                "opt": whole_tree(d.opt_state),
+                "step": whole(d.step),
                 "level": i32(d.level),
                 "accuracy": torch.tensor(d.accuracy, dtype=torch.float32),
                 "bank_offset": i32(self._banks[n].offset),
@@ -404,8 +440,12 @@ class IntegratedRuntime:
         tree = ckpt_io.load(path, like=self._ckpt_tree())
         for n, saved in tree["domains"].items():
             d = self.domains[n]
+            train = {"adapters_c": saved["adapters_c"], "opt": saved["opt"],
+                     "step": saved["step"]}
+            if self._state_sh is not None:       # back onto the round's mesh
+                train = self._place(train)
             d.adapters_c, d.opt_state, d.step = \
-                saved["adapters_c"], saved["opt"], saved["step"]
+                train["adapters_c"], train["opt"], train["step"]
             d.level = int(saved["level"])
             d.accuracy = float(saved["accuracy"])
             self._banks[n].offset = int(saved["bank_offset"])

@@ -48,11 +48,19 @@ def value_and_grad(loss_fn: Callable, tree, *args, has_aux: bool = True):
         loss, aux = out if has_aux else (out, None)
         leaves = tree_leaves(t)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(x) if g is None else g
+    it = iter([torch.zeros_like(x) if g is None else _like(g, x)
                for x, g in zip(leaves, grads)])
     grads = tree_map(lambda _: next(it), t)
     aux = tree_map(lambda x: x.detach(), aux)
     return ((loss.detach(), aux) if has_aux else loss.detach()), grads
+
+
+def _like(g, x):
+    """A DTensor gradient in its leaf's placements (a sum over ranks where
+    autograd left it ``Partial``); a plain gradient as it is."""
+    if hasattr(g, "placements") and g.placements != x.placements:
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
 
 
 def peft_value_and_grad(loss_fn: Callable, trainable: Trainable = "adapters",

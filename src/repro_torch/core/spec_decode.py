@@ -118,8 +118,9 @@ class SpecDecoder:
                 f"{cfg.vocab_size}")
 
     def place(self, mesh) -> "SpecDecoder":
-        """The reference replicates the drafter over a mesh; one card has
-        nothing to place."""
+        """The reference replicates the drafter over a mesh
+        (``drafter_rules``); speculative serving on a mesh is later work
+        (ROADMAP 1-E2)."""
         if mesh is None:
             return self
         raise unported("SpecDecoder.place(mesh)",

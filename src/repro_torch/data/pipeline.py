@@ -21,7 +21,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.device import resolve_device, unported
+from repro_torch.core.device import resolve_device
 
 
 def _to(v, device) -> torch.Tensor:
@@ -67,11 +67,24 @@ class BatchBank:
     device. hfsl.make_hfsl_round gathers row ``(offset + i) % steps`` on the
     device, so a round of K steps reads nothing from the host; the
     ``offset`` cursor (see :meth:`advance`) carries the epoch position
-    across rounds exactly as the host iterator would. Cluster-sharded
-    placement over several GPUs (``mesh=``) is not ported yet.
+    across rounds exactly as the host iterator would.
+
+    Packed with a ``mesh``, every leaf is a DTensor with its cluster dim
+    (dim 1) on the mesh's (`pod`, `data`) axes (the `cluster` rule): each
+    cluster's batches live on the ranks that train that cluster, which is
+    the placement ``hfsl.make_hfsl_round(mesh=...)`` expects.
     """
     arrays: dict
     offset: int = 0
+
+    @staticmethod
+    def shardings(arrays: dict, mesh, rules: Optional[dict] = None) -> dict:
+        """The bank's partition-spec tree: the cluster dim (1) on `data`."""
+        from repro_torch.sharding.rules import dim_sharding
+        n_clusters = next(iter(arrays.values())).shape[1]
+        spec = dim_sharding(mesh, n_clusters, "cluster", index=1,
+                            rules=rules)
+        return {k: spec for k in arrays}
 
     @property
     def steps(self) -> int:
@@ -90,13 +103,12 @@ class BatchBank:
     @classmethod
     def pack(cls, data: dict, parts: Sequence[np.ndarray], batch_size: int,
              *, seed: int = 0, steps: Optional[int] = None, mesh=None,
-             device=None) -> "BatchBank":
+             rules: Optional[dict] = None, device=None) -> "BatchBank":
         """Pre-pack one epoch of :func:`cluster_batches`-shaped batches.
 
         The epoch length is the smallest cluster's batch count (every row
-        must hold one batch per cluster) unless ``steps`` caps it."""
-        if mesh is not None:
-            raise unported("BatchBank.pack(mesh=...)", "later, multi-GPU")
+        must hold one batch per cluster) unless ``steps`` caps it. With a
+        ``mesh``, leaves are placed cluster-sharded over `data`."""
         epoch = min(len(p) // batch_size for p in parts)
         if steps is not None:
             epoch = min(epoch, steps)
@@ -106,18 +118,23 @@ class BatchBank:
                 "cannot pack a BatchBank row")
         it = cluster_batches(data, parts, batch_size, seed=seed,
                              device=device)
-        return cls.from_iterator(it, epoch, device=device)
+        return cls.from_iterator(it, epoch, mesh=mesh, rules=rules,
+                                 device=device)
 
     @classmethod
     def from_iterator(cls, it: Iterator[dict], steps: int, *, mesh=None,
+                      rules: Optional[dict] = None,
                       device=None) -> "BatchBank":
         """Stack ``steps`` batches from any cluster-batch iterator (numpy
-        or tensor leaves) onto ``device``."""
-        if mesh is not None:
-            raise unported("BatchBank.from_iterator(mesh=...)",
-                           "later, multi-GPU")
+        or tensor leaves) onto ``device`` (cluster-sharded on a ``mesh``:
+        every rank stacks the same rows and keeps its own clusters)."""
         dev = resolve_device(device)
         rows = list(itertools.islice(it, steps))
         arrays = {k: torch.stack([torch.as_tensor(r[k]).to(dev)
                                   for r in rows]) for k in rows[0]}
+        if mesh is not None:
+            from repro_torch.sharding.rules import distribute
+            sh = cls.shardings(arrays, mesh, rules)
+            arrays = {k: distribute(v, mesh, sh[k])
+                      for k, v in arrays.items()}
         return cls(arrays)

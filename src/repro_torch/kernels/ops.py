@@ -9,6 +9,15 @@ Each op has two implementations:
   (``backend="torch"`` per call, or :func:`backend` / :func:`set_backend`
   around a region, as ``chip_smoke.py`` does to compare the two). Nothing
   selects it automatically and nothing falls back to it.
+
+Under a device mesh (``sharding/``), an op that meets DTensors runs its
+kernel on the local shards (``sharding/dtensor.py::on_shards``) with
+declared placements: the LoRA products column-parallel (W and B split by
+output column over `model`, x and A replicated, output split) or
+row-parallel (W and A split by input row, output ``Partial``: the ranks'
+``(x_r A_r) B`` and ``x_r W_r`` sum exactly to the product), attention
+with its heads on `model` and its batch rows where they are. A weight
+split over the batch axes (FSDP) is gathered by the redistribution.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from repro_torch.kernels import lora_bgmv as bg
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import selective_scan as ss
+from repro_torch.sharding import dtensor as dt
 
 _BACKEND: Optional[str] = None          # None: by tensor device
 # kernel name -> (module, attribute holding its launch count)
@@ -94,6 +104,9 @@ def lora_matmul(x, w, a=None, b=None, scale: float = 1.0, bias=None, *,
     if a is None:
         y = x @ w
         return (y + bias.to(y.dtype)) if bias is not None else y
+    if dt.mesh_of(x, w, a, b) is not None:
+        return _lora_matmul_mesh(x, w, a, b, float(scale), bias,
+                                 _pick(backend))
     return _LoRAMatmul.apply(x, w, a, b, bias, float(scale),
                              _pick(backend))
 
@@ -143,6 +156,9 @@ def lora_bgmv(x, w, a, b, adapter_ids, scale: float = 1.0, bias=None, *,
     to :func:`lora_matmul` with that row's adapter. 3-D x with S > 1 takes
     the seq kernel (one adapter per sequence); any other x the rows
     kernel."""
+    if dt.mesh_of(x, w, a, b) is not None:
+        return _lora_bgmv_mesh(x, w, a, b, adapter_ids, float(scale), bias,
+                               _pick(backend))
     ids = torch.as_tensor(adapter_ids, device=x.device).to(torch.int32)
     # ids address x's leading dim: rows of 2-D x, whole sequences of 3-D x
     if tuple(ids.shape) != (x.shape[0],):
@@ -167,6 +183,10 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, window: int = 0,
                     causal: bool = True, scale: Optional[float] = None,
                     backend: Optional[str] = None):
     """Online-softmax attention. Shapes as in :func:`ref.attention`."""
+    if dt.mesh_of(q, k, v) is not None:
+        return _attention_mesh(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                               window=window, causal=causal, scale=scale,
+                               backend=_pick(backend))
     return fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                               window=window, causal=causal, scale=scale,
                               backend=_pick(backend))
@@ -201,6 +221,12 @@ def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
     each row's slot: the bf16 kernel reads them in place, the f32 kernel
     and the plain version (the CPU path) after :func:`fd.with_prefix`
     concatenates them. Returns (B, Hq, D)."""
+    if dt.mesh_of(q, k, v, prefix_k, prefix_v) is not None:
+        return _decode_mesh(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                            prefix_k=prefix_k, prefix_v=prefix_v,
+                            prefix_ids=prefix_ids, window=window,
+                            causal=causal, scale=scale,
+                            backend=_pick(backend))
     B, T = k.shape[0], k.shape[1]
     qp = _int32(q_pos, (B,), q.device)
     kp = _int32(kv_pos, (B, T), q.device)
@@ -244,6 +270,187 @@ def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
                                  q_pos=qp, prefix_k=prefix_k,
                                  prefix_v=prefix_v, prefix_ids=prefix_ids,
                                  scale=scale, backend=_pick(backend))
+
+
+# ---------------------------------------------------------------------------
+# Under a device mesh: the kernels above on local shards
+# ---------------------------------------------------------------------------
+
+def _lora_layout(w, mesh):
+    """How a LoRA product splits over `model`, read from W's placement:
+    ``col`` (W by output column), ``row`` (by input row) or ``rep``."""
+    from torch.distributed.tensor import Shard
+    md = dt.model_dim(mesh)
+    p = w.placements[md] if md is not None and dt.is_dt(w) else None
+    if isinstance(p, Shard):
+        return "row" if p.dim == 0 else "col"
+    return "rep"
+
+
+def _lora_placements(x, w, mesh, slot: int):
+    """(x, w, a, b, bias, out) placements of a LoRA product and the
+    gradient placements of (x, w, a, b, bias); ``slot`` is 1 for a bank's
+    slot-leading A and B (multi-LoRA), else 0."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    R, S = Replicate(), Shard
+    rows = dt.row_placements(x, mesh)
+    # a weight's gradient sums over the batch ranks its rows were split on
+    wgrad = [Partial() if isinstance(p, Shard) else R for p in rows]
+    rep = [R] * mesh.ndim
+    last = x.dim() - 1
+    kind = _lora_layout(w, mesh)
+    if kind == "col":
+        m = {"x": R, "w": S(1), "a": R, "b": S(1 + slot), "bias": S(0),
+             "out": S(last)}
+        g = {"x": Partial(), "a": Partial(), "b": S(1 + slot), "w": S(1),
+             "bias": S(0)}
+    elif kind == "row":
+        m = {"x": S(last), "w": S(0), "a": S(slot), "b": R, "bias": R,
+             "out": Partial()}
+        g = {"x": S(last), "a": S(slot), "b": Partial(), "w": S(0),
+             "bias": Partial()}
+    else:
+        m = {k: R for k in ("x", "w", "a", "b", "bias", "out")}
+        g = {k: R for k in ("x", "w", "a", "b", "bias")}
+    pl = {k: dt.with_model(rows if k in ("x", "out") else rep, mesh, v)
+          for k, v in m.items()}
+    gp = {k: dt.with_model(rows if k == "x" else wgrad, mesh, v)
+          for k, v in g.items()}
+    return pl, gp, kind
+
+
+def _lora_matmul_mesh(x, w, a, b, scale, bias, impl):
+    mesh = dt.mesh_of(x, w, a, b)
+    pl, gp, kind = _lora_placements(x, w, mesh, 0)
+    args = [x, w, a, b] + ([bias] if bias is not None and kind != "row"
+                           else [])
+    names = ["x", "w", "a", "b", "bias"][:len(args)]
+
+    def fn(x_, w_, a_, b_, bias_=None):
+        return _LoRAMatmul.apply(x_, w_, a_, b_, bias_, scale, impl)
+
+    y = dt.on_shards(fn, args, [pl[k] for k in names], pl["out"],
+                     [gp[k] for k in names])
+    return y + bias.to(y.dtype) if bias is not None and kind == "row" \
+        else y
+
+
+def _lora_bgmv_mesh(x, w, a, b, adapter_ids, scale, bias, impl):
+    mesh = dt.mesh_of(x, w, a, b)
+    pl, _, kind = _lora_placements(x, w, mesh, 1)
+    ids = torch.as_tensor(dt.whole(adapter_ids), device=x.device) \
+        .to(torch.int32)
+    id_pl = dt.with_model(dt.row_placements(x, mesh), mesh,
+                          dt.replicated(mesh)[0])
+    args = [x, w, a, b, ids] + ([bias] if bias is not None and kind != "row"
+                                else [])
+    names = ["x", "w", "a", "b"]
+    in_pl = [pl[k] for k in names] + [id_pl] + \
+        ([pl["bias"]] if len(args) == 6 else [])
+
+    def fn(x_, w_, a_, b_, ids_, bias_=None):
+        return lora_bgmv(x_, w_, a_, b_, ids_, scale, bias_, backend=impl)
+
+    y = dt.on_shards(fn, args, in_pl, pl["out"])
+    return y + bias.to(y.dtype) if bias is not None and kind == "row" \
+        else y
+
+
+def _head_split(mesh, hq: int, hkv: int):
+    """(q, kv) placements of the head dim over `model`: q's heads split
+    when they divide; kv's when they divide too, else kv stays replicated
+    and each rank slices the kv heads of its own q heads (:func:`_kv_of`)."""
+    m = dt.model_size(mesh)
+    q_split = hq % m == 0 and m > 1
+    kv_split = q_split and hkv % m == 0
+    return q_split, kv_split
+
+
+def _kv_of(mesh, hq: int, hkv: int, hq_local: int, *kvs, dim: int):
+    """The kv heads (at ``dim``) that this rank's ``hq_local`` q heads
+    read, when the kv heads are replicated and the q heads split (GQA):
+    q head ``h`` reads kv head ``h // (hq // hkv)``."""
+    g = hq // hkv
+    first = mesh.get_local_rank(dt.model_dim(mesh)) * hq_local
+    last = first + hq_local - 1
+    lo, hi = first // g, last // g + 1
+    if hq_local % (hi - lo):
+        raise ValueError(
+            f"{hq_local} local q heads of {hq} do not share their kv heads "
+            f"evenly ({hkv} kv heads): the head split is not a GQA split")
+    return [None if t is None else t.narrow(dim, lo, hi - lo) for t in kvs]
+
+
+def _attention_mesh(q, k, v, *, q_pos, kv_pos, window, causal, scale,
+                    backend):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = dt.mesh_of(q, k, v)
+    hq, hkv = q.shape[2], k.shape[2]
+    q_split, kv_split = _head_split(mesh, hq, hkv)
+    rows = dt.row_placements(q, mesh)
+    R = Replicate()
+    qp = dt.with_model(rows, mesh, Shard(2) if q_split else R)
+    kp = dt.with_model(rows, mesh, Shard(2) if kv_split else R)
+    kg = dt.with_model(rows, mesh, Partial() if q_split and not kv_split
+                       else (Shard(2) if kv_split else R))
+    rep = dt.replicated(mesh)
+
+    def fn(q_, k_, v_, qpos_, kvpos_):
+        if q_split and not kv_split:
+            k_, v_ = _kv_of(mesh, hq, hkv, q_.shape[2], k_, v_, dim=2)
+        return fa.flash_attention(q_, k_, v_, q_pos=qpos_, kv_pos=kvpos_,
+                                  window=window, causal=causal, scale=scale,
+                                  backend=backend)
+
+    return dt.on_shards(fn, [q, k, v, q_pos, kv_pos],
+                        [qp, kp, kp, rep, rep], qp,
+                        [qp, kg, kg, rep, rep])
+
+
+def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
+                 window, causal, scale, backend):
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dt.mesh_of(q, k, v, prefix_k, prefix_v)
+    B, T = k.shape[0], k.shape[1]
+    hq, hkv = q.shape[1], k.shape[2]
+    q_split, kv_split = _head_split(mesh, hq, hkv)
+    rows = dt.row_placements(q, mesh)
+    R = Replicate()
+    rep = dt.replicated(mesh)
+    qp = dt.with_model(rows, mesh, Shard(1) if q_split else R)
+    kp = dt.with_model(rows, mesh, Shard(2) if kv_split else R)
+    row_int = dt.with_model(rows, mesh, R)
+    dev = q.device
+    args = [q, k, v, _int32(dt.whole(q_pos), (B,), dev),
+            _int32(dt.whole(kv_pos), (B, T), dev)]
+    in_pl = [qp, kp, kp, row_int, row_int]
+    form = None
+    if prefix_k is not None:
+        if prefix_ids is not None:                  # a bank's stacked slots
+            form, hd_dim, pre = "bank", 2, dt.with_model(rep, mesh, R)
+            args += [prefix_k, prefix_v,
+                     _int32(dt.whole(prefix_ids), (B,), dev)]
+        elif prefix_k.dim() == 4:                   # one set per row
+            form, hd_dim, pre = "rows", 2, dt.with_model(rows, mesh, R)
+            args += [prefix_k, prefix_v]
+        else:                                       # one shared set
+            form, hd_dim, pre = "shared", 1, dt.with_model(rep, mesh, R)
+            args += [prefix_k, prefix_v]
+        ppl = dt.with_model(pre, mesh, Shard(hd_dim) if kv_split else R)
+        in_pl += [ppl, ppl] + ([row_int] if form == "bank" else [])
+
+    def fn(q_, k_, v_, qpos_, kvpos_, pk_=None, pv_=None, ids_=None):
+        if q_split and not kv_split:
+            k_, v_ = _kv_of(mesh, hq, hkv, q_.shape[1], k_, v_, dim=2)
+            if pk_ is not None:
+                pk_, pv_ = _kv_of(mesh, hq, hkv, q_.shape[1], pk_, pv_,
+                                  dim=hd_dim)
+        return flash_decode(q_, k_, v_, q_pos=qpos_, kv_pos=kvpos_,
+                            prefix_k=pk_, prefix_v=pv_, prefix_ids=ids_,
+                            window=window, causal=causal, scale=scale,
+                            backend=backend)
+
+    return dt.on_shards(fn, args, in_pl, qp)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ tensors on ``meta`` from ``model_spec`` / ``cache_spec`` /
 :func:`run_one` counts the step with ``roofline.count_costs`` and reports
 the reference's result: status, ``memory_analysis`` (argument, output
 and peak bytes), the roofline terms at the H100's peaks, ``model_flops``,
-and whether the step fits one H100's 80 GB. The mesh form (``--multi-pod``)
-is multi-GPU sharding, not ported yet.
+and whether the step fits one H100's 80 GB. ``--multi-pod`` takes the
+2 x 16 x 16 (`pod`, `data`, `model`) mesh instead: one card plays one of
+its 32 data rows (``launch/mesh.py::data_parallel_size``), so the batch
+is ``global_batch // 32``, and the ``mesh`` field of each record says so.
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ import torch
 from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
                                       get_config)
 from repro_torch.core import hfsl
-from repro_torch.core.device import unported
 from repro_torch.launch import roofline as rl
+from repro_torch.launch.mesh import data_parallel_size, production_layout
 from repro_torch.models import model as M
 from repro_torch.models.attention import param_dtype
 from repro_torch.models.params import init_from_spec, tree_map
@@ -56,8 +58,18 @@ SKIPS = {
 
 # data-parallel size of the reference's make_production_mesh() (16 x 16):
 # one card is one of its data rows
-DATA_ROWS = 16
-MESH = "1 (one data row of the 16x16 mesh)"
+DATA_ROWS = data_parallel_size(production_layout())
+
+
+def data_rows(multi_pod: bool = False) -> int:
+    """The production mesh's data-parallel size: 16, or 32 multi-pod."""
+    return data_parallel_size(production_layout(multi_pod=multi_pod))
+
+
+def mesh_label(multi_pod: bool = False) -> str:
+    lay = production_layout(multi_pod=multi_pod)
+    return (f"1 (one data row of the "
+            f"{'x'.join(map(str, lay.shape))} mesh)")
 
 
 def variant_for(cfg: ModelConfig, shape_name: str) -> ModelConfig:
@@ -68,10 +80,11 @@ def variant_for(cfg: ModelConfig, shape_name: str) -> ModelConfig:
     return cfg
 
 
-def row_shape(shape: InputShape) -> InputShape:
+def row_shape(shape: InputShape, multi_pod: bool = False) -> InputShape:
     """The share of ``shape`` that one data row takes."""
     return dataclasses.replace(
-        shape, global_batch=max(1, shape.global_batch // DATA_ROWS))
+        shape, global_batch=max(1, shape.global_batch
+                                // data_rows(multi_pod)))
 
 
 def _tensors_of(spec, device: torch.device, seed: int):
@@ -117,7 +130,8 @@ def _inputs(cfg: ModelConfig, shape: InputShape, device: torch.device,
 
 
 def build_step(arch: str, shape_name: str, *, reduced: bool = False,
-               device="meta", remat: bool = True, seed: int = 0):
+               device="meta", remat: bool = True, seed: int = 0,
+               multi_pod: bool = False):
     """The step of (arch, shape) for one data row, and its arguments.
 
     ``shape_name`` names one of ``INPUT_SHAPES``, or is an ``InputShape``
@@ -127,7 +141,8 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
     from ``seed`` and the caches full: zero K and V at the positions
     before the step, every slot visible to it (as its count on ``meta``
     takes them). ``reduced=True`` shrinks config and shape for
-    the CPU tests (the reference's smoke shape: 128 tokens, batch 16)."""
+    the CPU tests (the reference's smoke shape: 128 tokens, batch 16).
+    ``multi_pod`` takes one data row of the 2 x 16 x 16 mesh."""
     dev = torch.device(device)
     if isinstance(shape_name, InputShape):        # one data row's already
         row = shape = shape_name
@@ -136,7 +151,7 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
         shape = INPUT_SHAPES[shape_name]
         if reduced:
             shape = InputShape(shape.name, 128, 16, shape.kind)
-        row = row_shape(shape)
+        row = row_shape(shape, multi_pod)
     cfg = variant_for(get_config(arch), shape_name)
     if reduced:
         cfg = variant_for(get_config(arch).reduced(), shape_name)
@@ -171,7 +186,9 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
         def fn(p, token, c, pos_):
             return M.decode_step(p, token, c, pos_, cfg)
         args = (params, batch["token"], caches, pos)
-    meta = {"arch": arch, "shape": shape_name, "mesh": MESH, "chips": 1,
+    meta = {"arch": arch, "shape": shape_name,
+            "mesh": mesh_label(multi_pod), "chips": 1,
+            "data_rows": data_rows(multi_pod),
             "kind": shape.kind, "family": cfg.family, "cfg": cfg,
             "shape_obj": row, "global_batch": shape.global_batch,
             "batch": row.global_batch}
@@ -188,7 +205,8 @@ def memory_analysis(costs: rl.StepCosts) -> dict:
 
 
 def count_one(arch: str, shape_name, *, reduced: bool = False,
-              device="meta") -> tuple[dict, rl.StepCosts | None]:
+              device="meta", multi_pod: bool = False
+              ) -> tuple[dict, rl.StepCosts | None]:
     """The dry-run of one pair (``shape_name`` as :func:`build_step`
     takes it) and the count it came from (None for a skipped pair)."""
     name = getattr(shape_name, "name", shape_name)
@@ -197,7 +215,7 @@ def count_one(arch: str, shape_name, *, reduced: bool = False,
                 "reason": SKIPS[(arch, name)]}, None
     t0 = time.perf_counter()
     fn, args, meta = build_step(arch, shape_name, reduced=reduced,
-                                device=device)
+                                device=device, multi_pod=multi_pod)
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     costs = rl.count_costs(fn, *args)
@@ -213,7 +231,7 @@ def count_one(arch: str, shape_name, *, reduced: bool = False,
         "arch": arch, "shape": shape_name, "mesh": meta["mesh"],
         "chips": meta["chips"], "kind": meta["kind"], "status": "ok",
         "global_batch": meta["global_batch"], "batch": meta["batch"],
-        "data_rows": DATA_ROWS, "build_s": round(t_build, 2),
+        "data_rows": meta["data_rows"], "build_s": round(t_build, 2),
         "count_s": round(t_count, 2), "memory_analysis": mem,
         "fits_one_h100": mem["peak_memory_in_bytes"] <= rl.HBM_BYTES,
         "roofline": roof.asdict(), "model_flops": model_flops,
@@ -225,10 +243,11 @@ def count_one(arch: str, shape_name, *, reduced: bool = False,
 
 
 def run_one(arch: str, shape_name, *, reduced: bool = False,
-            device="meta", verbose: bool = True) -> dict:
+            device="meta", verbose: bool = True,
+            multi_pod: bool = False) -> dict:
     """The dry-run of one pair (:func:`count_one` without its count)."""
     result, costs = count_one(arch, shape_name, reduced=reduced,
-                              device=device)
+                              device=device, multi_pod=multi_pod)
     if verbose and costs is not None:
         print(summary(result))
     return result
@@ -236,19 +255,20 @@ def run_one(arch: str, shape_name, *, reduced: bool = False,
 
 def _one(pair: tuple) -> dict:
     """One pair of a sweep, in a worker: its result, or its error."""
-    arch, shape, reduced, device = pair
+    arch, shape, reduced, device, multi_pod = pair
     try:
         return run_one(arch, shape, reduced=reduced, device=device,
-                       verbose=False)
+                       verbose=False, multi_pod=multi_pod)
     except Exception as e:         # one pair's fault, the sweep goes on
         return {"arch": arch, "shape": shape, "status": "error",
                 "error": f"{type(e).__name__}: {e}",
                 "traceback": traceback.format_exc()}
 
 
-def sweep(pairs: list, *, reduced: bool = False, device="meta") -> list:
+def sweep(pairs: list, *, reduced: bool = False, device="meta",
+          multi_pod: bool = False) -> list:
     """run_one over ``pairs`` in order."""
-    return [_one((a, s, reduced, device)) for a, s in pairs]
+    return [_one((a, s, reduced, device, multi_pod)) for a, s in pairs]
 
 
 def summary(r: dict) -> str:
@@ -278,14 +298,13 @@ def main(argv=None) -> int:
                     help="meta (default: shapes only) or cpu")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise unported("dryrun --multi-pod", "later, multi-GPU sharding")
 
     archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     t0 = time.perf_counter()
     results = sweep([(a, s) for a in archs for s in shapes],
-                    reduced=args.reduced, device=args.device)
+                    reduced=args.reduced, device=args.device,
+                    multi_pod=args.multi_pod)
     for r in results:
         print(summary(r))
         if r["status"] == "error":

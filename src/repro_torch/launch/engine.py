@@ -58,11 +58,19 @@ target's), and each decode segment is a number of draft-verify chunks
 Greedy only: exact-match acceptance is what keeps a speculative drain
 token for token the plain one. A request submitted with
 ``speculative=False`` decodes plainly through the verify pass, so one
-wave mixes both. Paged serving composes with plain decode only. The mesh
-mode is a later item.
+wave mixes both. Paged serving composes with plain decode only.
+
+**Mesh serving** (``mesh=``, a ``DeviceMesh`` of (`data`, `model`)): every
+rank runs the same host scheduler on the same submissions and seed; the
+params are DTensors (``model.place_params``, a slot-sharded bank), each
+dispatch runs under ``serving_rules`` (wave rows on `data`, heads and FF
+on `model`), and the tokens each segment returns are whole on every rank,
+so every rank returns every completion. Paged and speculative serving on a
+mesh are a later item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -78,6 +86,7 @@ from repro_torch.core.telemetry import Histogram, Telemetry
 from repro_torch.models import model as M
 from repro_torch.models.params import init_from_spec
 from repro_torch.models.transformer import groups_for, paged_subs
+from repro_torch.sharding.rules import serving_rules, use_rules
 
 
 def _pow2ceil(n: int) -> int:
@@ -192,9 +201,12 @@ class DecodeEngine:
             raise ValueError(
                 f"paged serving does not support the {cfg.family} family "
                 "(modality prefixes address the dense slab)")
-        if mesh is not None:
-            raise unported("DecodeEngine(mesh=...)",
+        if mesh is not None and (paged is not None or spec is not None):
+            raise unported("DecodeEngine(mesh=..., "
+                           f"{'paged' if paged is not None else 'spec'}=...)",
                            "later, multi-GPU sharding")
+        self.mesh = mesh
+        self.rules = serving_rules() if mesh is not None else None
         # speculative serving: greedy only (exact-match acceptance is what
         # keeps spec drains token for token the plain ones)
         if spec is not None:
@@ -404,11 +416,16 @@ class DecodeEngine:
             {**params, "adapters": self.bank.stacked}
 
     # -- serving ------------------------------------------------------------
-    # tracelint: hot
-    @torch.no_grad()
     def run(self, params) -> tuple[list[Completion], EngineStats]:
         """Drain the queue as one ragged continuous-batching wave.
         Returns (completions, stats)."""
+        with (use_rules(self.mesh, self.rules) if self.mesh is not None
+              else contextlib.nullcontext()):
+            return self._drain(params)
+
+    # tracelint: hot
+    @torch.no_grad()
+    def _drain(self, params) -> tuple[list[Completion], EngineStats]:
         stats = EngineStats()
         out: list[Completion] = []
         if not self._queue and not self._arrivals:

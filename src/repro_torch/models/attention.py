@@ -41,6 +41,8 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.rules import shard
 
 SENTINEL = 10 ** 9
 
@@ -54,15 +56,17 @@ def attn_spec(cfg: ModelConfig) -> dict:
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     dt = param_dtype(cfg)
     s = {
-        "wq": ParamSpec((d, nh * hd), dt, init="scaled"),
-        "wk": ParamSpec((d, nkv * hd), dt, init="scaled"),
-        "wv": ParamSpec((d, nkv * hd), dt, init="scaled"),
-        "wo": ParamSpec((nh * hd, d), dt, init="scaled"),
+        "wq": ParamSpec((d, nh * hd), dt, ("fsdp", "heads"), init="scaled"),
+        "wk": ParamSpec((d, nkv * hd), dt, ("fsdp", "kv_heads"),
+                        init="scaled"),
+        "wv": ParamSpec((d, nkv * hd), dt, ("fsdp", "kv_heads"),
+                        init="scaled"),
+        "wo": ParamSpec((nh * hd, d), dt, ("heads", "fsdp"), init="scaled"),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((nh * hd,), dt, init="zeros")
-        s["bk"] = ParamSpec((nkv * hd,), dt, init="zeros")
-        s["bv"] = ParamSpec((nkv * hd,), dt, init="zeros")
+        s["bq"] = ParamSpec((nh * hd,), dt, ("heads",), init="zeros")
+        s["bk"] = ParamSpec((nkv * hd,), dt, ("kv_heads",), init="zeros")
+        s["bv"] = ParamSpec((nkv * hd,), dt, ("kv_heads",), init="zeros")
     return s
 
 
@@ -115,6 +119,8 @@ def _prefix_slots(pfx: dict, B: int, adapter_ids=None):
     domain's slots gathered from the stacked (n_slots, n_p, Hkv, D) bank."""
     if adapter_ids is not None:
         ids = adapter_ids.to(device=pfx["k"].device, dtype=torch.long)
+        if dt.is_dt(pfx["k"]):                       # a slot-sharded bank
+            ids = dt.as_replicated(ids, pfx["k"].device_mesh)
         return pfx["k"].index_select(0, ids), pfx["v"].index_select(0, ids)
     return (pfx["k"][None].expand(B, *pfx["k"].shape),
             pfx["v"][None].expand(B, *pfx["v"].shape))
@@ -160,6 +166,9 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
     if kv_x is None and use_rope:                     # self-attention: RoPE
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
+    q = shard(q, "batch", "attn_seq", "heads", "head_dim")
+    k = shard(k, "batch", "attn_seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "attn_seq", "kv_heads", "head_dim")
 
     kp, vp, n_p = _with_prefix(k, v, adapters, B, adapter_ids)
     pos32 = positions.to(torch.int32)
@@ -171,6 +180,7 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
     y = _proj(out, params["wo"], None,
               (adapters or {}).get("lora", {}).get("o"), _lora_scale(cfg),
               adapter_ids)
+    y = shard(y, "batch", "seq", "d_model")
 
     cache = None
     if make_cache:
@@ -203,9 +213,12 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
             pad = L - S
             base = F.pad(pos32, (0, pad), value=SENTINEL)       # (L,)
             cols = torch.arange(L, device=x.device)[None, :]
+            def grow(t):                  # (B, S, H, D) -> (B, L, H, D)
+                return F.pad(t, (0, 0, 0, 0, 0, pad))
+            # on a mesh, on each rank's shard (the seq dim is not split)
             cache = {
-                "k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+                "k": dt.on_local(k, grow),
+                "v": dt.on_local(v, grow),
                 "pos": torch.where(cols < lens[:, None], base[None, :],
                                    SENTINEL).to(torch.int32),
             }
@@ -271,12 +284,8 @@ def attention_decode(params: dict, adapters: Optional[dict],
         if active is not None:
             keep = keep & active
         slot = slot.clamp(max=T - 1)
-        rows = torch.arange(B, device=x.device)
         for name, new in (("k", k1[:, 0]), ("v", v1[:, 0]), ("pos", pos)):
-            buf = cache[name]
-            old = buf[rows, slot]
-            mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
-            buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
+            _write_slot(cache[name], slot, new, keep)
 
     # the layer's prefix bank, read in place: shared, or with adapter_ids
     # the bank's stacked (n_slots, ...) slots, each row its own domain's
@@ -289,12 +298,42 @@ def attention_decode(params: dict, adapters: Optional[dict],
             prefix_k=pfx_k, prefix_v=pfx_v, prefix_ids=pfx_ids)
     else:
         o = kops.flash_decode(
-            q[:, 0], cache["k"], cache["v"], q_pos=pos, kv_pos=cache["pos"],
+            q[:, 0], shard(cache["k"], "batch", "kv_seq", "kv_heads",
+                           "head_dim"),
+            shard(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim"),
+            q_pos=pos, kv_pos=cache["pos"],
             prefix_k=pfx_k, prefix_v=pfx_v, prefix_ids=pfx_ids,
             window=window, causal=True)
     o = o.reshape(B, 1, nh * hd).to(x.dtype)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
+
+
+def _write_slot(buf, slot: torch.Tensor, new, keep: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = new[b]`` for every row b with ``keep[b]``, in
+    place. On a mesh the write is local to the rows this rank holds: a
+    DTensor cache writes its local shard, with ``new`` brought to the
+    cache's placements first and the per-row host vectors cut to the same
+    rows."""
+    if dt.is_dt(buf):
+        from torch.distributed.tensor import Shard
+        if any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
+            raise ValueError("a per-row cache write needs the cache's slot "
+                             "dim unsplit (serving_rules keeps kv_seq "
+                             "replicated)")
+        # new is buf without its slot dim (dim 1)
+        pl = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p
+              for p in buf.placements]
+        new = dt.as_replicated(new, buf.device_mesh) \
+            .redistribute(buf.device_mesh, pl).to_local()
+        slot, keep = dt.rows_like(slot, buf), dt.rows_like(keep, buf)
+        buf = buf.to_local()
+    elif dt.is_dt(new):
+        new = dt.whole(new)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    old = buf[rows, slot]
+    mask = keep.reshape((-1,) + (1,) * (old.dim() - 1))
+    buf[rows, slot] = torch.where(mask, new.to(buf.dtype), old)
 
 
 def paged_write(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
@@ -463,8 +502,10 @@ def attention_verify(params: dict, adapters: Optional[dict],
                 {"k": k1, "v": v1, "pos": qpos})
 
     kv_pos = cache["pos"].long()
-    kp, vp, n_p = _with_prefix(cache["k"], cache["v"], adapters, B,
-                               adapter_ids)
+    kp, vp, n_p = _with_prefix(
+        shard(cache["k"], "batch", "kv_seq", "kv_heads", "head_dim"),
+        shard(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim"),
+        adapters, B, adapter_ids)
     if n_p:
         kv_pos = torch.cat([kv_pos.new_full((B, n_p), -1), kv_pos], 1)
     vis = kv_pos[:, None, :] <= qpos[:, :, None]            # causal (B, T, S)
@@ -481,6 +522,11 @@ def attention_verify(params: dict, adapters: Optional[dict],
     o = o.reshape(B, T, nh * hd).to(x.dtype)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
+
+
+# logical axes of the dense and paged cache leaves
+CACHE_AXES = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+_POOL_AXES = (None, "kv_blocks", None, "kv_heads", "head_dim")
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
@@ -504,12 +550,16 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
         nb, bs = paged
         maxb = -(-seq_len // bs)
         return {
-            "k": ParamSpec((L, nb, bs, nkv, hd), dt, init="zeros"),
-            "v": ParamSpec((L, nb, bs, nkv, hd), dt, init="zeros"),
-            "table": ParamSpec((L, batch, maxb), torch.int32, init="zeros"),
+            "k": ParamSpec((L, nb, bs, nkv, hd), dt, _POOL_AXES,
+                           init="zeros"),
+            "v": ParamSpec((L, nb, bs, nkv, hd), dt, _POOL_AXES,
+                           init="zeros"),
+            "table": ParamSpec((L, batch, maxb), torch.int32,
+                               (None, "batch", None), init="zeros"),
         }
     return {
-        "k": ParamSpec((L, batch, S, nkv, hd), dt, init="zeros"),
-        "v": ParamSpec((L, batch, S, nkv, hd), dt, init="zeros"),
-        "pos": ParamSpec((L, batch, S), torch.int32, init="zeros"),
+        "k": ParamSpec((L, batch, S, nkv, hd), dt, CACHE_AXES, init="zeros"),
+        "v": ParamSpec((L, batch, S, nkv, hd), dt, CACHE_AXES, init="zeros"),
+        "pos": ParamSpec((L, batch, S), torch.int32, CACHE_AXES[:3],
+                         init="zeros"),
     }

@@ -46,8 +46,8 @@ def dec_layer_spec(cfg: ModelConfig) -> dict:
 def encdec_stack_spec(cfg: ModelConfig) -> dict:
     a, d, dt = cfg.audio, cfg.d_model, attn_mod.param_dtype(cfg)
     return {
-        "enc_pos": ParamSpec((a.n_audio_frames, d), dt),
-        "dec_pos": ParamSpec((DEC_POSITIONS, d), dt),
+        "enc_pos": ParamSpec((a.n_audio_frames, d), dt, ("frames", "fsdp")),
+        "dec_pos": ParamSpec((DEC_POSITIONS, d), dt, (None, "fsdp")),
         "enc": _stack(enc_layer_spec(cfg), a.n_enc_layers),
         "dec": _stack(dec_layer_spec(cfg), cfg.n_layers),
         "enc_ln": layernorm_spec(d),
@@ -180,10 +180,11 @@ def encdec_cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     L, F = cfg.n_layers, cfg.audio.n_audio_frames
     shape = (L, batch, F, cfg.n_kv_heads, cfg.head_dim_)
     dt = attn_mod.param_dtype(cfg)
+    axes = (None, "batch", "frames", "kv_heads", "head_dim")
     return {
         "self": attn_mod.cache_spec(cfg, batch, seq_len, layers=L),
-        "cross": {"k": ParamSpec(shape, dt, init="zeros"),
-                  "v": ParamSpec(shape, dt, init="zeros"),
-                  "pos": ParamSpec((L, batch, F), torch.int32,
+        "cross": {"k": ParamSpec(shape, dt, axes, init="zeros"),
+                  "v": ParamSpec(shape, dt, axes, init="zeros"),
+                  "pos": ParamSpec((L, batch, F), torch.int32, axes[:3],
                                    init="zeros")},
     }

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.rules import shard
 
 # vocab rows per chunk of the f32 LM head: the f32 copy of one chunk is
 # UNEMBED_CHUNK * d_model * 4 bytes (235 MB at qwen2-7b's d_model 3584)
@@ -21,7 +23,8 @@ UNEMBED_CHUNK = 16384
 
 
 def rmsnorm_spec(d: int) -> dict:
-    return {"scale": ParamSpec((d,), torch.float32, init="ones")}
+    return {"scale": ParamSpec((d,), torch.float32, ("d_model",),
+                               init="ones")}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -32,8 +35,10 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_spec(d: int) -> dict:
-    return {"scale": ParamSpec((d,), torch.float32, init="ones"),
-            "bias": ParamSpec((d,), torch.float32, init="zeros")}
+    return {"scale": ParamSpec((d,), torch.float32, ("d_model",),
+                               init="ones"),
+            "bias": ParamSpec((d,), torch.float32, ("d_model",),
+                              init="zeros")}
 
 
 def layernorm(params: dict, x: torch.Tensor,
@@ -64,22 +69,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp_spec(d: int, ff: int, dtype=torch.bfloat16) -> dict:
     return {
-        "gate": ParamSpec((d, ff), dtype, init="scaled"),
-        "up": ParamSpec((d, ff), dtype, init="scaled"),
-        "down": ParamSpec((ff, d), dtype, init="scaled"),
+        "gate": ParamSpec((d, ff), dtype, ("fsdp", "d_ff"), init="scaled"),
+        "up": ParamSpec((d, ff), dtype, ("fsdp", "d_ff"), init="scaled"),
+        "down": ParamSpec((ff, d), dtype, ("d_ff", "fsdp"), init="scaled"),
     }
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
+    h = shard(h, *(("batch",) + ("attn_seq",) * (h.dim() - 2)
+                   + ("act_ff",))[-h.dim():])
     return h @ params["down"]
 
 
 def embed_spec(vocab: int, d: int, dtype=torch.bfloat16) -> dict:
-    return {"table": ParamSpec((vocab, d), dtype)}
+    return {"table": ParamSpec((vocab, d), dtype, ("vocab", "fsdp"))}
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Table rows of ``tokens``; a DTensor table takes ``F.embedding``
+    (the same rows), which DTensor splits by vocabulary."""
+    if dt.is_dt(params["table"]):
+        return F.embedding(dt.as_replicated(tokens,
+                                            params["table"].device_mesh),
+                           params["table"])
     return params["table"][tokens]
 
 
@@ -88,14 +101,34 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     f32 one chunk of ``UNEMBED_CHUNK`` rows at a time, so the f32 product
     never holds an f32 copy of the whole table (2.18 GB at qwen2-7b).
     Under autograd each chunk's f32 copy is kept for the backward of
-    ``x``, so a training forward does hold the whole f32 table."""
-    xf = x.float()
+    ``x``, so a training forward does hold the whole f32 table.
+
+    A DTensor table runs this on each rank's vocabulary shard (the f32
+    chunks of the local rows): logits come out split by vocabulary."""
     table = params["table"]
+    if dt.mesh_of(x, table) is not None:
+        return _unembed_mesh(x, table)
+    xf = x.float()
     out = xf.new_empty((*x.shape[:-1], table.shape[0]))
     for c0 in range(0, table.shape[0], UNEMBED_CHUNK):
         c1 = min(c0 + UNEMBED_CHUNK, table.shape[0])
         out[..., c0:c1] = xf @ table[c0:c1].float().T
     return out
+
+
+def _unembed_mesh(x, table):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = dt.mesh_of(x, table)
+    m = dt.model_size(mesh)
+    vocab = m > 1 and table.shape[0] % m == 0
+    rows = dt.row_placements(x, mesh)
+    R = Replicate()
+    tp = dt.with_model(dt.replicated(mesh), mesh, Shard(0) if vocab else R)
+    xp = dt.with_model(rows, mesh, R)
+    op = dt.with_model(rows, mesh, Shard(x.dim() - 1) if vocab else R)
+    xg = dt.with_model(rows, mesh, Partial() if vocab else R)
+    return dt.on_shards(lambda x_, t_: unembed({"table": t_}, x_),
+                        [x, table], [xp, tp], op, [xg, tp])
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -42,6 +42,8 @@ from repro_torch.models.layers import (cross_entropy, embed, embed_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec, init_from_spec
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.rules import shard
 from repro_torch.models.transformer import (adapter_stack_spec,
                                             cache_group_spec, paged_subs,
                                             rec_cache_part, stack_chunk,
@@ -68,9 +70,9 @@ def adapter_spec(cfg: ModelConfig) -> dict:
     if cfg.peft.head_dim_out:
         a["head"] = {
             "w": ParamSpec((cfg.d_model, cfg.peft.head_dim_out),
-                           torch.float32, init="scaled"),
+                           torch.float32, ("fsdp", None), init="scaled"),
             "b": ParamSpec((cfg.peft.head_dim_out,), torch.float32,
-                           init="zeros"),
+                           (None,), init="zeros"),
         }
     return a
 
@@ -86,6 +88,20 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return init_from_spec(gen, model_spec(cfg), dev)
+
+
+def place_params(params: dict, cfg: ModelConfig, mesh,
+                 rules: Optional[dict] = None) -> dict:
+    """Lay a {backbone, adapters} tree out on ``mesh`` as DTensors per the
+    rule set (default ``serving_rules``): weight dims split where they
+    divide, the rest replicate. Every rank passes the same whole tree;
+    each keeps its own shards."""
+    from repro_torch.sharding import rules as R
+    spec = model_spec(cfg)
+    spec = {k: spec[k] for k in params if k in spec}
+    specs = R.partition_specs(spec, mesh, rules or R.serving_rules())
+    return {**params, **{k: R.distribute_tree(params[k], specs[k], mesh)
+                         for k in specs}}
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
@@ -139,6 +155,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     batch's ``vision_embeds`` (B, n_vis, d) go in front of the text."""
     tokens = batch["tokens"]
     x = embed(params["backbone"]["embed"], tokens.long())
+    x = shard(x, "batch", "seq", "d_model")
     n_vis = 0
     if cfg.family == "vlm" and "vision_embeds" in batch:
         vis = batch["vision_embeds"].to(device=x.device, dtype=x.dtype)
@@ -191,7 +208,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
     with its own domain's adapters."""
     remat = (mode == "train") if remat is None else remat
     x, aux = _hidden(params, batch, cfg, adapter_ids, remat)
-    return {"hidden": x, "logits": unembed(_head(params), x), "aux": aux}
+    logits = shard(unembed(_head(params), x), "batch", "seq", "vocab")
+    return {"hidden": x, "logits": logits, "aux": aux}
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -224,6 +242,8 @@ def classify(params: dict, batch: dict, cfg: ModelConfig, *,
     h = params["adapters"]["head"]
     if adapter_ids is not None:
         ids = adapter_ids.to(device=pooled.device, dtype=torch.long)
+        if dt.is_dt(h["w"]):                           # a slot-sharded bank
+            ids = dt.as_replicated(ids, h["w"].device_mesh)
         w = h["w"].index_select(0, ids)                # (B, d, out)
         b = h["b"].index_select(0, ids)                # (B, out)
         return torch.einsum("bd,bdo->bo", pooled, w) + b
@@ -274,10 +294,15 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     if lengths is None:
         x = x[:, -1:]
     else:                                  # per-row last VALID token
-        rows = torch.arange(x.shape[0], device=x.device)
-        x = x[rows, lengths.long() - 1][:, None]
+        x = dt.on_local(x, _last_valid, lengths)
     x = rmsnorm(params["backbone"]["final_norm"], x)
     return unembed(_head(params), x), caches
+
+
+def _last_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, 1, d): row b's hidden state at column ``lengths[b] - 1``."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, lengths.long() - 1][:, None]
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: dict,
@@ -292,6 +317,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
     x = embed(params["backbone"]["embed"], token.long())
+    x = shard(x, "batch", "seq", "d_model")
     if cfg.family == "audio":
         x, caches = encdec.decode_step(params["backbone"]["encdec"],
                                        adapters, x, caches, cfg, pos=pos,
@@ -306,7 +332,9 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
 
 def _next_token(logits: torch.Tensor, greedy: bool,
                 gen: Optional[torch.Generator]) -> torch.Tensor:
-    """(B, 1) int32 next tokens from (B, vocab) logits."""
+    """(B, 1) int32 next tokens from (B, vocab) logits (every rank draws
+    from the whole vocabulary of the whole batch)."""
+    logits = dt.whole(logits)
     if greedy:
         return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
     probs = torch.softmax(logits, dim=-1)
@@ -356,7 +384,8 @@ def _prefill_state(params: dict, batch: dict, cfg: ModelConfig, cap,
                              max_len=None if cap is None else cap + n_vis,
                              prompt_lens=prompt_lens,
                              adapter_ids=adapter_ids)
-    tok0 = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    tok0 = torch.argmax(dt.whole(logits)[:, -1], dim=-1, keepdim=True) \
+        .to(torch.int32)
     B, S = tokens.shape
     if prompt_lens is None:
         pos0 = torch.full((B,), S + n_vis, dtype=torch.int32,
@@ -392,7 +421,10 @@ def refill(params: dict, cfg: ModelConfig, cap: int, batch: dict,
                                             prompt_lens, adapter_ids)
     src, dst = _pairs(row_idx, tok.shape[0], tok.device)
     for old, new in zip(tree_leaves(caches), tree_leaves(caches_n)):
-        old[:, dst] = new[:, src].to(old.dtype)
+        if dt.is_dt(old):                 # a mesh: this rank's rows only
+            dt.write_rows(old, new, *_host_pairs(row_idx, tok.shape[0]))
+        else:
+            old[:, dst] = new[:, src].to(old.dtype)
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos
@@ -401,9 +433,15 @@ def refill(params: dict, cfg: ModelConfig, cap: int, batch: dict,
 def _pairs(row_idx, B: int, device):
     """(src, dst) index tensors of the batch rows that land in a wave slot
     (``row_idx`` host ints; a pad row carries an index >= B)."""
+    src, dst = _host_pairs(row_idx, B)
+    return (torch.tensor(src, device=device),
+            torch.tensor(dst, device=device))
+
+
+def _host_pairs(row_idx, B: int) -> tuple[list, list]:
+    """``_pairs`` as host lists."""
     pairs = [(r, int(i)) for r, i in enumerate(np.asarray(row_idx)) if i < B]
-    return (torch.tensor([r for r, _ in pairs], device=device),
-            torch.tensor([i for _, i in pairs], device=device))
+    return [r for r, _ in pairs], [i for _, i in pairs]
 
 
 # -- paged KV cache (block pool + per-row tables) ---------------------------
@@ -507,6 +545,7 @@ def paged_suffix(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                for s, c in grp.items()}
            for g, grp in caches.items()}
     x = embed(params["backbone"]["embed"], tokens.long())
+    x = shard(x, "batch", "seq", "d_model")
     x, _ = stack_chunk(params["backbone"]["layers"], adapters, x, sub, cfg,
                        start=start, valid=valid, adapter_ids=adapter_ids)
     rows = torch.arange(Br, device=x.device)
@@ -594,6 +633,7 @@ def verify_step(params: dict, tokens: torch.Tensor, caches: dict,
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64) \
         .expand(B)
     x = embed(params["backbone"]["embed"], tokens.long())
+    x = shard(x, "batch", "seq", "d_model")
     x, caches, snaps = stack_verify(params["backbone"]["layers"], adapters,
                                     x, caches, cfg, pos=pos,
                                     adapter_ids=adapter_ids, active=active)

@@ -35,12 +35,14 @@ from repro_torch.models.params import ParamSpec
 def moe_spec(cfg: ModelConfig) -> dict:
     d, m, dt = cfg.d_model, cfg.moe, param_dtype(cfg)
     s = {
-        "router": ParamSpec((d, m.n_experts), torch.float32, init="scaled"),
+        "router": ParamSpec((d, m.n_experts), torch.float32,
+                            ("moe_fsdp", "experts"), init="scaled"),
         "gate": ParamSpec((m.n_experts, d, m.d_ff_expert), dt,
-                          init="scaled"),
-        "up": ParamSpec((m.n_experts, d, m.d_ff_expert), dt, init="scaled"),
+                          ("experts", "moe_fsdp", None), init="scaled"),
+        "up": ParamSpec((m.n_experts, d, m.d_ff_expert), dt,
+                        ("experts", "moe_fsdp", None), init="scaled"),
         "down": ParamSpec((m.n_experts, m.d_ff_expert, d), dt,
-                          init="scaled"),
+                          ("experts", None, "moe_fsdp"), init="scaled"),
     }
     if m.n_shared_experts:
         s["shared"] = mlp_spec(d, m.n_shared_experts * m.d_ff_expert, dt)

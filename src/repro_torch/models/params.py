@@ -1,9 +1,10 @@
 """Parameter declarations and their initialisation (torch counterpart of
 ``repro/sharding/rules.py::ParamSpec`` and ``init_from_spec``).
 
-A spec tree is nested dicts and lists whose leaves are :class:`ParamSpec`.
-The port drops the reference's logical sharding axes (one card, no mesh)
-and keeps shape, dtype and the init rule. Initialisation draws from an
+A spec tree is nested dicts and lists whose leaves are :class:`ParamSpec`:
+shape, dtype, the reference's logical sharding axes (which
+``sharding/rules.py`` resolves against a device mesh) and the init rule.
+Initialisation draws from an
 explicit ``torch.Generator`` on the target device, one leaf at a time: the
 f32 draw of a leaf is cast to the leaf's dtype before the next leaf is
 drawn, so a full-size init never holds the whole model in f32.
@@ -12,20 +13,27 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Declaration of one parameter: shape + dtype + init rule."""
+    """Declaration of one parameter: shape + dtype + logical layout +
+    init rule."""
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
+    axes: tuple[Optional[str], ...] = ()
     init: str = "normal"              # normal | zeros | ones | scaled
     scale: float = 0.02
 
     def __post_init__(self):
+        # a real error, not an assert: it must fail under ``python -O`` too
+        if len(self.axes) not in (0, len(self.shape)):
+            raise ValueError(
+                f"ParamSpec axes {self.axes} must be empty or name one "
+                f"logical axis per dim of shape {self.shape}")
         if self.init not in ("normal", "zeros", "ones", "scaled"):
             raise ValueError(f"ParamSpec init {self.init!r}: expected "
                              "'normal', 'zeros', 'ones' or 'scaled'")

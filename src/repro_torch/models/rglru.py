@@ -31,19 +31,20 @@ def rglru_spec(cfg: ModelConfig) -> dict:
     dc = cfg.hybrid.conv_width
     dt = _dtype(cfg)
     return {
-        "in_x": ParamSpec((d, w), dt, init="scaled"),
-        "in_y": ParamSpec((d, w), dt, init="scaled"),
-        "conv_w": ParamSpec((dc, w), dt, init="scaled"),
-        "conv_b": ParamSpec((w,), dt, init="zeros"),
-        "w_r": ParamSpec((w, w), dt, init="scaled"),
-        "w_i": ParamSpec((w, w), dt, init="scaled"),
-        "a_param": ParamSpec((w,), torch.float32, init="ones"),
-        "out": ParamSpec((w, d), dt, init="scaled"),
+        "in_x": ParamSpec((d, w), dt, ("fsdp", "lru"), init="scaled"),
+        "in_y": ParamSpec((d, w), dt, ("fsdp", "lru"), init="scaled"),
+        "conv_w": ParamSpec((dc, w), dt, ("conv", "lru"), init="scaled"),
+        "conv_b": ParamSpec((w,), dt, ("lru",), init="zeros"),
+        "w_r": ParamSpec((w, w), dt, ("lru", None), init="scaled"),
+        "w_i": ParamSpec((w, w), dt, ("lru", None), init="scaled"),
+        "a_param": ParamSpec((w,), torch.float32, ("lru",), init="ones"),
+        "out": ParamSpec((w, d), dt, ("lru", "fsdp"), init="scaled"),
     }
 
 
 def rglru_state0_spec(cfg: ModelConfig, layers: int) -> ParamSpec:
-    return ParamSpec((layers, cfg.lru_width), torch.float32, init="zeros")
+    return ParamSpec((layers, cfg.lru_width), torch.float32, (None, "lru"),
+                     init="zeros")
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +143,8 @@ def rglru_cache_spec(cfg: ModelConfig, batch: int,
     L = layers if layers is not None else cfg.n_layers
     w, K = cfg.lru_width, cfg.hybrid.conv_width
     return {
-        "h": ParamSpec((L, batch, w), torch.float32, init="zeros"),
-        "conv": ParamSpec((L, batch, K - 1, w), _dtype(cfg), init="zeros"),
+        "h": ParamSpec((L, batch, w), torch.float32, (None, "batch", "lru"),
+                       init="zeros"),
+        "conv": ParamSpec((L, batch, K - 1, w), _dtype(cfg),
+                          (None, "batch", "conv", "lru"), init="zeros"),
     }

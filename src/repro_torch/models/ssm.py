@@ -33,15 +33,22 @@ def ssm_spec(cfg: ModelConfig) -> dict:
     ds, dc, dr = cfg.ssm.d_state, cfg.ssm.d_conv, cfg.dt_rank
     dt = _dtype(cfg)
     return {
-        "in_proj": ParamSpec((d, 2 * di), dt, init="scaled"),
-        "conv_w": ParamSpec((dc, di), dt, init="scaled"),
-        "conv_b": ParamSpec((di,), dt, init="zeros"),
-        "x_proj": ParamSpec((di, dr + 2 * ds), dt, init="scaled"),
-        "dt_proj_w": ParamSpec((dr, di), dt, init="scaled"),
-        "dt_proj_b": ParamSpec((di,), torch.float32, init="ones"),
-        "A_log": ParamSpec((di, ds), torch.float32, init="ones"),
-        "D": ParamSpec((di,), torch.float32, init="ones"),
-        "out_proj": ParamSpec((di, d), dt, init="scaled"),
+        "in_proj": ParamSpec((d, 2 * di), dt, ("fsdp", "d_inner"),
+                             init="scaled"),
+        "conv_w": ParamSpec((dc, di), dt, ("conv", "d_inner"),
+                            init="scaled"),
+        "conv_b": ParamSpec((di,), dt, ("d_inner",), init="zeros"),
+        "x_proj": ParamSpec((di, dr + 2 * ds), dt, ("d_inner", None),
+                            init="scaled"),
+        "dt_proj_w": ParamSpec((dr, di), dt, (None, "d_inner"),
+                               init="scaled"),
+        "dt_proj_b": ParamSpec((di,), torch.float32, ("d_inner",),
+                               init="ones"),
+        "A_log": ParamSpec((di, ds), torch.float32, ("d_inner", "state"),
+                           init="ones"),
+        "D": ParamSpec((di,), torch.float32, ("d_inner",), init="ones"),
+        "out_proj": ParamSpec((di, d), dt, ("d_inner", "fsdp"),
+                              init="scaled"),
     }
 
 
@@ -180,6 +187,8 @@ def ssm_cache_spec(cfg: ModelConfig, batch: int,
     L = layers if layers is not None else cfg.n_layers
     di, ds, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
     return {
-        "h": ParamSpec((L, batch, di, ds), torch.float32, init="zeros"),
-        "conv": ParamSpec((L, batch, K - 1, di), _dtype(cfg), init="zeros"),
+        "h": ParamSpec((L, batch, di, ds), torch.float32,
+                       (None, "batch", "d_inner", "state"), init="zeros"),
+        "conv": ParamSpec((L, batch, K - 1, di), _dtype(cfg),
+                          (None, "batch", "conv", "d_inner"), init="zeros"),
     }

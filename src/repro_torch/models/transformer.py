@@ -80,22 +80,25 @@ def sublayer_adapter_spec(cfg: ModelConfig, kind: str) -> dict:
     if kind == "ssm":
         if p.state_prompt:
             out["state0"] = ParamSpec((cfg.d_inner, cfg.ssm.d_state),
-                                      torch.float32, init="zeros")
+                                      torch.float32, ("d_inner", "state"),
+                                      init="zeros")
         return out
     if kind == "rglru":
         if p.state_prompt:
             out["state0"] = ParamSpec((cfg.lru_width,), torch.float32,
-                                      init="zeros")
+                                      ("lru",), init="zeros")
         return out
     if p.n_prefix > 0:
-        out["prefix"] = {"k": ParamSpec((p.n_prefix, nkv, hd), dt),
-                         "v": ParamSpec((p.n_prefix, nkv, hd), dt)}
+        pfx = ("prefix", "kv_heads", "head_dim")
+        out["prefix"] = {"k": ParamSpec((p.n_prefix, nkv, hd), dt, pfx),
+                         "v": ParamSpec((p.n_prefix, nkv, hd), dt, pfx)}
     if p.lora_rank > 0:
         dims = {"q": nh * hd, "k": nkv * hd, "v": nkv * hd, "o": d}
         out["lora"] = {
             t: {"a": ParamSpec((d if t != "o" else nh * hd, p.lora_rank), dt,
-                               init="scaled"),
-                "b": ParamSpec((p.lora_rank, dims[t]), dt, init="zeros")}
+                               ("fsdp", "lora_rank"), init="scaled"),
+                "b": ParamSpec((p.lora_rank, dims[t]), dt,
+                               ("lora_rank", None), init="zeros")}
             for t in p.lora_targets}
     return out
 

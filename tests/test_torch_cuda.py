@@ -2217,3 +2217,49 @@ def test_a_warm_drain_compiles_nothing(gen):
     assert log.count == 0
     for a, b in zip(first, again):
         assert (a == b).all()
+
+
+def test_mesh_drain_on_the_card(gen):
+    """A 2-layer f32 qwen2-7b bank drain on a 1x1 NCCL mesh
+    (``DecodeEngine(mesh=)``, the params and a slot-sharded bank as
+    DTensors) gives the mesh-less drain's tokens through the kernels, with
+    the same launches, and runs no plain version."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2-7b").reduced().with_(dtype="float32")
+    backbone = M.init(cfg, 0, device="cuda")["backbone"]
+    adapters = {f"d{i}": M.init(cfg, 10 + i, device="cuda")["adapters"]
+                for i in range(4)}
+    for i, a in enumerate(adapters.values()):
+        for layer in a["stack"]["g0"]:
+            for t in layer["s0"]["lora"].values():
+                t["b"] = randn(gen, *t["b"].shape, dtype=t["b"].dtype,
+                               s=0.1)
+    reqs = _queue(cfg, n=8)
+    doms = [f"d{i % 4}" for i in range(len(reqs))]
+
+    def drain(bank, bb, mesh):
+        eng = DecodeEngine(cfg, slots=3, bank=bank, mesh=mesh,
+                           device="cuda")
+        uids = [eng.submit(p, g, domain=d) for (p, g), d in zip(reqs, doms)]
+        ops.reset_launch_counts()
+        comps, _ = eng.run(bank.serving_params(bb))
+        by = {c.uid: c.tokens for c in comps}
+        return [by[u] for u in uids], ops.launch_counts()
+
+    want, n_want = drain(AdapterBank.create(adapters), backbone, None)
+    with single_process_mesh() as mesh:
+        bank = AdapterBank.create(adapters, mesh=mesh)
+        bb = M.place_params({"backbone": backbone}, cfg, mesh)["backbone"]
+        with ops.backend("cuda"):
+            got, n_got = drain(bank, bb, mesh)
+    assert n_got == n_want and n_got["lora_bgmv_rows"] > 0 \
+        and n_got["flash_decode"] > 0
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)

@@ -19,6 +19,7 @@ from repro.models import model as JM
 from repro_torch.checkpoint.from_jax import from_jax
 from repro_torch.configs.base import get_config
 from repro_torch.core.adapter_bank import AdapterBank
+from repro_torch.core.paged import PagedSpec
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import model as M
 
@@ -119,20 +120,35 @@ def test_engine_without_cuda_raises(monkeypatch):
         DecodeEngine(get_config("qwen2-7b").reduced(), slots=2)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object(), spec=object()),
+                                dict(mesh=object(),
+                                     paged=PagedSpec(8, 4))])
 def test_unported_engine_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh engine is ported; paged and speculative serving on a mesh
+    are not yet."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP: later, multi-GPU sharding"):
         DecodeEngine(get_config("qwen2-7b").reduced(), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("make", ["init", "create"])
 def test_slot_sharded_adapter_bank_raises(make):
-    """The bank is ported; its slot sharding over a mesh is not yet."""
+    """The bank's slot sharding over a mesh is ported: on a 1x1 gloo mesh
+    every leaf is a DTensor with its slot dim on `data` and the same
+    values (the 2x2 mesh is ``tests/test_torch_mesh.py``'s)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models.params import tree_leaves
     cfg = get_config("qwen2-7b").reduced()
     adapters = M.init(cfg, 0, device="cpu")["adapters"]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP: later, multi-GPU sharding"):
+    with single_process_mesh("cpu") as mesh:
         if make == "init":
-            AdapterBank(["a"], adapters, mesh=object())
+            stacked = AdapterBank.create({"a": adapters}).stacked
+            bank = AdapterBank(["a"], stacked, mesh=mesh)
         else:
-            AdapterBank.create({"a": adapters}, mesh=object())
+            bank = AdapterBank.create({"a": adapters}, mesh=mesh)
+        for got, want in zip(tree_leaves(bank.stacked),
+                             tree_leaves(adapters)):
+            assert tuple(got.placements) == (Shard(0), Replicate())
+            assert torch.equal(got.full_tensor()[0], want)

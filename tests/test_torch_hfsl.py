@@ -185,9 +185,17 @@ def test_cluster_batches_and_bank_rules():
     with pytest.raises(ValueError):
         pipeline.BatchBank.pack(tiny, [np.arange(6), np.arange(6, 8)], 4,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pipeline.BatchBank.pack(data, parts, BATCH, mesh=object(),
-                                device="cpu")
+    # cluster-sharded over a mesh (1x1 gloo here; 2x2 in test_torch_mesh)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
+    plain = pipeline.BatchBank.pack(data, parts, BATCH, seed=3, device="cpu")
+    with single_process_mesh("cpu") as mesh:
+        placed = pipeline.BatchBank.pack(data, parts, BATCH, seed=3,
+                                         mesh=mesh, device="cpu")
+        for k, v in placed.arrays.items():
+            assert tuple(v.placements) == (Shard(1), Replicate())
+            assert torch.equal(v.full_tensor(), plain.arrays[k])
 
 
 # ---------------------------------------------------------------------------
@@ -500,10 +508,20 @@ def test_cpu_round_launches_no_kernel_and_counts_telemetry(banks):
 
 
 def test_unported_round_options_raise():
-    for kw in ({"mesh": object()}, {"rules": {}}, {"state_spec": {}}):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            hfsl.make_hfsl_round(TCFG, topt.sgd(0.1), M.classify_loss,
-                                 steps=1, **kw)
+    """The mesh round is ported for the dense family: it needs the state
+    spec (as the reference's), and the other families on a mesh are later
+    work; ``rules`` and ``state_spec`` alone change nothing."""
+    with pytest.raises(ValueError, match="requires state_spec"):
+        hfsl.make_hfsl_round(TCFG, topt.sgd(0.1), M.classify_loss, steps=1,
+                             mesh=object())
+    ssm = get_config("falcon-mamba-7b").reduced()
+    with pytest.raises(NotImplementedError,
+                       match="ssm family.*multi-GPU sharding"):
+        hfsl.make_hfsl_round(ssm, topt.sgd(0.1), M.classify_loss, steps=1,
+                             mesh=object(), state_spec={})
+    for kw in ({"rules": {}}, {"state_spec": {}}):
+        assert callable(hfsl.make_hfsl_round(TCFG, topt.sgd(0.1),
+                                             M.classify_loss, steps=1, **kw))
 
 
 def test_init_state_consensus_and_sync_bytes():

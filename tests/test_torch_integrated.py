@@ -243,10 +243,23 @@ def test_save_restore_resumes_step_for_step(pair, tmp_path):
 
 
 def test_runtime_entry_points():
+    """``GaisNet(mesh=...)`` builds on a mesh (1x1 gloo here; the 2x2 mesh
+    is ``tests/test_torch_mesh.py``'s) with both sides placed, and serves
+    the same as the runtime without one."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
     assert GaisNet is IntegratedRuntime
-    for kw in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_runtime(**kw)
+    plain = port_runtime(steps_per_upgrade=2)
+    with single_process_mesh("cpu") as mesh:
+        rt = port_runtime(mesh=mesh, steps_per_upgrade=2)
+        assert tree_leaves(rt.bank.stacked)[0].placements[0] == Shard(0)
+        assert tree_leaves(rt.domains["nlp"].adapters_c)[0] \
+            .placements[0] == Shard(0)
+        assert rt._banks["cv"].arrays["tokens"].placements[0] == Shard(1)
+        assert {n: d.accuracy for n, d in rt.domains.items()} == \
+            {n: d.accuracy for n, d in plain.domains.items()}
+        assert rt.produce("nlp")[0] == plain.produce("nlp")[0]
 
 
 def test_runtime_without_cuda_raises(monkeypatch):

@@ -350,8 +350,17 @@ def test_dryrun_reports_each_pair_ok_or_skipped(tmp_path, capsys):
     assert r["fits_one_h100"] and r["roofline"]["bottleneck"] == "memory"
     assert r["roofline"]["collective_s"] == 0
     assert r["kernel_calls"] == {"lora_matmul": 56, "flash_decode": 28}
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        dryrun.main(["--multi-pod"])
+    assert r["mesh"] == "1 (one data row of the 16x16 mesh)"
+    # --multi-pod: one card is one of the 2x16x16 mesh's 32 data rows
+    m = dryrun.run_one("qwen2-7b", "decode_32k", verbose=False,
+                       multi_pod=True)
+    assert m["status"] == "ok" and m["batch"] == 128 // 32
+    assert m["data_rows"] == 32
+    assert m["mesh"] == "1 (one data row of the 2x16x16 mesh)"
+    assert dryrun.run_one("qwen2-7b", "long_500k", verbose=False,
+                          multi_pod=True)["batch"] == 1
+    assert dryrun.main(["--multi-pod", "--arch", "qwen2-7b", "--shape",
+                        "decode_32k"]) == 0
 
 
 def test_remat_through_a_hybrid_with_a_tail_group():
