@@ -336,13 +336,36 @@ Phases, each of which exits nonzero on a failed check:
    14 / 2 heads, ``flash_decode`` at B 4 with 14 / 2 heads, shared and
    bank prefix;
 48. the dry-run with ``--multi-pod`` for qwen2-7b on ``meta``: one data
-   row of the 2 x 16 x 16 mesh, each batch its global batch / 32.
+   row of the 2 x 16 x 16 mesh, each batch its global batch / 32;
+49. qwen2-7b's paged bank drain with prefix sharing on the 1x1 NCCL mesh
+   (the pool's blocks on `data`, its kv heads on `model`, the allocator
+   on the host) against the same drain without a mesh;
+50. qwen2-7b's speculative drain (the recurrent drafter, k = 4, placed
+   under ``drafter_rules``) on the mesh against the one without;
+51. granite-moe-1b-a400m on the mesh: a drain and a 2-cluster x 2-step
+   HFSL round, each against its mesh-less twin;
+52. falcon-mamba-7b and recurrentgemma-2b on the mesh: a drain and a
+   round each; llava-next-mistral-7b and whisper-small: a 4-request
+   drain each. In 49-52 each drain gives the mesh-less tokens, engine
+   stats and launches, each round the mesh-less losses and adapters bit
+   for bit with its launches, and no plain version runs;
+53. the paged decode and the two scans at the shapes one rank of a 2x2
+   mesh hands them, through their mesh wrappers (``ops.*`` on DTensors of
+   the 1x1 mesh) against the plain versions, and timed as kernels:
+   ``flash_decode_paged`` at B 4 with 14 / 2 heads over the pool gathered
+   whole; ``selective_scan`` at Di 4096 (channels on `model`) and at B 2
+   x S 256 x Di 8192 (rows on `model`, a round's) with its backward;
+   ``rglru_scan`` at W 1280 and at B 2 x S 256 x W 2560 with its
+   backward.
 
-Each kernel's ``launches`` adds phases 29-39's and 45-46's runs to its
-own path's (``launches_by_path``: ``relay``, ``sl``, ``sl_train``,
-``cli``, ``moe``, ``vlm``, ``audio``, ``mesh``, ``mesh_train``).
+Each kernel's ``launches`` adds phases 29-39's and 45-46's and 49-52's
+runs to its own path's (``launches_by_path``: ``relay``, ``sl``,
+``sl_train``, ``cli``, ``moe``, ``vlm``, ``audio``, ``mesh``,
+``mesh_train``, ``mesh_paged``, ``mesh_spec``, ``mesh_moe``,
+``mesh_ssm``, ``mesh_hybrid``, ``mesh_vlm``, ``mesh_audio``).
 Every full-size drain and round (phases 4,
-5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38, 45, 46) and phases 29-32
+5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38, 45, 46, 49-52) and
+phases 29-32
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -986,16 +1009,17 @@ def paged_kernel_cases(gen: torch.Generator, timer: Timer,
 
 
 def paged_case(cases: dict, randn, gen: torch.Generator, timer: Timer,
-               Hq: int, Hkv: int, D: int, dtype, label: str = "") -> None:
-    """flash_decode_paged at a paged drain's shape (8 rows, blocks of 16,
-    64 a row, a 16-slot prefix per row) against its plain version, and
+               Hq: int, Hkv: int, D: int, dtype, label: str = "",
+               B: int = 8) -> None:
+    """flash_decode_paged at a paged drain's shape (``B`` rows, blocks of
+    16, 64 a row, a 16-slot prefix per row) against its plain version, and
     bit for bit against the dense kernel on the gathered keys; in bf16
     also the bank's slots read by id against the same slots gathered per
     row (into ``cases``)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
 
-    B, bs, maxb, n_p, nb = 8, 16, 64, 16, 512
+    bs, maxb, n_p, nb = 16, 64, 16, 512
     q = randn(B, Hq, D, dtype=dtype)
     k_pool, v_pool = randn(nb, bs, Hkv, D, dtype=dtype), \
         randn(nb, bs, Hkv, D, dtype=dtype)
@@ -1078,7 +1102,7 @@ def paged_case(cases: dict, randn, gen: torch.Generator, timer: Timer,
         # stacked prefix slots read by the rows' ids give the bits of
         # the same slots gathered per row; its host time a call
         bk, bv = bank_slots(N_DOMAINS, n_p, Hkv, D, dtype=dtype)
-        ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0], dtype=torch.int32,
+        ids = torch.tensor([1, 3, 0, 1, 2, 2, 3, 0][:B], dtype=torch.int32,
                            device="cuda")
         kw_ids = dict(q_pos=qp, prefix_k=bk, prefix_v=bv,
                       prefix_ids=ids)
@@ -3091,13 +3115,14 @@ def timed(c: dict, timer: Timer, kernel: str, fn, plain, terms: dict,
 
 
 def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd,
-              terms: dict, ck_bytes: int) -> None:
+              terms: dict, ck_bytes: int, torch_ck_fwd) -> None:
     """The forward kernel at a backward case's shape, without and with its
     checkpoint output (events ms and device microseconds), into case
     ``c``: what storing the checkpoints costs a training forward. Each
     with its bound, from ``terms`` (ms each: the forward's rule of phase
     16 or 21) and, with the checkpoints, their ``ck_bytes`` written
-    once."""
+    once; and the plain version's time with its checkpoints
+    (``torch_ck_fwd``)."""
     from scripts.time_lora_kernels import device_us
     ck_terms = dict(terms, bytes=terms["bytes"] + ck_bytes / HBM_BW * 1e3)
     for key, fn, t in (("fwd", plain_fwd, terms),
@@ -3110,6 +3135,7 @@ def fwd_times(c: dict, timer: Timer, kernel: str, plain_fwd, ck_fwd,
         c[f"{key}_bound_by"] = "bytes" if t["bytes"] >= max(t.values()) \
             else "operations"
         c[f"{key}_bound_terms_ms"] = t
+    c["fwd_ck_plain_ms"] = timer(torch_ck_fwd)
 
 
 def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
@@ -3220,7 +3246,8 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                       lambda: ss._launch(*args, ck=ck),
                       kernel_costs("selective_scan", dtype, B=B, S=S, Di=D_,
                                    N=N, h0=h0_).terms(),
-                      ck.numel() * ck.element_size())
+                      ck.numel() * ck.element_size(),
+                      lambda: ss.selective_scan_torch(*args, ck=ck))
         cases["selective_scan_bwd"].append(c)
         log(f"kernel selective_scan_bwd {c}")
 
@@ -3315,7 +3342,8 @@ def scan_bwd_cases(gen: torch.Generator, timer: Timer, cases: dict) -> dict:
                       lambda: rg._launch(*args, 8.0, ck=ck),
                       dict(bytes=ft["bytes"], mufu=ft["exp"],
                            flops=ft["flops"]),
-                      ck.numel() * ck.element_size())
+                      ck.numel() * ck.element_size(),
+                      lambda: rg.rglru_torch(*args, 8.0, ck=ck))
         cases["rglru_scan_bwd"].append(c)
         log(f"kernel rglru_scan_bwd {c}")
 
@@ -5198,7 +5226,8 @@ def tools_phases(seed: int, gen: torch.Generator, timer: Timer,
 # ---------------------------------------------------------------------------
 
 # the paths whose launches a kernel's record also reports
-MESH_PATHS = ("mesh", "mesh_train")
+MESH_PATHS = ("mesh", "mesh_train", "mesh_paged", "mesh_spec", "mesh_moe",
+              "mesh_ssm", "mesh_hybrid", "mesh_vlm", "mesh_audio")
 
 
 def mesh_drain(cfg, backbone: dict, bank, reqs: list, doms: list) -> dict:
@@ -5475,6 +5504,399 @@ def multipod_phase() -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phases 49 to 53: every serving mode and every family on a device mesh
+# ---------------------------------------------------------------------------
+
+# the engine stats a mesh drain must share with its mesh-less twin
+MESH_STATS = ("requests", "waves", "segments", "tokens", "padded_tokens",
+              "drafted", "accepted", "prefix_hits", "prefix_hit_tokens",
+              "pool_peak_blocks", "pool_blocks_alloc", "cache_tokens")
+
+
+def mesh_drain_pair(phase: int, what: str, cfg, reqs: list, make, *,
+                    doms=None, extras=None, slots: int = 8, **kw) -> dict:
+    """A drain of ``reqs`` without a mesh and on a 1x1 NCCL mesh: ``make
+    (mesh)`` gives (params, bank) laid out on ``mesh`` (as they are for
+    None), ``kw`` the engine's serving mode (``paged=``, ``spec=``). The
+    mesh drain must give the same tokens, engine stats and launches, and
+    no plain version may run in either. Returns the mesh drain's record."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.mesh import single_process_mesh
+
+    def run(mesh):
+        params, bank = make(mesh)
+        eng = DecodeEngine(cfg, slots=slots, bank=bank, mesh=mesh,
+                           device="cuda", **kw)
+        ops.reset_launch_counts()
+        with plain_calls(serving=True) as plain:
+            comps, stats = serve_on(eng, params, reqs, doms, extras)
+        check(all(v == 0 for v in plain.values()),
+              f"phase {phase} {what}: a plain version ran: {plain}")
+        return comps, stats, ops.launch_counts()
+
+    t0 = time.perf_counter()
+    p_comps, p_stats, p_launches = run(None)
+    with single_process_mesh() as mesh:
+        comps, stats, launches = run(mesh)
+    torch.cuda.empty_cache()
+    served_ok(cfg, comps, reqs, f"phase {phase} {what}")
+    same = [bool(np.array_equal(a.tokens, b.tokens))
+            for a, b in zip(comps, p_comps)]
+    diff = {k: (getattr(p_stats, k), getattr(stats, k)) for k in MESH_STATS
+            if getattr(p_stats, k) != getattr(stats, k)}
+    check(all(same), f"phase {phase} {what}: mesh tokens equal the "
+                     f"mesh-less ones on {same}")
+    check(not diff, f"phase {phase} {what}: engine stats (mesh-less, mesh) "
+                    f"differ: {diff}")
+    check(launches == p_launches,
+          f"phase {phase} {what}: mesh launches {launches}, without a mesh "
+          f"{p_launches}")
+    no_pad_copies(f"phase {phase}")
+    rec = dict(mesh="1x1 (data, model), nccl", launches=launches,
+               requests=len(reqs), same_tokens=sum(same),
+               stats={k: getattr(stats, k) for k in MESH_STATS},
+               tok_per_s=stats.tok_per_s, wall_s=stats.wall_s,
+               meshless_tok_per_s=p_stats.tok_per_s,
+               meshless_wall_s=p_stats.wall_s,
+               phase_s=time.perf_counter() - t0)
+    log(f"phase {phase}: {what} on the 1x1 mesh {stats.tok_per_s:.2f} tok/s "
+        f"beside {p_stats.tok_per_s:.2f} without; tokens equal on "
+        f"{sum(same)} of {len(same)} requests, stats equal "
+        f"{ {k: v for k, v in rec['stats'].items() if v} }, launches equal "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"{rec['phase_s']:.1f}s")
+    return rec
+
+
+def mesh_round_pair(phase: int, what: str, cfg, params: dict, seed: int, *,
+                    n_clusters: int = 2, steps: int = 2, batch: int = 2,
+                    seq: int = 64) -> dict:
+    """An HFSL round (classify_loss, AdamW, ``sync_every=2``) from
+    ``params`` (``cfg`` has a 5-class head) without a mesh and on a 1x1
+    NCCL mesh under ``hfsl_round_rules``: the same losses and adapters bit
+    for bit, the same launches, no plain version in either."""
+    from repro_torch.core import hfsl
+    from repro_torch.data.pipeline import BatchBank
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.sharding import rules as R
+
+    t0 = time.perf_counter()
+    opt = adamw(5e-3)
+    state = hfsl.init_hfsl_state(seed, cfg, n_clusters, opt,
+                                 lambda c, s, device=None: params)
+    bank = classify_bank((5, 1000, seq, 0.5), n_clusters, batch, steps,
+                         seed, 5)
+
+    def timed(rnd, st, arrays):
+        ops.reset_launch_counts()
+        with plain_calls(scans=True) as plain:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = rnd(st, arrays, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        check(all(v == 0 for v in plain.values()),
+              f"phase {phase} {what}: a plain version ran: {plain}")
+        return out, wall, ops.launch_counts()
+
+    (out_u, m_u), wall_u, l_u = timed(hfsl.make_hfsl_round(
+        cfg, opt, M.classify_loss, steps=steps, sync_every=2), state,
+        bank.arrays)
+    with single_process_mesh() as mesh:
+        rules = R.hfsl_round_rules(cfg.family)
+        spec = hfsl.hfsl_state_spec(cfg, n_clusters, opt, M.model_spec)
+        sh = hfsl.hfsl_state_shardings(cfg, n_clusters, opt, M.model_spec,
+                                       mesh, rules)
+        state_m = R.distribute_tree(state, sh, mesh)
+        rows = [{k: v[i] for k, v in bank.arrays.items()}
+                for i in range(bank.steps)]
+        bank_m = BatchBank.from_iterator(iter(rows), bank.steps, mesh=mesh,
+                                         rules=rules, device="cuda")
+        (out_m, m_m), wall, l_m = timed(hfsl.make_hfsl_round(
+            cfg, opt, M.classify_loss, steps=steps, sync_every=2, mesh=mesh,
+            rules=rules, state_spec=spec), state_m, bank_m.arrays)
+        bits = bool(torch.equal(m_m["loss"], m_u["loss"])) and all(
+            torch.equal(a.full_tensor(), b) for a, b in zip(
+                _leaves(out_m["adapters_c"]), _leaves(out_u["adapters_c"])))
+        placed = [str(tuple(a.placements)) for a in
+                  _leaves(out_m["adapters_c"])]
+        want = [str(tuple(a.placements)) for a in
+                _leaves(state_m["adapters_c"])]
+        del state_m, bank_m, out_m
+    torch.cuda.empty_cache()
+    check(bits, f"phase {phase} {what}: the mesh round's losses or adapters "
+                "are not the mesh-less round's bits")
+    check(l_m == l_u, f"phase {phase} {what}: mesh round launches {l_m}, "
+                      f"without a mesh {l_u}")
+    check(placed == want, f"phase {phase} {what}: the round moved the "
+                          f"adapters' placements {placed} from {want}")
+    no_pad_copies(f"phase {phase}")
+    rec = dict(mesh="1x1 (data, model), nccl", launches=l_m,
+               clusters=n_clusters, steps=steps, batch=batch, seq=seq,
+               wall_s=wall, meshless_wall_s=wall_u, bit_equal=bits,
+               losses=m_m["loss"].tolist(), adapters_c_placements=placed[0],
+               phase_s=time.perf_counter() - t0)
+    log(f"phase {phase}: {what} round ({n_clusters} clusters x {steps} steps"
+        f" x batch {batch}, seq {seq}) on the 1x1 mesh {wall:.3f}s beside "
+        f"{wall_u:.3f}s without; bit for bit {bits}; launches equal "
+        f"{ {k: v for k, v in l_m.items() if v} }; adapters_c {placed[0]}")
+    return rec
+
+
+def _add(total: dict, launches: dict) -> dict:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def mesh_serving_phases(seed: int) -> dict:
+    """Phases 49 and 50 on one full-size qwen2-7b backbone."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.adapter_bank import AdapterBank
+    from repro_torch.core.paged import PagedSpec
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2-7b")
+    params = M.init(cfg, seed, device="cuda")
+    adapters = domain_adapters(cfg, seed + 1)
+    bank = AdapterBank.create(adapters)
+    rng = np.random.default_rng(seed + 49)
+    reqs, doms = paged_queue(rng, bank, 8, (16, 65), (8, 17),
+                             cfg.vocab_size, 64)
+
+    def banked(mesh):
+        if mesh is None:
+            return bank.serving_params(params["backbone"]), bank
+        b = AdapterBank.create(adapters, mesh=mesh)
+        bb = M.place_params({"backbone": params["backbone"]}, cfg,
+                            mesh)["backbone"]
+        return b.serving_params(bb), b
+
+    paged = mesh_drain_pair(
+        49, "qwen2-7b paged bank drain, prefix sharing", cfg, reqs, banked,
+        doms=doms, paged=PagedSpec(n_blocks=256, block_size=16,
+                                   share_prefix=True))
+    check(paged["stats"]["prefix_hits"] > 0, "phase 49: no prefix shared")
+    reqs = queue(rng, 8, (32, 129), (8, 17), cfg.vocab_size)
+    spec = mesh_drain_pair(
+        50, "qwen2-7b speculative drain (k 4)", cfg, reqs,
+        lambda mesh: (params if mesh is None else
+                      M.place_params(params, cfg, mesh), None),
+        spec=SpecDecoder.init(cfg, seed + 997, device="cuda", k=4))
+    check(spec["stats"]["drafted"] > 0, "phase 50: nothing drafted")
+    del params, bank, adapters
+    torch.cuda.empty_cache()
+    return {"mesh_paged": paged, "mesh_spec": spec}
+
+
+def mesh_family(phase: int, what: str, cfg, seed: int, *, n: int,
+                lens: tuple, gens: tuple, rows: bool = False,
+                train: bool = True) -> dict:
+    """One family's full-size drain (``n`` requests, with modality rows
+    for vlm and audio) and, with ``train``, its round, each against its
+    mesh-less twin; the path's record with both runs' launches."""
+    from repro_torch.models import model as M
+
+    cfg = cfg.with_(peft=dataclasses.replace(cfg.peft, head_dim_out=5))
+    params = M.init(cfg, seed, device="cuda")
+    rng = np.random.default_rng(seed + phase)
+    reqs = queue(rng, n, lens, gens, cfg.vocab_size)
+    rec = {"drain": mesh_drain_pair(
+        phase, f"{what} drain", cfg, reqs,
+        lambda mesh: (params if mesh is None else
+                      M.place_params(params, cfg, mesh), None),
+        extras=modality_rows(cfg, seed, n) if rows else None)}
+    total = _add({}, rec["drain"]["launches"])
+    if train:
+        rec["train"] = mesh_round_pair(phase, what, cfg, params, seed)
+        _add(total, rec["train"]["launches"])
+    rec["launches"] = total
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_scan_cases(gen: torch.Generator, timer: Timer, cases: dict) -> None:
+    """Phase 53: ``flash_decode_paged`` at one 2x2 rank's qwen2-7b decode
+    (B 4, 14 / 2 heads, D 128, blocks of 16, the pool gathered whole); the
+    two scans through their mesh wrappers on the 1x1 NCCL mesh against
+    the plain versions on the whole tensors, at falcon-mamba-7b's and
+    recurrentgemma-2b's rank shapes: serving's channel split (Di 4096, W
+    1280 of B 4 x S 512) and a round's row split (B 2 x S 256, every
+    channel) with the backward, autograd through the wrapper against
+    autograd through the plain version; each kernel also timed alone with
+    its bound (into ``cases``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import single_process_mesh
+
+    dtype = torch.bfloat16
+    paged_case(cases, randn_of(gen), gen, timer, 14, 2, 128, dtype,
+               label="2x2 rank, the pool gathered whole: ", B=4)
+    mcfg = get_config("falcon-mamba-7b")
+    dr, N, Di = mcfg.dt_rank, mcfg.ssm.d_state, mcfg.d_inner
+    W = get_config("recurrentgemma-2b").lru_width
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    def scan_args(B, S, C):
+        xdbc = rn(B, S, dr + 2 * N, s=0.5).to(dtype)
+        return [rn(B, S, C, s=0.5).to(dtype),
+                (F.softplus(rn(B, S, C)) * 0.1).to(dtype),
+                -torch.exp(rn(C, N, s=0.3)), xdbc[..., dr:dr + N],
+                xdbc[..., dr + N:], rn(C), rn(B, C, N, s=0.1)]
+
+    def lru_args(B, S, C):
+        return [rn(B, S, C, s=0.5).to(dtype), rn(B, S, C).to(dtype),
+                rn(B, S, C).to(dtype), rn(C), rn(B, C, s=0.1)]
+
+    R_, S_ = Replicate(), Shard
+    # placements of (x-like..., per-channel, h0) by split: serving's
+    # channels on `model`, a round's rows on `model`
+    PL = {("selective_scan", "channels"):
+          [(S_(0), S_(2))] * 2 + [(R_, S_(0)), (S_(0), R_), (S_(0), R_),
+                                  (R_, S_(0)), (S_(0), S_(1))],
+          ("selective_scan", "rows"):
+          [(R_, S_(0))] * 2 + [(R_, R_), (R_, S_(0)), (R_, S_(0)), (R_, R_),
+                               (R_, S_(0))],
+          ("rglru_scan", "channels"):
+          [(S_(0), S_(2))] * 3 + [(R_, S_(0)), (S_(0), S_(1))],
+          ("rglru_scan", "rows"):
+          [(R_, S_(0))] * 3 + [(R_, R_), (R_, S_(0))]}
+    with single_process_mesh() as mesh:
+        for name, B, S, C, split in (
+                ("selective_scan", 4, 512, Di // 2, "channels"),
+                ("selective_scan", 2, 256, Di, "rows"),
+                ("rglru_scan", 4, 512, W // 2, "channels"),
+                ("rglru_scan", 2, 256, W, "rows")):
+            scan = name == "selective_scan"
+            mod = ss if scan else rg
+            args = scan_args(B, S, C) if scan else lru_args(B, S, C)
+            wrapper = ops.selective_scan if scan else ops.rglru
+            kernel = ss.selective_scan if scan else rg.rglru
+            pls = PL[(name, split)]
+
+            def on_mesh(a, pls=pls, wrapper=wrapper):
+                return [y.to_local() for y in wrapper(*[
+                    DTensor.from_local(t, mesh, p, run_check=False)
+                    for t, p in zip(a, pls)])]
+            label = (f"2x2 rank, {split} on model: B={B} S={S} "
+                     f"{'Di' if scan else 'W'}={C}"
+                     f"{f' N={N}' if scan else ''} h0 per row bf16")
+            n0 = mod.launches
+            y, h = on_mesh(args)
+            check(mod.launches == n0 + 1,
+                  f"{name} {label}: the mesh wrapper launched "
+                  f"{mod.launches - n0} kernels")
+            yw, hw = kernel(*args, backend="torch")
+            torch.cuda.synchronize()
+            err = compare(f"{name} {label}", y, yw, dtype)
+            herr = (h - hw).abs().max().item()
+            check(bool(torch.allclose(h, hw, atol=1e-3, rtol=1e-3)),
+                  f"{name} {label}: h_final max_abs_err {herr} beyond 1e-3")
+            kc = kernel_costs(name, dtype, B=B, S=S, h0=True,
+                              **({"Di": C, "N": N} if scan else {"W": C}))
+            c = dict(shape=label, max_abs_err=err, tol=TOL[dtype],
+                     h_final_max_abs_err=herr, h_final_tol=1e-3,
+                     ms=timer(lambda: kernel(*args)),
+                     mesh_wrapper_ms=timer(lambda: on_mesh(args)),
+                     plain_ms=timer(lambda: kernel(*args, backend="torch")),
+                     library_ms=None, library="none: no single PyTorch "
+                     "call computes this scan",
+                     bound_ms=kc.bound()[0], bound_by=kc.bound()[1])
+            cases[name].append(c)
+            log(f"kernel {name} {c}")
+            if split != "rows":
+                continue
+            # the round's backward: autograd through the wrapper against
+            # autograd through the plain version (A / a_param and D
+            # frozen, as the backbone is)
+            frozen = (2, 5) if scan else (3,)
+
+            def grads(fn):
+                leaves = [a if i in frozen else
+                          a.detach().clone().requires_grad_(True)
+                          for i, a in enumerate(args)]
+                out = fn(leaves)
+                g = torch.Generator(device="cuda").manual_seed(53)
+                sum((o.float() * torch.randn(o.shape, generator=g,
+                                             device="cuda")).sum()
+                    for o in out).backward()
+                return [None if i in frozen else a.grad
+                        for i, a in enumerate(leaves)]
+            b0 = mod.bwd_launches
+            got = grads(on_mesh)
+            check(mod.bwd_launches == b0 + 1,
+                  f"{name}_bwd {label}: {mod.bwd_launches - b0} launches")
+            want = grads(lambda a: kernel(*a, backend="torch"))
+            names = SCAN_GRADS if scan else LRU_GRADS
+            errs = grads_close(f"{name}_bwd {label}", got, want, dtype, names)
+            dy = rn(B, S, C).to(dtype)
+            if scan:
+                def bwd():
+                    return ss._launch_bwd(*args, dy, None, need_A=False,
+                                          need_D=False)
+
+                def plain_bwd():
+                    return ss.selective_scan_bwd_torch(
+                        *args, dy, need_A=False, need_D=False)
+                kb = kernel_costs("selective_scan_bwd", dtype, B=B, S=S,
+                                  Di=C, N=N, h0=True)
+            else:
+                def bwd():
+                    return rg._launch_bwd(*args, dy, need_a=False)
+
+                def plain_bwd():
+                    return rg.rglru_bwd_torch(*args, dy, need_a=False)
+                kb = kernel_costs("rglru_scan_bwd", dtype, B=B, S=S, W=C,
+                                  h0="row")
+            cb = dict(shape=label + ", through autograd (parameters "
+                      "frozen)", max_abs_err=max(errs.values()),
+                      tol=GRAD_TOL[dtype], grad_errs=errs,
+                      ms=timer(bwd), plain_ms=timer(plain_bwd),
+                      library_ms=None, library="none: no single PyTorch "
+                      "call computes this VJP",
+                      bound_ms=kb.bound()[0], bound_by=kb.bound()[1])
+            cases[f"{name}_bwd"].append(cb)
+            log(f"kernel {name}_bwd {cb}")
+
+
+def mesh_phases(seed: int) -> dict:
+    """Phases 49 to 52, each path's launches in its record."""
+    t0 = time.perf_counter()
+    out = mesh_serving_phases(seed)
+    out["mesh_moe"] = mesh_family(51, "granite-moe-1b-a400m",
+                                  granite_config(), seed, n=8,
+                                  lens=(32, 129), gens=(8, 17))
+    from repro_torch.configs.base import get_config
+    out["mesh_ssm"] = mesh_family(52, "falcon-mamba-7b",
+                                  get_config("falcon-mamba-7b"), seed, n=8,
+                                  lens=(32, 129), gens=(8, 17))
+    out["mesh_hybrid"] = mesh_family(52, "recurrentgemma-2b",
+                                     get_config("recurrentgemma-2b"), seed,
+                                     n=8, lens=(32, 129), gens=(8, 17))
+    out["mesh_vlm"] = mesh_family(52, "llava-next-mistral-7b",
+                                  llava_config(), seed, n=4, lens=(16, 65),
+                                  gens=(4, 9), rows=True, train=False)
+    out["mesh_audio"] = mesh_family(52, "whisper-small", whisper_config(),
+                                    seed, n=4, lens=(16, 65), gens=(4, 9),
+                                    rows=True, train=False)
+    out["mesh_serving_s"] = time.perf_counter() - t0
+    log(f"phases 49-52: {out['mesh_serving_s']:.1f}s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5543,6 +5965,7 @@ def main(argv=None) -> int:
     moe_kernel_cases(timer, cases, args.seed)
     family_kernel_cases(timer, cases, args.seed)
     mesh_kernel_cases(gen, timer, cases)
+    mesh_scan_cases(gen, timer, cases)
     rec["main"], rec["bank"], rec["paged"], rec["spec"], rec["mesh"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -5567,6 +5990,7 @@ def main(argv=None) -> int:
     rec.update(family_phases(args.seed))
     rec["tools"] = tools_phases(args.seed, gen, timer, cases)
     rec["multipod"] = multipod_phase()
+    rec.update(mesh_phases(args.seed))
 
     kernels = []
     for name, cs in cases.items():

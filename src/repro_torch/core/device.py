@@ -24,10 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def unported(what: str, item: str) -> NotImplementedError:
     """The error every not-yet-ported feature raises, naming the ROADMAP
     item that will port it: "later, multi-GPU sharding" (``ROADMAP.md``
-    1-E2), the mesh modes still to come: paged and speculative serving on
-    a mesh, the moe family's expert parallelism, the ssm and hybrid
-    families' rules (and every family but dense in a mesh round),
-    ``long_decode_rules`` and the SL chain's `stage` axis. Every model
-    family and the dense main path on a mesh are ported."""
+    1-E2's last items), the SL chain's `stage` axis (``sl_pipeline`` with
+    ``mesh=``); ``long_decode_rules`` and ``moe_serving_rules``, which the
+    reference reads only in its dry-run's lowering, come with it. Every
+    model family and every serving mode, and every family's HFSL round,
+    are ported on a mesh."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP: {item})")

@@ -29,14 +29,28 @@ Two entry points share one step body (:func:`_make_step_body`):
 (``steps`` steps per call).
 
 Mesh. ``make_hfsl_round(mesh=...)`` runs the round on a (`data`, `model`)
-device mesh (the dense family): the train state and the batch bank are
+device mesh, every family: the train state and the batch bank are
 DTensors with their cluster dim on (`pod`, `data`)
 (:func:`hfsl_state_shardings`, ``BatchBank.pack(mesh=)``). Each `data`
-rank runs its own clusters through the cluster loop, against the backbone
-split over `model` (tensor parallelism inside a cluster, the hand-written
-kernels on local shards); FedAvg is a local sum plus an ``all_reduce``
-over the cluster axes, in f32 (:class:`_Clusters`). The output state
-keeps the input's placements.
+rank runs its own clusters through the cluster loop; FedAvg is a local
+sum plus an ``all_reduce`` over the cluster axes, in f32
+(:class:`_Clusters`). Inside a cluster the `model` ranks split the work
+as ``hfsl_round_rules`` says:
+
+- dense, moe, vlm and audio: tensor parallelism, against the backbone
+  split over `model` (the hand-written kernels on local shards, a moe's
+  experts on their ranks);
+- ssm and hybrid (the rules put the cluster's `batch` on `model`): each
+  `model` rank takes its rows of the cluster batch against the backbone
+  and the cluster's adapters gathered whole once, at the round's start
+  (the backbone is frozen and the adapters change only through the
+  reduced gradients, the same on every rank); the loss and the
+  gradients are the cluster's token-weighted means: each rank's mean
+  weighted by its share of the rows (every row carries the same tokens)
+  and summed over `model` before the update, so the update is the one of
+  the whole batch.
+
+The output state keeps the input's placements.
 """
 from __future__ import annotations
 
@@ -48,7 +62,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry
-from repro_torch.core.device import unported
 from repro_torch.core.peft import value_and_grad
 from repro_torch.models.params import ParamSpec, tree_leaves, tree_map
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
@@ -144,6 +157,8 @@ class _Clusters:
         self.split: list = []            # mesh dims the clusters split over
         self.sub = None                  # the `model` sub-mesh
         self.lo, self.n_local = 0, None
+        # the cluster batch's rows split over `model` (ssm, hybrid)
+        self.rows = bool(rules) and rules.get("batch") == "model"
         if mesh is None:
             return
         from torch.distributed.tensor import Shard
@@ -187,6 +202,50 @@ class _Clusters:
             dist.all_reduce(s, group=self.mesh.get_group(i))
         return s
 
+    # -- a row-split cluster (ssm, hybrid): its batch over `model`
+    def _model_ranks(self) -> tuple[int, int]:
+        if self.sub is None:
+            return 0, 1
+        md = dt.model_dim(self.mesh)
+        return self.mesh.get_local_rank(md), self.mesh.size(md)
+
+    def batch_rows(self, batch: dict) -> tuple[dict, float]:
+        """This `model` rank's rows of a cluster batch and their share of
+        the batch (every row when the rows do not divide: each rank then
+        takes 1/m of the whole)."""
+        r, m = self._model_ranks()
+        n = next(iter(batch.values())).shape[0]
+        if m == 1 or n % m:
+            return batch, 1.0 / m
+        k = n // m
+        return {key: v[r * k:(r + 1) * k] for key, v in batch.items()}, \
+            k / n
+
+    def reduce(self, tree):
+        """The sum over the `model` ranks of each leaf (f32 sums of the
+        weighted shares, cast back)."""
+        _, m = self._model_ranks()
+        if m == 1:
+            return tree
+        import torch.distributed as dist
+        g = self.mesh.get_group(dt.model_dim(self.mesh))
+
+        def f(x):
+            y = x.float().clone()
+            dist.all_reduce(y, group=g)
+            return y.to(x.dtype)
+        return tree_map(f, tree)
+
+    def whole_over_model(self, x):
+        """A state leaf gathered over `model` (its cluster split kept):
+        this rank's clusters, every channel."""
+        from torch.distributed.tensor import Replicate
+        if not dt.is_dt(x):
+            return x
+        md = dt.model_dim(self.mesh)
+        return dt.local_as(x, [Replicate() if i == md else p
+                               for i, p in enumerate(x.placements)])
+
     # -- one cluster's trees on the model sub-mesh
     def wrap(self, tree, like):
         """Cluster slices (plain, local) -> DTensors on the `model`
@@ -208,7 +267,7 @@ class _Clusters:
     def backbone(self, tree):
         """The backbone on the `model` sub-mesh: each leaf gathered over
         the other axes (its FSDP split), its `model` split kept (a mesh
-        without a `model` axis: whole, plain)."""
+        without a `model` axis, or a row-split cluster: whole, plain)."""
         if self.mesh is None:
             return tree
         from torch.distributed.tensor import DTensor, Replicate
@@ -217,6 +276,8 @@ class _Clusters:
         def f(x):
             if not dt.is_dt(x):
                 return x
+            if self.rows:
+                return dt.local_as(x, dt.replicated(self.mesh))
             pl = [x.placements[i] if i == md else Replicate()
                   for i in range(self.mesh.ndim)]
             loc = x.redistribute(self.mesh, pl).to_local()
@@ -284,6 +345,9 @@ def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
     c = clusters or _Clusters()
 
     def one_cluster(backbone, adapters, opt_state, batch):
+        if c.rows:
+            batch, share = c.batch_rows(batch)
+            return _update(backbone, adapters, opt_state, batch, share)
         if c.sub is not None:
             adapters = c.wrap(adapters, c.like["adapters_c"])
             opt_state = c.wrap(opt_state, c.like["opt"])
@@ -292,7 +356,7 @@ def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
             return c.unwrap(out)
         return _update(backbone, adapters, opt_state, batch)
 
-    def _update(backbone, adapters, opt_state, batch):
+    def _update(backbone, adapters, opt_state, batch, share=None):
         def inner(a, mb):
             return loss_fn({"backbone": backbone, "adapters": a}, mb, cfg)
 
@@ -320,6 +384,9 @@ def _make_cluster_update(cfg, optimizer: Optimizer, loss_fn: Callable,
             grads = tree_map(lambda g: (g * inv).to(g.dtype), grads)
             loss = loss * inv
             aux = tree_map(lambda v: v * inv, aux)
+        if share is not None:         # a row-split cluster: the whole batch
+            grads, loss, aux = c.reduce(tree_map(
+                lambda v: v * share, [grads, loss, aux]))
         with torch.no_grad():
             if clip_norm:
                 grads, _ = clip_by_global_norm(grads, clip_norm)
@@ -533,7 +600,7 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
     Numerics equal ``steps`` sequential :func:`make_hfsl_step` calls on the
     same batches: the two share one step body.
 
-    ``mesh`` makes the round mesh-native (dense family): ``state`` and
+    ``mesh`` makes the round mesh-native (every family): ``state`` and
     ``bank`` are DTensors placed per :func:`hfsl_state_shardings` and
     ``BatchBank.pack(mesh=...)`` (``state_spec``, the
     :func:`hfsl_state_spec` tree, is required with it); each rank runs its
@@ -545,9 +612,6 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
         raise ValueError("make_hfsl_round(mesh=...) requires state_spec= "
                          "(the hfsl_state_spec tree) to place the round's "
                          "train state")
-    if mesh is not None and cfg.family != "dense":
-        raise unported(f"make_hfsl_round(mesh=...) for the {cfg.family} "
-                       "family", "later, multi-GPU sharding")
     rules = rules or (hfsl_round_rules(cfg.family) if mesh is not None
                       else None)
     if remat is not None:
@@ -632,8 +696,9 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
                 raise ValueError("the batch bank's cluster dim is not "
                                  "split like the train state's: pack it "
                                  "with BatchBank.pack(mesh=, rules=)")
-        local = {k: tree_map(lambda x: x.to_local() if dt.is_dt(x) else x,
-                             v) for k, v in train.items()}
+        gather = cl.whole_over_model if cl.rows else \
+            (lambda x: x.to_local() if dt.is_dt(x) else x)
+        local = {k: tree_map(gather, v) for k, v in train.items()}
         bank_l = {k: v.to_local() if dt.is_dt(v) else v
                   for k, v in bank.items()}
         dev = local["step"].device
@@ -650,13 +715,23 @@ def make_hfsl_round(cfg, optimizer: Optimizer, loss_fn: Callable, *,
                                     bank_l, offset, not clean, mask,
                                     corrupt, steps_fns=bodies(cl))
 
+        def part(x, ref):               # this rank's part of ref's layout
+            if not cl.rows or not dt.is_dt(ref):
+                return x
+            from torch.distributed.tensor import Replicate
+            md = dt.model_dim(mesh)
+            whole = [Replicate() if i == md else p
+                     for i, p in enumerate(ref.placements)]
+            return dt.local_as(dt.wrap(x, mesh, whole), ref.placements)
+
         def back(x, ref):
             if not dt.is_dt(ref):
                 return x
-            return DTensor.from_local(x, ref.device_mesh, ref.placements,
-                                      run_check=False)
+            return DTensor.from_local(part(x, ref), ref.device_mesh,
+                                      ref.placements, run_check=False)
+
         def write(d, s):
-            (d.to_local() if dt.is_dt(d) else d).copy_(s)
+            (d.to_local() if dt.is_dt(d) else d).copy_(part(s, d))
             return d
         fn = write if donate else (lambda d, s: back(s, d))
         return {k: tree_map(fn, train[k], out_l[k])

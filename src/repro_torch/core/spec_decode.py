@@ -29,20 +29,29 @@ a rollback needs is kept before it is overwritten: the attention slots a
 draft or a verify pass will write (:func:`save_attn_slots`) and the
 recurrent state after each step. The rollback points of one chunk, both
 kinds, travel in one ``snaps`` tree that mirrors the cache tree.
+
+On a device mesh the drafter is replicated (``drafter_rules``: every
+weight whole, the rows on the batch axes) and drafts under those rules,
+the target verifies under the engine's ``serving_rules``, and the
+rollback bookkeeping (saved slots, restores) runs on each rank's local
+shards with the per-row vectors cut to the rows it holds.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.device import unported
 from repro_torch.models import model as M
 from repro_torch.models.attention import chunk_slots, write_slots
+from repro_torch.models.params import tree_leaves
 from repro_torch.models.transformer import (ATTN_KINDS, attn_window,
                                            groups_for)
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.rules import drafter_rules, use_rules
 
 
 def _pow2floor(n: int) -> int:
@@ -118,13 +127,13 @@ class SpecDecoder:
                 f"{cfg.vocab_size}")
 
     def place(self, mesh) -> "SpecDecoder":
-        """The reference replicates the drafter over a mesh
-        (``drafter_rules``); speculative serving on a mesh is later work
-        (ROADMAP 1-E2)."""
+        """The drafter replicated on ``mesh`` (``drafter_rules``: a tiny
+        model whole on every rank beats a collective per draft step)."""
         if mesh is None:
             return self
-        raise unported("SpecDecoder.place(mesh)",
-                       "later, multi-GPU sharding")
+        params = M.place_params(self.params, self.cfg, mesh,
+                                rules=drafter_rules())
+        return dataclasses.replace(self, params=params)
 
 
 # ---------------------------------------------------------------------------
@@ -141,19 +150,33 @@ def save_attn_slots(cfg: ModelConfig, caches: dict, pos, T: int) -> dict:
     will overwrite: {group: {sub: {'k', 'v', 'pos'}}} with (L, B, T, ...)
     leaves (a slot past the cache reads its last slot, and is never
     restored)."""
-    qpos = _chunk_qpos(pos, T)
-    rows = torch.arange(qpos.shape[0], device=qpos.device)[:, None]
+    qpos_all = _chunk_qpos(pos, T)
     out: dict = {}
     for name, kinds, _ in groups_for(cfg):
         for i, kind in enumerate(kinds):
             if kind not in ATTN_KINDS:
                 continue
             c = caches[name][f"s{i}"]
+            qpos = _rows(qpos_all, c)
+            c = _local(c)
+            rows = torch.arange(qpos.shape[0], device=qpos.device)[:, None]
             S = c["pos"].shape[-1]
             sl = chunk_slots(qpos, attn_window(cfg, kind), S).clamp(max=S - 1)
             out.setdefault(name, {})[f"s{i}"] = {
                 leaf: c[leaf][:, rows, sl] for leaf in ("k", "v", "pos")}
     return out
+
+
+def _local(cache: dict) -> dict:
+    """A cache sub-tree as this rank's local shards (views: writes land in
+    the DTensors); plain leaves as they are."""
+    return {k: v.to_local() if dt.is_dt(v) else v for k, v in cache.items()}
+
+
+def _rows(v: torch.Tensor, cache: dict) -> torch.Tensor:
+    """The rows of per-row vector ``v`` that this rank holds of
+    ``cache``'s (L, B, ...) leaves."""
+    return dt.rows_of(v, next(iter(cache.values())), 1)
 
 
 def _merge(a: dict, b: dict) -> dict:
@@ -169,11 +192,14 @@ def draft_chunk(dparams: dict, dcfg: ModelConfig, k: int, tok, dcaches,
     c-1 for any commit c in 1..k+1). The drafter caches are advanced in
     place. Returns (drafts (B, k), the caches, snaps: per-step recurrent
     states (L, B, k+1, ...) and the saved attention slots)."""
-    saved = save_attn_slots(dcfg, dcaches, pos, k + 1)
-    remaining = torch.where(active, k + 2, 0).to(torch.int32)
-    toks, (_, dcaches, _, _), snaps = M._decode_steps(
-        dparams, dcfg, k + 1, True, tok, dcaches, pos, remaining,
-        with_state=True)
+    mesh = dt.mesh_of(*tree_leaves(dparams))
+    with (use_rules(mesh, drafter_rules()) if mesh is not None
+          else contextlib.nullcontext()):
+        saved = save_attn_slots(dcfg, dcaches, pos, k + 1)
+        remaining = torch.where(active, k + 2, 0).to(torch.int32)
+        toks, (_, dcaches, _, _), snaps = M._decode_steps(
+            dparams, dcfg, k + 1, True, tok, dcaches, pos, remaining,
+            with_state=True)
     return toks[:, 1:], dcaches, _merge(snaps, saved)
 
 
@@ -184,6 +210,8 @@ def _restore_attn(cache: dict, saved: dict, *, qpos, commit, active,
     its empty slots (the +1e9 sentinel) back; a sliding-window buffer gets
     back the older entries the chunk overwrote, which later queries can
     still see."""
+    qpos, commit, active = (_rows(v, cache) for v in (qpos, commit, active))
+    cache = _local(cache)
     S = cache["pos"].shape[-1]
     T = qpos.shape[1]
     stale = torch.arange(T, device=qpos.device)[None, :] >= commit[:, None]
@@ -196,6 +224,8 @@ def _restore_attn(cache: dict, saved: dict, *, qpos, commit, active,
 def _restore_rec(cache: dict, snaps: dict, *, commit, active) -> None:
     """Recurrent rollback: the state kept at the last committed offset
     (commit-1); inactive rows keep theirs."""
+    commit, active = _rows(commit, cache), _rows(active, cache)
+    cache, snaps = _local(cache), _local(snaps)
     idx = (commit.long() - 1).clamp_min(0)
     rows = torch.arange(idx.shape[0], device=idx.device)
     for leaf, o in cache.items():
@@ -255,7 +285,7 @@ def spec_chunk(params, dparams, cfg: ModelConfig, dcfg: ModelConfig, k: int,
     tks = torch.cat([tok, drafts.to(tok.dtype)], dim=1)     # (B, k+1)
     logits, caches, vsnaps = verify_chunk(params, cfg, tks, caches, pos,
                                           active, adapter_ids)
-    tgt = torch.argmax(logits, dim=-1).to(torch.int32)      # (B, k+1)
+    tgt = torch.argmax(dt.whole(logits), dim=-1).to(torch.int32)
     match = (drafts.to(torch.int32) == tgt[:, :k]) & spec_rows[:, None]
     acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
     commit = torch.where(active, torch.minimum(acc.to(remaining.dtype) + 1,

@@ -33,6 +33,7 @@ from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.dtensor import mesh_of
 
 _BACKEND: Optional[str] = None          # None: by tensor device
 # kernel name -> (module, attribute holding its launch count)
@@ -258,6 +259,11 @@ def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
     ``ops.flash_decode_paged`` with or without a prefix bank; for CUDA
     tensors it is always the paged kernel (no gather into a dense copy).
     Returns (B, Hq, D)."""
+    if dt.mesh_of(q, k_pool, v_pool, prefix_k, prefix_v) is not None:
+        return _paged_mesh(q, k_pool, v_pool, table, q_pos=q_pos,
+                           prefix_k=prefix_k, prefix_v=prefix_v,
+                           prefix_ids=prefix_ids, scale=scale,
+                           backend=_pick(backend))
     B = q.shape[0]
     qp = _int32(q_pos, (B,), q.device)
     if prefix_k is not None:
@@ -407,6 +413,30 @@ def _attention_mesh(q, k, v, *, q_pos, kv_pos, window, causal, scale,
                         [qp, kg, kg, rep, rep])
 
 
+def _prefix_args(mesh, rows, kv_split, B, dev, prefix_k, prefix_v,
+                 prefix_ids):
+    """(args, placements, kv-head dim) of a decode's prefix bank on a
+    mesh: a bank's stacked slots with ``prefix_ids`` (each rank reads its
+    rows' slots by id), one set per row (split like the rows) or one
+    shared set; the kv heads split over `model` with the cache's."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    rep = dt.replicated(mesh)
+    row_int = dt.with_model(rows, mesh, R)
+    if prefix_k is None:
+        return [], [], None
+    if prefix_ids is not None:                      # a bank's stacked slots
+        hd_dim, pre = 2, dt.with_model(rep, mesh, R)
+        extra = [_int32(dt.whole(prefix_ids), (B,), dev)]
+    elif prefix_k.dim() == 4:                       # one set per row
+        hd_dim, pre, extra = 2, dt.with_model(rows, mesh, R), []
+    else:                                           # one shared set
+        hd_dim, pre, extra = 1, dt.with_model(rep, mesh, R), []
+    ppl = dt.with_model(pre, mesh, Shard(hd_dim) if kv_split else R)
+    return ([prefix_k, prefix_v] + extra,
+            [ppl, ppl] + [row_int] * len(extra), hd_dim)
+
+
 def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
                  window, causal, scale, backend):
     from torch.distributed.tensor import Replicate, Shard
@@ -416,28 +446,16 @@ def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
     q_split, kv_split = _head_split(mesh, hq, hkv)
     rows = dt.row_placements(q, mesh)
     R = Replicate()
-    rep = dt.replicated(mesh)
     qp = dt.with_model(rows, mesh, Shard(1) if q_split else R)
     kp = dt.with_model(rows, mesh, Shard(2) if kv_split else R)
     row_int = dt.with_model(rows, mesh, R)
     dev = q.device
+    pargs, ppl, hd_dim = _prefix_args(mesh, rows, kv_split, B, dev,
+                                      prefix_k, prefix_v, prefix_ids)
     args = [q, k, v, _int32(dt.whole(q_pos), (B,), dev),
-            _int32(dt.whole(kv_pos), (B, T), dev)]
-    in_pl = [qp, kp, kp, row_int, row_int]
-    form = None
-    if prefix_k is not None:
-        if prefix_ids is not None:                  # a bank's stacked slots
-            form, hd_dim, pre = "bank", 2, dt.with_model(rep, mesh, R)
-            args += [prefix_k, prefix_v,
-                     _int32(dt.whole(prefix_ids), (B,), dev)]
-        elif prefix_k.dim() == 4:                   # one set per row
-            form, hd_dim, pre = "rows", 2, dt.with_model(rows, mesh, R)
-            args += [prefix_k, prefix_v]
-        else:                                       # one shared set
-            form, hd_dim, pre = "shared", 1, dt.with_model(rep, mesh, R)
-            args += [prefix_k, prefix_v]
-        ppl = dt.with_model(pre, mesh, Shard(hd_dim) if kv_split else R)
-        in_pl += [ppl, ppl] + ([row_int] if form == "bank" else [])
+            kv_pos if dt.is_dt(kv_pos) else _int32(kv_pos, (B, T), dev)] \
+        + pargs
+    in_pl = [qp, kp, kp, row_int, row_int] + ppl
 
     def fn(q_, k_, v_, qpos_, kvpos_, pk_=None, pv_=None, ids_=None):
         if q_split and not kv_split:
@@ -453,6 +471,95 @@ def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
     return dt.on_shards(fn, args, in_pl, qp)
 
 
+def _paged_mesh(q, k_pool, v_pool, table, *, q_pos, prefix_k, prefix_v,
+                prefix_ids, scale, backend):
+    """The paged kernel on this rank's rows and `model` heads. A row's
+    table may name any block of the pool, whose blocks are split over the
+    batch axes, so the pool is gathered whole over them first (its kv
+    heads stay split); the table and positions are cut to the rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dt.mesh_of(q, k_pool, v_pool, prefix_k, prefix_v)
+    B = q.shape[0]
+    hq, hkv = q.shape[1], k_pool.shape[2]
+    q_split, kv_split = _head_split(mesh, hq, hkv)
+    rows = dt.row_placements(q, mesh)
+    R = Replicate()
+    qp = dt.with_model(rows, mesh, Shard(1) if q_split else R)
+    poolp = dt.with_model(dt.replicated(mesh), mesh,
+                          Shard(2) if kv_split else R)
+    row_int = dt.with_model(rows, mesh, R)
+    dev = q.device
+    pargs, ppl, hd_dim = _prefix_args(mesh, rows, kv_split, B, dev,
+                                      prefix_k, prefix_v, prefix_ids)
+    tbl = table if dt.is_dt(table) else _int32(table, None, dev)
+    args = [q, k_pool, v_pool, tbl,
+            _int32(dt.whole(q_pos), (B,), dev)] + pargs
+    in_pl = [qp, poolp, poolp, row_int, row_int] + ppl
+
+    def fn(q_, kp_, vp_, tbl_, qpos_, pk_=None, pv_=None, ids_=None):
+        if q_split and not kv_split:
+            kp_, vp_ = _kv_of(mesh, hq, hkv, q_.shape[1], kp_, vp_, dim=2)
+            if pk_ is not None:
+                pk_, pv_ = _kv_of(mesh, hq, hkv, q_.shape[1], pk_, pv_,
+                                  dim=hd_dim)
+        return flash_decode_paged(q_, kp_, vp_, tbl_, q_pos=qpos_,
+                                  prefix_k=pk_, prefix_v=pv_,
+                                  prefix_ids=ids_, scale=scale,
+                                  backend=backend)
+
+    return dt.on_shards(fn, args, in_pl, qp)
+
+
+def _scan_placements(x, mesh, chan_dim: int):
+    """Placements of a scan's operands on a mesh, read from ``x`` (B, S,
+    C): its rows split where x's are (the batch axes when serving, `model`
+    too for a recurrent family's training), its channels over `model`
+    where x's last dim is (serving). Returns a function of (kind, channel
+    dim of that operand) -> (placements, gradient placements); kinds are
+    ``rows`` (a per-row operand), ``chan`` (a per-channel one, shared by
+    the rows) and ``both``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    md = dt.model_dim(mesh)
+    R = Replicate()
+    row = [dt.is_dt(x) and x.placements[i] == Shard(0)
+           for i in range(mesh.ndim)]
+    chan = (dt.is_dt(x) and md is not None and not row[md]
+            and x.placements[md] == Shard(chan_dim))
+
+    def pl(kind: str, cdim: Optional[int] = None):
+        p, g = [], []
+        for i in range(mesh.ndim):
+            if row[i]:                         # rows split on this mesh dim
+                p.append(Shard(0) if kind != "chan" else R)
+                g.append(Shard(0) if kind != "chan" else Partial())
+            elif i == md and chan:             # channels split on `model`
+                if cdim is None:               # contracts the channels
+                    p.append(R)
+                    g.append(Partial())
+                else:
+                    p.append(Shard(cdim))
+                    g.append(Shard(cdim))
+            else:
+                p.append(R)
+                g.append(R)
+        return tuple(p), tuple(g)
+    return pl
+
+
+def _scan_mesh(kernel, args: list, kinds: list, outs: list):
+    """A scan kernel (``kernel(*local args)``) on this rank's rows and
+    channels; ``kinds`` (kind, channel dim) per argument and ``outs`` per
+    output as :func:`_scan_placements` takes them. Differentiable: each
+    input's gradient lands where :func:`_scan_placements` says."""
+    x = args[0]
+    mesh = dt.mesh_of(*args)
+    pl = _scan_placements(x, mesh, x.dim() - 1)
+    in_pl = [pl(*k)[0] for k in kinds]
+    g_pl = [pl(*k)[1] for k in kinds]
+    out_pl = tuple(pl(*o)[0] for o in outs)
+    return dt.on_shards(kernel, args, in_pl, out_pl, g_pl)
+
+
 # ---------------------------------------------------------------------------
 # Selective scan (Mamba-1)
 # ---------------------------------------------------------------------------
@@ -465,8 +572,23 @@ def selective_scan(x, dt, A, Bm, C, D, h0=None, *,
     function and are covered by the plain version. Differentiable: the
     backward is the ``selective_scan_bwd`` kernel on the card (the
     reference differentiates the scan through XLA); its oracle is
-    autograd through :func:`ref.selective_scan`."""
-    return ss.selective_scan(x, dt, A, Bm, C, D, h0, backend=_pick(backend))
+    autograd through :func:`ref.selective_scan`.
+
+    On a mesh the kernel runs on each rank's rows and channels
+    (:func:`_scan_mesh`): serving splits the channels (``d_inner``) over
+    `model`, which the scan keeps apart, and a recurrent family's
+    training round splits the rows over `model`."""
+    impl = _pick(backend)
+    if mesh_of(x, A, Bm, h0) is not None:       # (`dt` is the step here)
+        args = [x, dt, A, Bm, C, D] + ([] if h0 is None else [h0])
+        kinds = [("both", 2), ("both", 2), ("chan", 0), ("rows", None),
+                 ("rows", None), ("chan", 0)]
+        if h0 is not None:
+            kinds.append(("both", 1) if h0.dim() == 3 else ("chan", 0))
+        return _scan_mesh(
+            lambda *a: ss.selective_scan(*a, backend=impl), args, kinds,
+            [("both", 2), ("both", 1)])
+    return ss.selective_scan(x, dt, A, Bm, C, D, h0, backend=impl)
 
 
 def selective_scan_step(x, dt, A, Bm, C, D, h):
@@ -492,9 +614,18 @@ def rglru(x, r_gate, i_gate, a_param, h0=None, *, c: float = 8.0,
     ``_rglru_assoc`` computes the same function and is covered by the
     plain version. Differentiable: the backward is the ``rglru_scan_bwd``
     kernel on the card; its oracle is autograd through
-    :func:`ref.rglru`."""
-    return rg.rglru(x, r_gate, i_gate, a_param, h0, c=c,
-                    backend=_pick(backend))
+    :func:`ref.rglru`. On a mesh the kernel runs on each rank's rows and
+    channels (``lru``), as :func:`selective_scan` does."""
+    impl = _pick(backend)
+    if dt.mesh_of(x, r_gate, a_param, h0) is not None:
+        args = [x, r_gate, i_gate, a_param] + ([] if h0 is None else [h0])
+        kinds = [("both", 2), ("both", 2), ("both", 2), ("chan", 0)]
+        if h0 is not None:
+            kinds.append(("both", 1) if h0.dim() == 2 else ("chan", 0))
+        return _scan_mesh(
+            lambda *a: rg.rglru(*a, c=c, backend=impl), args, kinds,
+            [("both", 2), ("both", 1)])
+    return rg.rglru(x, r_gate, i_gate, a_param, h0, c=c, backend=impl)
 
 
 def rglru_step(x, r_gate, i_gate, a_param, h, c: float = 8.0):

@@ -65,8 +65,11 @@ rank runs the same host scheduler on the same submissions and seed; the
 params are DTensors (``model.place_params``, a slot-sharded bank), each
 dispatch runs under ``serving_rules`` (wave rows on `data`, heads and FF
 on `model`), and the tokens each segment returns are whole on every rank,
-so every rank returns every completion. Paged and speculative serving on a
-mesh are a later item.
+so every rank returns every completion. Paged serving keeps its
+allocator on the host, the same on every rank, and its pool on the mesh
+(blocks on the batch axes, kv heads on `model`; ``models/attention.py``
+writes and reads it); speculative serving replicates the drafter
+(``SpecDecoder.place``) and runs its dispatches under ``drafter_rules``.
 """
 from __future__ import annotations
 
@@ -80,13 +83,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry
-from repro_torch.core.device import resolve_device, unported
+from repro_torch.core.device import resolve_device
 from repro_torch.core.paged import BlockAllocator, PagedSpec
 from repro_torch.core.telemetry import Histogram, Telemetry
 from repro_torch.models import model as M
 from repro_torch.models.params import init_from_spec
 from repro_torch.models.transformer import groups_for, paged_subs
-from repro_torch.sharding.rules import serving_rules, use_rules
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.rules import (drafter_rules, serving_rules,
+                                        use_rules)
 
 
 def _pow2ceil(n: int) -> int:
@@ -201,10 +206,6 @@ class DecodeEngine:
             raise ValueError(
                 f"paged serving does not support the {cfg.family} family "
                 "(modality prefixes address the dense slab)")
-        if mesh is not None and (paged is not None or spec is not None):
-            raise unported("DecodeEngine(mesh=..., "
-                           f"{'paged' if paged is not None else 'spec'}=...)",
-                           "later, multi-GPU sharding")
         self.mesh = mesh
         self.rules = serving_rules() if mesh is not None else None
         # speculative serving: greedy only (exact-match acceptance is what
@@ -215,6 +216,7 @@ class DecodeEngine:
                     "speculative serving is greedy-only (sampled residual "
                     "acceptance is a recorded follow-up)")
             spec.validate_target(cfg)
+            spec = spec.place(mesh)        # replicated under drafter_rules
         self.spec = spec
         self.cfg = cfg
         self.slots = slots
@@ -375,9 +377,12 @@ class DecodeEngine:
         gen = torch.Generator(device=self.device)
         self._pool = {}
         for g, s in self._psubs:
-            sub = spec[g][s]
-            self._pool.setdefault(g, {})[s] = init_from_spec(
-                gen, {"k": sub["k"], "v": sub["v"]}, self.device)
+            sub = {"k": spec[g][s]["k"], "v": spec[g][s]["v"]}
+            pool = init_from_spec(gen, sub, self.device)
+            if self.mesh is not None:      # kv_blocks on (pod, data)
+                pool = R.distribute_tree(pool, R.partition_specs(
+                    sub, self.mesh, self.rules), self.mesh)
+            self._pool.setdefault(g, {})[s] = pool
 
     def _admit_due(self) -> None:
         """serve_trace: submit every arrival whose timestamp has passed."""
@@ -409,6 +414,12 @@ class DecodeEngine:
         rows = [e if e is not None else fallback for e in cur_extras]
         return {k: torch.stack([self._tensor(r[k]) for r in rows])
                 for k in keys}
+
+    def _drafting(self):
+        """The drafter's dispatches run under ``drafter_rules`` on a mesh
+        (the target's under ``serving_rules``)."""
+        return use_rules(self.mesh, drafter_rules()) \
+            if self.mesh is not None else contextlib.nullcontext()
 
     def _wave_params(self, params, tenant: bool):
         """Per-dispatch params: re-read the bank so publishes are fresh."""
@@ -591,9 +602,10 @@ class DecodeEngine:
                             # prefill builds its state per row (its next
                             # token is discarded: a chunk's carry is always
                             # the target's committed token)
-                            dtok, dcaches, dpos = M.wave_prefill(
-                                self.spec.params, self.spec.cfg, cap,
-                                {"tokens": tokens}, self._tensor(lens))
+                            with self._drafting():
+                                dtok, dcaches, dpos = M.wave_prefill(
+                                    self.spec.params, self.spec.cfg, cap,
+                                    {"tokens": tokens}, self._tensor(lens))
                 else:
                     # in-wave refill: prefill only the admitted rows
                     # (pow2-padded row count) into their slots
@@ -608,10 +620,11 @@ class DecodeEngine:
                             wp, self.cfg, cap, batch, self._tensor(lens),
                             row_idx, tok, caches, pos, ids_rows)
                         if self.spec is not None:
-                            dtok, dcaches, dpos = M.refill(
-                                self.spec.params, self.spec.cfg, cap,
-                                {"tokens": tokens}, self._tensor(lens),
-                                row_idx, dtok, dcaches, dpos)
+                            with self._drafting():
+                                dtok, dcaches, dpos = M.refill(
+                                    self.spec.params, self.spec.cfg, cap,
+                                    {"tokens": tokens}, self._tensor(lens),
+                                    row_idx, dtok, dcaches, dpos)
             # deadline sweep: a live row past its budget retires here with
             # the tokens it has so far
             now = time.perf_counter()

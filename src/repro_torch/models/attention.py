@@ -194,19 +194,20 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
             p = s_idx[None, :] + W * torch.div(
                 lens.long()[:, None] - 1 - s_idx[None, :], W,
                 rounding_mode="floor")                # (B, W)
-            valid = (p >= 0)[:, :, None, None]
-            gidx = p.clamp(0, S - 1)[:, :, None, None].expand(
-                -1, -1, k.shape[2], k.shape[3])
+            def roll(t, p_):              # on a mesh, each rank's shard
+                gidx = p_.clamp(0, S - 1)[:, :, None, None].expand(
+                    -1, -1, t.shape[2], t.shape[3])
+                return torch.where((p_ >= 0)[:, :, None, None],
+                                   torch.gather(t, 1, gidx),
+                                   torch.zeros((), dtype=t.dtype,
+                                               device=t.device))
             cache = {
-                "k": torch.where(valid, torch.gather(k, 1, gidx),
-                                 torch.zeros((), dtype=k.dtype,
-                                             device=k.device)),
-                "v": torch.where(valid, torch.gather(v, 1, gidx),
-                                 torch.zeros((), dtype=v.dtype,
-                                             device=v.device)),
+                "k": dt.on_local(k, roll, p),
+                "v": dt.on_local(v, roll, p),
                 # +1e9 sentinel: empty slots must be invisible (a negative
                 # position would mark them as always-visible prefix slots)
-                "pos": torch.where(p >= 0, p, SENTINEL).to(torch.int32),
+                "pos": dt.split_like(
+                    torch.where(p >= 0, p, SENTINEL).to(torch.int32), k),
             }
         else:
             L = max(cache_len or S, S)
@@ -219,8 +220,9 @@ def attention_seq(params: dict, adapters: Optional[dict], x: torch.Tensor,
             cache = {
                 "k": dt.on_local(k, grow),
                 "v": dt.on_local(v, grow),
-                "pos": torch.where(cols < lens[:, None], base[None, :],
-                                   SENTINEL).to(torch.int32),
+                "pos": dt.split_like(
+                    torch.where(cols < lens[:, None], base[None, :],
+                                SENTINEL).to(torch.int32), k),
             }
     return y, cache
 
@@ -270,7 +272,7 @@ def attention_decode(params: dict, adapters: Optional[dict],
         # row b's token goes to (table[b, pos // bs], pos % bs); retired
         # rows and sentinel table entries write nothing
         nb, bs = cache["k"].shape[0], cache["k"].shape[1]
-        blk, off = _table_slots(cache["table"], pos[:, None], bs)
+        blk, off = _table_slots(dt.whole(cache["table"]), pos[:, None], bs)
         blk, off = blk[:, 0], off[:, 0]
         keep = blk < nb
         if active is not None:
@@ -326,7 +328,7 @@ def _write_slot(buf, slot: torch.Tensor, new, keep: torch.Tensor) -> None:
               for p in buf.placements]
         new = dt.as_replicated(new, buf.device_mesh) \
             .redistribute(buf.device_mesh, pl).to_local()
-        slot, keep = dt.rows_like(slot, buf), dt.rows_like(keep, buf)
+        slot, keep = dt.rows_of(slot, buf), dt.rows_of(keep, buf)
         buf = buf.to_local()
     elif dt.is_dt(new):
         new = dt.whole(new)
@@ -347,9 +349,24 @@ def paged_write(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
     none kept, rewrites the value already at its own slot), so duplicate
     indices always carry equal values: the scatter is deterministic, needs
     no extra block and reads nothing back to the host. Kept writes must
-    hit distinct slots (the allocator never shares a row's tail block)."""
+    hit distinct slots (the allocator never shares a row's tail block).
+    ``new`` may carry its N rows as more than one dim (they are flattened
+    in order).
+
+    On a mesh (a DTensor pool: blocks split over the batch axes, kv heads
+    over `model`) every rank gets every row's value (gathered over the
+    batch axes, with the pool's kv heads) and writes those that land in
+    its own blocks; ``blk``, ``off`` and ``keep`` are whole on every
+    rank."""
+    if dt.is_dt(pool):
+        new = _rows_heads(new, pool)
+        pool, start = dt.local_rows(pool, pool.dim() - 4)
+        blk = blk.long()
+        keep = keep & (blk >= start) & (blk < start + pool.shape[-4])
+        blk = blk - start
     nb, bs = pool.shape[-4], pool.shape[-3]
     d = pool.dim() - 4                             # leading (layer) dims
+    new = new.reshape(*pool.shape[:d], -1, *new.shape[-2:])
     flat = pool.view(*pool.shape[:d], nb * bs, *pool.shape[-2:])
     slot = blk.long().clamp(0, nb - 1) * bs + off.long()
     j = keep.to(torch.int32).argmax().reshape(1)   # first kept, else 0
@@ -359,6 +376,17 @@ def paged_write(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
                         flat.index_select(d, slot_j))
     vals = torch.where(keep.reshape(-1, 1, 1), new.to(pool.dtype), src_j)
     flat.index_copy_(d, torch.where(keep, slot, slot_j), vals)
+
+
+def _rows_heads(new, pool) -> torch.Tensor:
+    """This rank's part of ``new`` (.., Hkv, D) for a write into DTensor
+    ``pool``: every row (gathered over the batch axes), the pool's kv
+    heads (a plain ``new`` counts as whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    hp, hn = pool.dim() - 2, new.dim() - 2
+    pl = [Shard(hn) if p == Shard(hp) else Replicate()
+          for p in pool.placements]
+    return dt.local_as(dt.as_replicated(new, pool.device_mesh), pl)
 
 
 def _table_slots(table: torch.Tensor, qpos: torch.Tensor, bs: int):
@@ -401,29 +429,85 @@ def attention_chunk_paged(params: dict, adapters: Optional[dict],
 
     table = cache["table"]
     nb, bs = cache["k"].shape[0], cache["k"].shape[1]
-    blk, off = _table_slots(table, qpos, bs)
+    blk, off = _table_slots(dt.whole(table), qpos, bs)
     keep = (valid & (blk < nb)).reshape(-1)
     for name, new in (("k", k1), ("v", v1)):
-        paged_write(cache[name], blk.reshape(-1), off.reshape(-1),
-                    new.reshape(B * W, nkv, hd), keep)
+        paged_write(cache[name], blk.reshape(-1), off.reshape(-1), new,
+                    keep)
 
-    kg, vg = fd.gather_pool(cache["k"], cache["v"], table)
-    kv_pos = torch.arange(kg.shape[1], device=x.device)[None].expand(B, -1)
-    kp, vp, n_p = _with_prefix(kg, vg, adapters, B, adapter_ids)
-    if n_p:
-        kv_pos = torch.cat([kv_pos.new_full((B, n_p), -1), kv_pos], 1)
+    pfx = (adapters or {}).get("prefix")
+    pk = pv = None
+    if pfx is not None:
+        pk, pv = _prefix_slots(pfx, B, adapter_ids)
+
+    def attend(q_, kpool, vpool, tbl, qpos_, pk_=None, pv_=None):
+        kg, vg = fd.gather_pool(kpool, vpool, tbl)
+        kv_pos = torch.arange(kg.shape[1], device=kg.device)[None] \
+            .expand(kg.shape[0], -1)
+        return _attend(q_, *fd.with_prefix(kg, vg, kv_pos, pk_, pv_), qpos_)
+
+    o = _on_heads(attend, q, [cache["k"], cache["v"]],
+                  [table, qpos], [] if pk is None else [pk, pv])
+    y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
+    return y, cache
+
+
+def _attend(q, kp, vp, kv_pos, qpos, window: int = 0):
+    """Plain torch GQA in f32 (the reference's plain ``jnp``): queries q
+    (B, T, nh, hd) at ``qpos`` (B, T) against keys kp / vp (B, S, nkv,
+    hd) at ``kv_pos`` (B, S); causal, inside ``window`` when it is set,
+    and a negative position (a prefix slot) always visible. Returns (B,
+    T, nh * hd) in q's dtype."""
+    B, T, nh, hd = q.shape
+    nkv = kp.shape[2]
+    kv_pos, qpos = kv_pos.long(), qpos.long()
     vis = kv_pos[:, None, :] <= qpos[:, :, None]            # causal
+    if window and window > 0:
+        vis = vis & ((qpos[:, :, None] - kv_pos[:, None, :]) < window)
     vis = vis | (kv_pos[:, None, :] < 0)                    # prefix slots
-    g = nh // nkv
-    qf = q.reshape(B, W, nkv, g, hd).float()
+    qf = q.reshape(B, T, nkv, nh // nkv, hd).float()
     scores = torch.einsum("btngd,bsnd->bngts", qf, kp.float()) * hd ** -0.5
     scores = torch.where(vis[:, None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bngts,bsnd->btngd", probs, vp.float())
-    o = o.reshape(B, W, nh * hd).to(x.dtype)
-    y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
-    return y, cache
+    return o.reshape(B, T, nh * hd).to(q.dtype)
+
+
+def _on_heads(fn, q, pools: list, ints: list, kvs: list):
+    """``fn(q, *pools, *ints, *kvs)`` (its result (B, T, nh * hd)), on a
+    mesh on this rank's rows and `model` heads: q (B, T, nh, hd) split as
+    its rows and heads are; ``pools`` (n_blocks, bs, nkv, hd) gathered
+    over the batch axes; ``ints`` per-row tensors on the rows; ``kvs``
+    per-row (B, S, nkv, hd) on the rows. The kv heads split with q's
+    where they divide, else stay replicated and each rank cuts the ones
+    its q heads read (``kops._kv_of``). Without a mesh: ``fn`` as it
+    is."""
+    mesh = dt.mesh_of(q, *pools, *kvs)
+    if mesh is None:
+        return fn(q, *pools, *ints, *kvs)
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    hq, hkv = q.shape[2], (pools or kvs)[0].shape[2]
+    q_split, kv_split = kops._head_split(mesh, hq, hkv)
+    rows = dt.row_placements(q, mesh)
+    kvh = Shard(2) if kv_split else R
+    qp = dt.with_model(rows, mesh, Shard(2) if q_split else R)
+    pp = dt.with_model(dt.replicated(mesh), mesh, kvh)
+    ip = dt.with_model(rows, mesh, R)
+    kp = dt.with_model(rows, mesh, kvh)
+    n_p, n_i = len(pools), len(ints)
+
+    def local(q_, *rest):
+        kv = list(rest[:n_p]) + list(rest[n_p + n_i:])
+        if q_split and not kv_split:
+            kv = kops._kv_of(mesh, hq, hkv, q_.shape[2], *kv, dim=2)
+        return fn(q_, *kv[:n_p], *rest[n_p:n_p + n_i], *kv[n_p:])
+
+    ints = [t if dt.is_dt(t) else t.contiguous() for t in ints]
+    return dt.on_shards(local, [q, *pools, *ints, *kvs],
+                        [qp] + [pp] * n_p + [ip] * n_i + [kp] * len(kvs),
+                        qp)
 
 
 def chunk_slots(qpos: torch.Tensor, window: int, S: int,
@@ -447,13 +531,19 @@ def write_slots(cache: dict, slot: torch.Tensor, values: dict) -> None:
     decode steps would, so a clamped out-of-cache slot rewrites the value
     already there and never races an in-cache write."""
     S = cache["pos"].shape[-1]
-    B, T = slot.shape
-    lead = (slice(None),) * (cache["pos"].dim() - 2)   # layer dims, if any
-    rows = torch.arange(B, device=slot.device)
-    keep = slot < S
-    sl = slot.clamp(max=S - 1)
+    nl = cache["pos"].dim() - 2                        # layer dims, if any
+    lead = (slice(None),) * nl
     for name, val in values.items():
-        buf = cache[name]
+        buf, sl_ = cache[name], slot
+        if dt.is_dt(buf):        # a mesh: this rank's rows, in its shard
+            val = dt.local_as(dt.as_replicated(val, buf.device_mesh),
+                              buf.placements)
+            sl_ = dt.rows_of(slot, buf, nl)
+            buf = buf.to_local()
+        B, T = sl_.shape
+        rows = torch.arange(B, device=sl_.device)
+        keep = sl_ < S
+        sl = sl_.clamp(max=S - 1)
         for t in range(T):
             idx = lead + (rows, sl[:, t])
             old = buf[idx]
@@ -501,25 +591,17 @@ def attention_verify(params: dict, adapters: Optional[dict],
     write_slots(cache, chunk_slots(qpos, window, S, active),
                 {"k": k1, "v": v1, "pos": qpos})
 
-    kv_pos = cache["pos"].long()
-    kp, vp, n_p = _with_prefix(
-        shard(cache["k"], "batch", "kv_seq", "kv_heads", "head_dim"),
-        shard(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim"),
-        adapters, B, adapter_ids)
-    if n_p:
-        kv_pos = torch.cat([kv_pos.new_full((B, n_p), -1), kv_pos], 1)
-    vis = kv_pos[:, None, :] <= qpos[:, :, None]            # causal (B, T, S)
-    if window and window > 0:
-        vis = vis & ((qpos[:, :, None] - kv_pos[:, None, :]) < window)
-    vis = vis | (kv_pos[:, None, :] < 0)                    # prefix slots
-    g = nh // nkv
-    qf = q.reshape(B, T, nkv, g, hd).float()
-    scores = torch.einsum("btngd,bsnd->bngts", qf, kp.float()) * hd ** -0.5
-    scores = torch.where(vis[:, None, None], scores,
-                         torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bngts,bsnd->btngd", probs, vp.float())
-    o = o.reshape(B, T, nh * hd).to(x.dtype)
+    pfx = (adapters or {}).get("prefix")
+    kvs = [shard(cache["k"], "batch", "kv_seq", "kv_heads", "head_dim"),
+           shard(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim")]
+    if pfx is not None:
+        kvs += list(_prefix_slots(pfx, B, adapter_ids))
+
+    def attend(q_, kv_pos, qpos_, k_, v_, pk_=None, pv_=None):
+        return _attend(q_, *fd.with_prefix(k_, v_, kv_pos, pk_, pv_),
+                       qpos_, window)
+
+    o = _on_heads(attend, q, [], [cache["pos"], qpos], kvs)
     y = _proj(o, params["wo"], None, lora.get("o"), ls, adapter_ids)
     return y, cache
 

@@ -11,7 +11,10 @@ keeps one parameter dict per layer in a list and runs a Python loop.
 Decode caches keep the reference's layer-stacked layout: ``self``
 {'k', 'v', 'pos'} (L, B, S, ...) and ``cross`` {'k', 'v', 'pos'} (L, B,
 F, ...), the cross ``pos`` broadcast per row so that every leaf has batch
-at dim 1 (the engine's row-wise refill merges them).
+at dim 1 (the engine's row-wise refill merges them). On a mesh the
+encoder's and the decoder's activations keep their rows on the batch
+axes from the position embedding on (``shard``), as the decoder-only
+stacks' do from the token embedding.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.models.layers import layernorm, layernorm_spec, mlp, mlp_spec
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.transformer import (_layer_adapters, _stack,
                                             sublayer_adapter_spec)
+from repro_torch.sharding.rules import shard
 
 # whisper's own decoder context is 448; the reference sizes the learned
 # positions to its largest prefill shape, and the port keeps its layout
@@ -74,6 +78,7 @@ def encode(params: dict, adapters: dict, frames: torch.Tensor,
     ``remat`` re-runs each layer's forward in the backward."""
     F = frames.shape[1]
     x = frames + params["enc_pos"][:F][None].to(frames.dtype)
+    x = shard(x, "batch", "seq", "d_model")
     pos = _arange(F, frames.device)
     layers = params["enc"]
     for lp, la in zip(layers, _layer_adapters(adapters, "enc",
@@ -115,6 +120,7 @@ def decode_seq(params: dict, adapters: dict, tok_emb: torch.Tensor,
     B, S, _ = tok_emb.shape
     F = enc_out.shape[1]
     x = tok_emb + params["dec_pos"][:S][None].to(tok_emb.dtype)
+    x = shard(x, "batch", "seq", "d_model")
     pos = _arange(S, tok_emb.device)
     enc_pos = _arange(F, tok_emb.device)
     layers = params["dec"]
@@ -159,6 +165,7 @@ def decode_step(params: dict, adapters: dict, tok_emb: torch.Tensor,
     pos = pos.to(torch.int64).expand(B)
     x = tok_emb + params["dec_pos"].index_select(0, pos)[:, None] \
         .to(tok_emb.dtype)
+    x = shard(x, "batch", "seq", "d_model")
     layers = params["dec"]
     for l, (lp, la) in enumerate(zip(layers, _layer_adapters(
             adapters, "dec", len(layers)))):

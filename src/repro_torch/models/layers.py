@@ -134,7 +134,14 @@ def _unembed_mesh(x, table):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL (``logsumexp - logit[label]``); with ``mask`` the
-    masked mean over at least one token."""
+    masked mean over at least one token. Logits split by vocabulary (a
+    mesh) are gathered over it first."""
+    if dt.is_dt(logits):
+        from torch.distributed.tensor import Replicate, Shard
+        last = logits.dim() - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in logits.placements])
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll

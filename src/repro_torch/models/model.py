@@ -159,7 +159,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     n_vis = 0
     if cfg.family == "vlm" and "vision_embeds" in batch:
         vis = batch["vision_embeds"].to(device=x.device, dtype=x.dtype)
-        x = torch.cat([vis, x], dim=1)
+        x = torch.cat([dt.split_like(vis, x), x], dim=1)   # rows as x's
         n_vis = vis.shape[1]
     return x, torch.arange(x.shape[1], dtype=torch.int32,
                            device=tokens.device), n_vis
@@ -421,13 +421,19 @@ def refill(params: dict, cfg: ModelConfig, cap: int, batch: dict,
                                             prompt_lens, adapter_ids)
     src, dst = _pairs(row_idx, tok.shape[0], tok.device)
     for old, new in zip(tree_leaves(caches), tree_leaves(caches_n)):
-        if dt.is_dt(old):                 # a mesh: this rank's rows only
-            dt.write_rows(old, new, *_host_pairs(row_idx, tok.shape[0]))
-        else:
-            old[:, dst] = new[:, src].to(old.dtype)
+        _write_rows(old, new, row_idx, src, dst)
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos
+
+
+def _write_rows(old, new, row_idx, src, dst) -> None:
+    """``old[:, dst] = new[:, src]`` for a cache leaf (batch at dim 1), in
+    place; on a mesh this rank writes only the rows it holds."""
+    if dt.is_dt(old):
+        dt.write_rows(old, new, *_host_pairs(row_idx, old.shape[1]))
+    else:
+        old[:, dst] = new[:, src].to(old.dtype)
 
 
 def _pairs(row_idx, B: int, device):
@@ -463,8 +469,7 @@ def _pool_commit(pool_sub: dict, dense_k, dense_v, tables, lens) -> None:
     off = (t % bs)[None, :].expand(B, S)
     for name, dense in (("k", dense_k), ("v", dense_v)):
         paged_write(pool_sub[name], blk.reshape(-1), off.reshape(-1),
-                    dense.reshape(L, B * S, *dense.shape[3:]),
-                    keep.reshape(-1))
+                    dense, keep.reshape(-1))
 
 
 @torch.no_grad()
@@ -489,9 +494,11 @@ def paged_wave_prefill(params: dict, cfg: ModelConfig, batch: dict,
                 continue
             _pool_commit(pool[g][s], c["k"], c["v"], tables, prompt_lens)
             L = c["k"].shape[0]
+            table = tables.to(torch.int32)[None].expand(
+                L, *tables.shape).clone()
             caches[g][s] = {"k": pool[g][s]["k"], "v": pool[g][s]["v"],
-                            "table": tables.to(torch.int32)[None].expand(
-                                L, *tables.shape).clone()}
+                            # on a mesh: rows as the wave's (`batch`)
+                            "table": dt.split_like(table, c["k"], 1, 1)}
     return tok0, caches, pos0
 
 
@@ -514,10 +521,12 @@ def paged_refill(params: dict, cfg: ModelConfig, batch: dict,
             if (g, s) in subs:
                 _pool_commit(old, new["k"], new["v"], tables_rows,
                              prompt_lens)
-                old["table"][:, dst] = tables_rows.to(torch.int32)[src]
+                _write_rows(old["table"], tables_rows.to(torch.int32)[None]
+                            .expand(old["table"].shape[0], -1, -1),
+                            row_idx, src, dst)
             else:
                 for leaf, t in old.items():
-                    t[:, dst] = new[leaf][:, src].to(t.dtype)
+                    _write_rows(t, new[leaf], row_idx, src, dst)
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos
@@ -548,17 +557,18 @@ def paged_suffix(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = shard(x, "batch", "seq", "d_model")
     x, _ = stack_chunk(params["backbone"]["layers"], adapters, x, sub, cfg,
                        start=start, valid=valid, adapter_ids=adapter_ids)
-    rows = torch.arange(Br, device=x.device)
-    xl = x[rows, (suffix_lens - 1).clamp_min(0)][:, None]
+    xl = dt.on_local(x, _last_valid, suffix_lens.clamp_min(1))
     xl = rmsnorm(params["backbone"]["final_norm"], xl)
     logits = unembed(_head(params), xl)
-    tok_n = torch.argmax(logits[:, -1], dim=-1, keepdim=True) \
+    tok_n = torch.argmax(dt.whole(logits)[:, -1], dim=-1, keepdim=True) \
         .to(torch.int32)
     pos_n = (start.long() + suffix_lens).to(pos.dtype)
     src, dst = _pairs(row_idx, tok.shape[0], tok.device)
     for g, grp in caches.items():
         for s, c in grp.items():
-            c["table"][:, dst] = tables_rows.to(torch.int32)[src]
+            _write_rows(c["table"], tables_rows.to(torch.int32)[None]
+                        .expand(c["table"].shape[0], -1, -1),
+                        row_idx, src, dst)
     tok[dst] = tok_n[src]
     pos[dst] = pos_n[src]
     return tok, caches, pos

@@ -26,6 +26,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import dtensor as dt
 
 # sub-layer kinds that carry attention, and so a KV cache that can be
 # paged, snapshotted and rolled back: a moe sub-layer is attention
@@ -163,17 +164,24 @@ def _select_state0(a: dict, adapter_ids):
     if adapter_ids is None or not a or "state0" not in a:
         return a
     ids = adapter_ids.to(device=a["state0"].device, dtype=torch.long)
+    if dt.is_dt(a["state0"]):                        # a slot-sharded bank
+        ids = dt.as_replicated(ids, a["state0"].device_mesh)
     return {**a, "state0": a["state0"].index_select(0, ids)}
 
 
 def _freeze_inactive(old: dict, new: dict, active) -> None:
     """Write a recurrent sub-layer's new state into its cache views, in
-    place; retired rows (``active`` False) keep their old state."""
+    place; retired rows (``active`` False) keep their old state. On a
+    mesh each rank writes its own shard."""
     for leaf, o in old.items():
-        n = new[leaf].to(o.dtype)
-        if active is not None:
-            n = torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
-                            n, o)
+        n, act = new[leaf], active
+        if dt.is_dt(o):
+            n = dt.local_as(n, o.placements)
+            act = None if act is None else dt.rows_of(act, o)
+            o = o.to_local()
+        n = n.to(o.dtype)
+        if act is not None:
+            n = torch.where(act.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
         o.copy_(n)
 
 

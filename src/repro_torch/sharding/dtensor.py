@@ -10,7 +10,7 @@ that propagation, each through a helper here:
   ``kernels/ops.py``);
 - per-row writes into a KV cache (a decode step's slot, a refill's rows)
   are local to a `data` rank, so they index the local shard
-  (:func:`local_rows`, :func:`rows_like`);
+  (:func:`local_rows`, :func:`rows_of`);
 - greedy sampling must see the whole vocabulary (:func:`whole`).
 
 Per-row host vectors (positions, lengths, adapter ids) stay plain tensors
@@ -95,11 +95,14 @@ def on_shards(fn: Callable, args: Sequence, in_placements: Sequence,
     to its declared placements (a plain tensor counts as replicated), the
     result is a DTensor of ``out_placements``. ``grad_placements`` declares
     where an input's gradient lands (``Partial`` where the local products
-    sum to it over ranks)."""
+    sum to it over ranks). A function of several outputs takes a tuple
+    of placement lists, one per output."""
     from torch.distributed.tensor.experimental import local_map
     mesh = mesh_of(*args)
     args = [as_replicated(a, mesh) for a in args]
-    f = local_map(fn, out_placements=list(out_placements),
+    several = isinstance(out_placements[0], (list, tuple))
+    f = local_map(fn, out_placements=tuple(tuple(p) for p in out_placements)
+                  if several else list(out_placements),
                   in_placements=tuple(None if p is None else tuple(p)
                                       for p in in_placements),
                   in_grad_placements=None if grad_placements is None else
@@ -115,17 +118,84 @@ def whole(x):
     return x.full_tensor() if is_dt(x) else x
 
 
-def rows_like(v: torch.Tensor, like, dim: int = 0) -> torch.Tensor:
-    """The local part of ``v`` (a plain tensor every rank holds whole,
-    rows at ``dim``) that matches the rows of DTensor ``like`` held by
-    this rank (``like``'s dim ``dim`` split like ``v``'s)."""
+def local_as(x, placements) -> torch.Tensor:
+    """This rank's part of DTensor ``x`` laid out as ``placements``: a
+    ``redistribute`` where a mesh dim of more than one rank differs, else
+    the local tensor itself (a split over one rank holds everything, so
+    nothing is copied). A plain tensor is returned as it is."""
+    if not is_dt(x):
+        return x
+    mesh, pl = x.device_mesh, tuple(placements)
+    if any(mesh.size(i) > 1 and x.placements[i] != pl[i]
+           for i in range(mesh.ndim)):
+        x = x.redistribute(mesh, pl)
+    return x.to_local()
+
+
+def wrap(local: torch.Tensor, mesh, placements):
+    """A local tensor that is this rank's part of ``placements`` -> the
+    DTensor (no communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False)
+
+
+def rows_of(v: torch.Tensor, like, dim: int = 0) -> torch.Tensor:
+    """The rows of ``v`` (a plain tensor every rank holds whole, rows at
+    dim 0) that this rank holds of DTensor ``like``, whose rows are at
+    ``dim``: a slice, no communication (a plain ``like``: ``v``)."""
+    if not is_dt(like):
+        return v
+    loc, start = local_rows(like, dim)
+    return v[start:start + loc.shape[dim]]
+
+
+class Channels:
+    """How a recurrent mixer's channel dim (``d_inner`` or ``lru``, of
+    width ``width``) splits over the mesh's `model` dim: evenly when it
+    divides (``split``), else every `model` rank holds every channel.
+    ``lo``/``n`` name this rank's channels; :meth:`psum` sums a product
+    that contracted the split channels over the `model` ranks (the
+    identity when nothing is split)."""
+
+    def __init__(self, mesh, width: int):
+        self.mesh, self.md = mesh, model_dim(mesh)
+        m = model_size(mesh)
+        self.split = m > 1 and width % m == 0
+        self.n = width // m if self.split else width
+        self.lo = mesh.get_local_rank(self.md) * self.n if self.split else 0
+
+    def placement(self, dim: int):
+        """The `model` dim's placement of a tensor whose channel dim is
+        ``dim``."""
+        from torch.distributed.tensor import Replicate, Shard
+        return Shard(dim) if self.split else Replicate()
+
+    def weight(self, w, dim: int) -> torch.Tensor:
+        """This rank's channels of weight ``w`` (channel dim ``dim``),
+        gathered over every other mesh dim (its FSDP split)."""
+        return local_as(w, with_model(replicated(self.mesh), self.mesh,
+                                      self.placement(dim)))
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.split:
+            import torch.distributed as dist
+            dist.all_reduce(t, group=self.mesh.get_group(self.md))
+        return t
+
+
+def split_like(v: torch.Tensor, like, dim: int = 0, vdim: int = 0):
+    """A plain tensor every rank holds whole (rows at ``vdim``) -> a
+    DTensor whose rows split as DTensor ``like``'s dim ``dim`` does, every
+    other dim replicated (a slice, no communication); a plain ``like``:
+    ``v``."""
     from torch.distributed.tensor import Replicate, Shard
     if not is_dt(like):
         return v
     mesh = like.device_mesh
-    pl = [Shard(dim) if isinstance(p, Shard) and p.dim == dim
+    pl = [Shard(vdim) if isinstance(p, Shard) and p.dim == dim
           else Replicate() for p in like.placements]
-    return as_replicated(v, mesh).redistribute(mesh, pl).to_local()
+    return as_replicated(v, mesh).redistribute(mesh, pl)
 
 
 def local_rows(x, dim: int = 0):
@@ -156,7 +226,7 @@ def on_local(x, fn: Callable, *vecs):
     if not is_dt(x):
         return fn(x, *vecs)
     from torch.distributed.tensor import DTensor
-    out = fn(x.to_local(), *(rows_like(v, x) for v in vecs))
+    out = fn(x.to_local(), *(rows_of(v, x) for v in vecs))
     return DTensor.from_local(out, x.device_mesh, x.placements,
                               run_check=False)
 

@@ -156,7 +156,9 @@ def use_rules(mesh, rules: Optional[dict] = None):
     prev = _get()
     _ctx.mesh, _ctx.rules = mesh, (rules or DEFAULT_RULES)
     try:
-        if mesh is None:
+        # nested under another mesh's rules: already replicating (and
+        # ``implicit_replication`` turns the mode off on exit, not back)
+        if mesh is None or prev[0] is not None:
             yield
         else:
             from torch.distributed.tensor.experimental import \
@@ -318,12 +320,17 @@ def shard(x, *axes: Optional[str]):
     """Constrain ``x``'s layout by logical names (the reference's
     ``with_sharding_constraint``): the identity without an active mesh or
     on a plain tensor; on a DTensor, ``x.redistribute`` to the placements
-    of ``fit_spec(_resolve(axes))`` (an even split only)."""
+    of ``fit_spec(_resolve(axes))`` (an even split only). A dim of size
+    one stays whole: its split over one rank changes nothing, and DTensor
+    refuses to reshape a split dim of size one away (a refill of one row
+    on a one-rank `data` axis)."""
     mesh, rules = _get()
     if mesh is None or not is_dt(x):
         return x
-    want = placements(fit_spec(_resolve(axes, rules, mesh), x.shape, mesh),
-                      mesh)
+    spec = fit_spec(_resolve(axes, rules, mesh), x.shape, mesh)
+    spec = P(*(None if i < x.dim() and x.shape[i] == 1 else e
+               for i, e in enumerate(spec)))
+    want = placements(spec, mesh)
     if list(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)

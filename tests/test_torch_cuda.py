@@ -2263,3 +2263,124 @@ def test_mesh_drain_on_the_card(gen):
         and n_got["flash_decode"] > 0
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The paged decode and the two scans through their mesh wrappers
+# ---------------------------------------------------------------------------
+
+def _on_mesh(mesh, t, pl):
+    """A whole tensor as the DTensor of placements ``pl`` on a one-rank
+    mesh (the local tensor is the whole one), a leaf of its own."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, pl, run_check=False)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_through_its_mesh_wrapper(gen, per_row, dtype):
+    """``ops.flash_decode_paged`` on DTensors of a 1-rank NCCL mesh (q's
+    rows on `data` and heads on `model`, the pool's blocks on `data` and
+    kv heads on `model`) launches the paged kernel once on the local
+    shards and equals the plain version on the whole tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
+    q, kp, vp, table, qp, pk, pv = _paged_operands(
+        gen, 4, 4, 16, 4, 8, 2, 64, dtype, per_row)
+    want = fd.flash_decode_paged_torch(q, kp, vp, table, q_pos=qp,
+                                       prefix_k=pk, prefix_v=pv)
+    with single_process_mesh() as mesh:
+        pool = (Shard(0), Shard(2))
+        args = [_on_mesh(mesh, q, (Shard(0), Shard(1))),
+                _on_mesh(mesh, kp, pool), _on_mesh(mesh, vp, pool)]
+        pre = (Shard(0), Shard(2)) if per_row else (Replicate(), Shard(1))
+        n0 = fd.paged_launches
+        got = ops.flash_decode_paged(
+            *args, table, q_pos=qp,
+            prefix_k=_on_mesh(mesh, pk, pre), prefix_v=_on_mesh(mesh, pv,
+                                                                pre))
+        assert fd.paged_launches == n0 + 1
+        close(got.full_tensor(), want, dtype)
+
+
+def _grads_of(fn, args):
+    """fn(*args) -> outputs; the gradients of every floating input under
+    one random cotangent per output (local tensors of a DTensor result)."""
+    leaves = [a.detach().clone().requires_grad_(True)
+              if a is not None and a.is_floating_point() else a
+              for a in args]
+    outs = fn(leaves)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                         device="cuda")).sum()
+               for o in outs)
+    loss.backward()
+    return outs, [None if a is None else a.grad for a in leaves]
+
+
+@pytest.mark.parametrize("split", ["channels", "rows"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_selective_scan_through_its_mesh_wrapper(gen, split, dtype):
+    """``ops.selective_scan`` on DTensors of a 1-rank NCCL mesh, with the
+    channels on `model` (serving) or the rows on `model` (a recurrent
+    family's training round): one forward and one backward launch, the
+    outputs and every input's gradient equal to the plain version's on
+    the whole tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
+    x, dt_, A, Bm, C, D, h0 = _scan_operands(gen, 2, 40, 64, 16, dtype,
+                                             "row")
+    Bm, C = Bm.contiguous(), C.contiguous()
+    plain = [x, dt_, A, Bm, C, D, h0]
+    want, wgrads = _grads_of(
+        lambda a: ss.selective_scan(*a, backend="torch"), plain)
+    R, S = Replicate(), Shard
+    if split == "channels":
+        pls = [(S(0), S(2)), (S(0), S(2)), (R, S(0)), (S(0), R), (S(0), R),
+               (R, S(0)), (S(0), S(1))]
+    else:
+        pls = [(R, S(0)), (R, S(0)), (R, R), (R, S(0)), (R, S(0)), (R, R),
+               (R, S(0))]
+    with single_process_mesh() as mesh:
+        n0, b0 = ss.launches, ss.bwd_launches
+
+        def on_mesh(a):
+            ys = ops.selective_scan(*[_on_mesh(mesh, t, p)
+                                      for t, p in zip(a, pls)])
+            return [y.to_local() for y in ys]
+        got, grads = _grads_of(on_mesh, plain)
+        assert ss.launches - n0 == 1 and ss.bwd_launches - b0 == 1
+    close(got[0], want[0], dtype)
+    close(got[1], want[1], torch.float32 if dtype == torch.float32
+          else torch.bfloat16)
+    close_grads(grads, wgrads, dtype, SCAN_GRADS)
+
+
+@pytest.mark.parametrize("split", ["channels", "rows"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_through_its_mesh_wrapper(gen, split, dtype):
+    """``ops.rglru`` on DTensors of a 1-rank NCCL mesh, channels (``lru``)
+    or rows on `model`: one forward and one backward launch, the outputs
+    and the gradients equal to the plain version's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import single_process_mesh
+    plain = list(_lru_operands(gen, 2, 40, 64, dtype, "row"))
+    want, wgrads = _grads_of(lambda a: rg.rglru(*a, backend="torch"), plain)
+    R, S = Replicate(), Shard
+    if split == "channels":
+        pls = [(S(0), S(2))] * 3 + [(R, S(0)), (S(0), S(1))]
+    else:
+        pls = [(R, S(0))] * 3 + [(R, R), (R, S(0))]
+    with single_process_mesh() as mesh:
+        n0, b0 = rg.launches, rg.bwd_launches
+
+        def on_mesh(a):
+            ys = ops.rglru(*[_on_mesh(mesh, t, p) for t, p in zip(a, pls)])
+            return [y.to_local() for y in ys]
+        got, grads = _grads_of(on_mesh, plain)
+        assert rg.launches - n0 == 1 and rg.bwd_launches - b0 == 1
+    close(got[0], want[0], dtype)
+    close_grads(grads, wgrads, dtype, ("dx", "dr", "di", "da", "dh0"))

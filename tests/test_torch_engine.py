@@ -120,15 +120,34 @@ def test_engine_without_cuda_raises(monkeypatch):
         DecodeEngine(get_config("qwen2-7b").reduced(), slots=2)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object(), spec=object()),
-                                dict(mesh=object(),
-                                     paged=PagedSpec(8, 4))])
-def test_unported_engine_modes_raise(kw):
-    """A mesh engine is ported; paged and speculative serving on a mesh
-    are not yet."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP: later, multi-GPU sharding"):
-        DecodeEngine(get_config("qwen2-7b").reduced(), device="cpu", **kw)
+@pytest.mark.parametrize("mode", ["spec", "paged"])
+def test_unported_engine_modes_raise(mode):
+    """Paged and speculative serving on a mesh are ported: on a 1x1 gloo
+    mesh the engine takes both, places the drafter (replicated DTensors)
+    or the pool (DTensors), and drains the mesh-less tokens (the 2x2 mesh
+    is ``tests/test_torch_mesh_serve.py``'s)."""
+    from repro_torch.core.spec_decode import SpecDecoder
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models.params import tree_leaves
+    cfg = get_config("qwen2-7b").reduced().with_(dtype="float32")
+    params = M.init(cfg, 0, device="cpu")
+
+    def drain(mesh, p):
+        kw = {"spec": SpecDecoder.init(cfg, 1, device="cpu", k=2)} \
+            if mode == "spec" else {"paged": PagedSpec(16, 8)}
+        eng = DecodeEngine(cfg, slots=2, mesh=mesh, device="cpu", **kw)
+        uids = [eng.submit(np.arange(1, n + 1), 3) for n in (5, 9, 4)]
+        comps, _ = eng.run(p)
+        by = {c.uid: c.tokens.tolist() for c in comps}
+        return [by[u] for u in uids], eng
+
+    want, _ = drain(None, params)
+    with single_process_mesh("cpu") as mesh:
+        got, eng = drain(mesh, M.place_params(params, cfg, mesh))
+        placed = tree_leaves(eng.spec.params) if mode == "spec" else \
+            tree_leaves(eng._pool)
+        assert placed and all(hasattr(x, "placements") for x in placed)
+    assert got == want
 
 
 @pytest.mark.parametrize("make", ["init", "create"])

@@ -508,17 +508,17 @@ def test_cpu_round_launches_no_kernel_and_counts_telemetry(banks):
 
 
 def test_unported_round_options_raise():
-    """The mesh round is ported for the dense family: it needs the state
-    spec (as the reference's), and the other families on a mesh are later
-    work; ``rules`` and ``state_spec`` alone change nothing."""
+    """The mesh round is ported for every family: it needs the state spec
+    (as the reference's), a recurrent family's round is made like the
+    dense one's (its rounds are ``tests/test_torch_mesh_train.py``'s), and
+    ``rules`` and ``state_spec`` alone change nothing."""
     with pytest.raises(ValueError, match="requires state_spec"):
         hfsl.make_hfsl_round(TCFG, topt.sgd(0.1), M.classify_loss, steps=1,
                              mesh=object())
     ssm = get_config("falcon-mamba-7b").reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ssm family.*multi-GPU sharding"):
-        hfsl.make_hfsl_round(ssm, topt.sgd(0.1), M.classify_loss, steps=1,
-                             mesh=object(), state_spec={})
+    assert callable(hfsl.make_hfsl_round(ssm, topt.sgd(0.1), M.lm_loss,
+                                         steps=1, mesh=object(),
+                                         state_spec={}))
     for kw in ({"rules": {}}, {"state_spec": {}}):
         assert callable(hfsl.make_hfsl_round(TCFG, topt.sgd(0.1),
                                              M.classify_loss, steps=1, **kw))

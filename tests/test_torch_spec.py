@@ -309,9 +309,19 @@ def test_engine_spec_refusals():
         from repro_torch.core.paged import PagedSpec
         DecodeEngine(tcfg, slots=2, spec=tspec, paged=PagedSpec(8, 4),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.place(object())
     assert tspec.place(None) is tspec
+    # on a mesh the drafter is replicated (drafter_rules), values as they
+    # were
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models.params import tree_leaves
+    with single_process_mesh("cpu") as mesh:
+        placed = tspec.place(mesh)
+        for got, want in zip(tree_leaves(placed.params),
+                             tree_leaves(tspec.params)):
+            assert tuple(got.placements) == (Replicate(), Replicate())
+            assert torch.equal(got.full_tensor(), want)
 
 
 def test_validate_target_guards():

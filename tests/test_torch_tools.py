@@ -233,6 +233,21 @@ PERF_ROWS = [
      "0.0361", "operations"),
     ("11", "rglru_scan_bwd", dict(B=4, S=256, W=2560, h0="shared"),
      "0.0110", "bytes"),
+    # one 2x2 rank's shapes (phase 53; 4c's keys from run 2's draw)
+    ("4c", "flash_decode_paged", dict(B=4, Hq=14, Hkv=2, D=128, maxb=64,
+                                      keys=2499), "0.00077", "bytes"),
+    ("8d", "selective_scan", dict(B=4, S=512, Di=4096, N=16, h0=True),
+     "0.0321", "operations"),
+    ("8e", "selective_scan", dict(B=2, S=256, Di=8192, N=16, h0=True),
+     "0.0160", "operations"),
+    ("9e", "rglru_scan", dict(B=4, S=512, W=1280, h0=True), "0.0063",
+     "bytes"),
+    ("9f", "rglru_scan", dict(B=2, S=256, W=2560, h0=True), "0.0031",
+     "bytes"),
+    ("10b", "selective_scan_bwd", dict(B=2, S=256, Di=8192, N=16, h0=True),
+     "0.0180", "operations"),
+    ("11b", "rglru_scan_bwd", dict(B=2, S=256, W=2560, h0="row"), "0.0055",
+     "bytes"),
 ]
 
 
