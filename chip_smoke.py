@@ -356,16 +356,38 @@ Phases, each of which exits nonzero on a failed check:
    whole; ``selective_scan`` at Di 4096 (channels on `model`) and at B 2
    x S 256 x Di 8192 (rows on `model`, a round's) with its backward;
    ``rglru_scan`` at W 1280 and at B 2 x S 256 x W 2560 with its
-   backward.
+   backward;
+54. long decode: qwen2-7b at its published size with ``long_500k``'s
+   sliding-window variant (window 4096) decodes a batch of 1 under
+   ``long_decode_rules`` on the 1x1 NCCL mesh (the cache's slot dim on
+   `data`, each layer's ``flash_decode`` in its partial mode and the
+   ranks' partials merged): a 4,064-token prompt and 64 greedy steps that
+   wrap the ring, the mesh-less tokens and logits bit for bit, equal
+   launches; and ``flash_decode`` with its ``lse`` output at one of two
+   `data` shards of a decode_32k-shaped cache (B 1, 16,384 of 32,768 keys
+   + 16 prefix, 28 / 4 heads, D 128): each half against its plain
+   version (output and lse), the two halves merged by
+   ``flash_decode.combine`` against one whole call, each half and the
+   merge timed (row 3h of the kernel table, in ``flash_decode``'s
+   ``cases``);
+55. moe serving: granite-moe-1b-a400m at its published size (32 experts,
+   top 8) prefills 8 x 512 tokens under ``moe_serving_rules`` on the 1x1
+   mesh (experts on `data`, their d_model on `model`): the mesh-less
+   logits bit for bit and equal launches;
+56. the SL chain's `stage` axis: vit-edge's 12-layer f32 chain with
+   ``mesh=`` a 1-stage NCCL `stage` mesh, its logits and one
+   ``make_sl_finetune_step(mesh=)`` sgd step bit for bit those of the
+   mesh-less chain of phases 30-31, each timed beside it.
 
-Each kernel's ``launches`` adds phases 29-39's and 45-46's and 49-52's
-runs to its own path's (``launches_by_path``: ``relay``, ``sl``,
+Each kernel's ``launches`` adds phases 29-39's, 45-46's, 49-52's and
+54-56's runs to its own path's (``launches_by_path``: ``relay``, ``sl``,
 ``sl_train``, ``cli``, ``moe``, ``vlm``, ``audio``, ``mesh``,
 ``mesh_train``, ``mesh_paged``, ``mesh_spec``, ``mesh_moe``,
-``mesh_ssm``, ``mesh_hybrid``, ``mesh_vlm``, ``mesh_audio``).
+``mesh_ssm``, ``mesh_hybrid``, ``mesh_vlm``, ``mesh_audio``,
+``mesh_long_decode``, ``mesh_moe_serve``, ``mesh_sl``).
 Every full-size drain and round (phases 4,
-5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38, 45, 46, 49-52) and
-phases 29-32
+5, 9, 10, 13, 15, 17, 23, 26, 27, 33, 35, 37, 38, 45, 46, 49-52, 54-56)
+and phases 29-32
 must leave ``lora_matmul.pad_copies``, ``flash_attention.pad_copies``
 and ``flash_decode.pad_copies`` at 0: no LoRA, attention or decode
 operand of a model is padded for TMA.
@@ -5227,7 +5249,8 @@ def tools_phases(seed: int, gen: torch.Generator, timer: Timer,
 
 # the paths whose launches a kernel's record also reports
 MESH_PATHS = ("mesh", "mesh_train", "mesh_paged", "mesh_spec", "mesh_moe",
-              "mesh_ssm", "mesh_hybrid", "mesh_vlm", "mesh_audio")
+              "mesh_ssm", "mesh_hybrid", "mesh_vlm", "mesh_audio",
+              "mesh_long_decode", "mesh_moe_serve", "mesh_sl")
 
 
 def mesh_drain(cfg, backbone: dict, bank, reqs: list, doms: list) -> dict:
@@ -5484,7 +5507,8 @@ def mesh_kernel_cases(gen: torch.Generator, timer: Timer,
 def multipod_phase() -> dict:
     """Phase 48: the dry-run with ``--multi-pod`` for qwen2-7b on
     ``meta``: one card is one of the 2 x 16 x 16 mesh's 32 data rows, so
-    each shape's batch is its global batch / 32 (long_500k keeps 1)."""
+    each shape's batch is its global batch / 32 (long_500k keeps 1 and,
+    under ``long_decode_rules``, 1/32 of its cache's slots)."""
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
@@ -5492,9 +5516,12 @@ def multipod_phase() -> dict:
                            multi_pod=True)
     for r, (name, shape) in zip(results, INPUT_SHAPES.items()):
         check(r["status"] == "ok", f"phase 48: {name}: {r}")
+        split = shape.kind == "decode" and shape.global_batch == 1
+        mesh = "1 (one data row of the 2x16x16 mesh" + (
+            "; long_decode_rules: the KV cache's kv_seq split over the 32 "
+            "data rows, 1/32 of its slots a card)" if split else ")")
         check(r["batch"] == max(1, shape.global_batch // 32)
-              and r["data_rows"] == 32
-              and r["mesh"] == "1 (one data row of the 2x16x16 mesh)",
+              and r["data_rows"] == 32 and r["mesh"] == mesh,
               f"phase 48: {name}: batch {r['batch']}, {r['mesh']}")
         log(f"phase 48: {dryrun.summary(r)}")
     return {"pairs": [{k: r[k] for k in ("shape", "batch", "global_batch",
@@ -5897,6 +5924,348 @@ def mesh_phases(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 54 to 56: long decode, moe serving and the SL chain on a mesh
+# ---------------------------------------------------------------------------
+
+LONG_PROMPT, LONG_STEPS = 4064, 64
+
+
+def shard_decode_case(gen: torch.Generator, timer: Timer,
+                      cases: dict) -> None:
+    """Phase 54's kernel case (row 3h): ``flash_decode``'s partial mode
+    at one of two `data` shards of a decode_32k-shaped cache at its last
+    position (B 1, every key visible; the first half holds the 16 prefix
+    slots, as the rank at `data` coordinate 0 reads the bank): each half
+    (output and lse) against its plain version; the halves merged by
+    ``flash_decode.combine`` against one whole call; each half and the
+    merge timed, the first half's bound, plain and SDPA times (into
+    ``cases``)."""
+    from repro_torch.kernels import flash_decode as fd
+    randn = randn_of(gen)
+    T, n_p, Hq, Hkv, D, dtype = 32768, 16, 28, 4, 128, torch.bfloat16
+    h = T // 2
+    q = randn(1, Hq, D, dtype=dtype, s=SHARP)
+    kc = randn(1, T, Hkv, D, dtype=dtype, s=SHARP)
+    vc = randn(1, T, Hkv, D, dtype=dtype)
+    pk = randn(n_p, Hkv, D, dtype=dtype, s=SHARP)
+    pv = randn(n_p, Hkv, D, dtype=dtype)
+    qp = torch.full((1,), T - 1, dtype=torch.int32, device="cuda")
+    kpc = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    halves = [dict(k=kc[:, :h].contiguous(), v=vc[:, :h].contiguous(),
+                   kv_pos=kpc[:, :h].contiguous(), prefix_k=pk,
+                   prefix_v=pv),
+              dict(k=kc[:, h:].contiguous(), v=vc[:, h:].contiguous(),
+                   kv_pos=kpc[:, h:].contiguous())]
+    parts, errs, lse_errs, ms = [], [], [], []
+    for i, hv in enumerate(halves):
+        def call(backend, hv=hv):
+            kw = {k: v for k, v in hv.items() if k not in ("k", "v")}
+            return fd.flash_decode(q, hv["k"], hv["v"], q_pos=qp,
+                                   backend=backend, return_lse=True, **kw)
+        got, want = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        errs.append(compare(f"flash_decode half {i} lse mode", got[0],
+                            want[0], dtype))
+        lse_errs.append((got[1] - want[1]).abs().max().item())
+        check(lse_errs[-1] <= TOL[dtype], f"flash_decode half {i}: lse "
+              f"max_abs_err {lse_errs[-1]} > {TOL[dtype]}")
+        parts.append(got)
+        ms.append(timer(lambda call=call: call("cuda")))
+    whole = fd.flash_decode(q, kc, vc, q_pos=qp, kv_pos=kpc, prefix_k=pk,
+                            prefix_v=pv, backend="cuda")
+    merge = [[p[0] for p in parts], [p[1] for p in parts]]
+    merged, _ = fd.combine(*merge)
+    torch.cuda.synchronize()
+    merge_err = compare("flash_decode two halves merged vs whole", merged,
+                        whole, dtype)
+    first = halves[0]
+    _, plain_ms = once_ms(lambda: fd.flash_decode(
+        q, first["k"], first["v"], q_pos=qp, kv_pos=first["kv_pos"],
+        prefix_k=pk, prefix_v=pv, backend="torch", return_lse=True))
+    bms, by = kernel_costs("flash_decode", dtype, B=1, Hq=Hq, Hkv=Hkv, D=D,
+                           Tc=h, keys=h, n_p=n_p, n_read=1,
+                           lse=True).bound()
+    # the merge reads both halves' outputs and lse, writes one output
+    cms, cby = bound(2 * (2 * Hq * D + 4 * Hq) + 2 * Hq * D,
+                     2 * 3 * Hq * D, torch.float32)
+    kt = torch.cat([pk[None], first["k"]], 1).transpose(1, 2)
+    vt = torch.cat([pv[None], first["v"]], 1).transpose(1, 2)
+    qt = q[:, :, None]
+    cases["flash_decode"].append(dict(
+        shape=f"one of 2 `data` shards: B=1 T={h} of {T}+{n_p} prefix "
+              f"Hq={Hq} Hkv={Hkv} D={D}, every key visible, q and k at "
+              f"scale {SHARP}, return_lse bfloat16 (decode_32k's cache "
+              "split over `data`)",
+        **decode_plan(dtype, D, n_p + h, 1, Hkv), max_abs_err=max(errs),
+        tol=TOL[dtype], lse_max_abs_err=max(lse_errs),
+        merged_vs_whole_err=merge_err, visible_keys=h + n_p,
+        ms=ms[0], second_half_ms=ms[1],
+        combine_ms=timer(lambda: fd.combine(*merge)),
+        combine_bound_ms=cms, combine_bound_by=cby, plain_ms=plain_ms,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)),
+        library="SDPA on the half, the prefix slots in front",
+        bound_ms=bms, bound_by=by))
+    log(f"kernel flash_decode {cases['flash_decode'][-1]}")
+    del q, kc, vc, halves, parts, whole, merged, kt, vt
+    torch.cuda.empty_cache()
+
+
+def long_decode_phase(seed: int) -> dict:
+    """Phase 54: qwen2-7b's long_500k variant (window 4096) decodes a
+    batch of 1, without a mesh and under ``long_decode_rules`` on the 1x1
+    NCCL mesh: prefill of ``LONG_PROMPT`` tokens, the caches laid out by
+    ``place_caches``, ``LONG_STEPS`` greedy ``decode_step``s (the ring
+    wraps); tokens and every step's logits bit for bit, equal launches,
+    no plain version."""
+    import contextlib
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import dtensor as dtn
+    from repro_torch.sharding import rules as R
+
+    t0 = time.perf_counter()
+    cfg = dryrun.variant_for(get_config("qwen2-7b"), "long_500k")
+    check((cfg.n_layers, cfg.d_model, cfg.attn_variant, cfg.sliding_window)
+          == (28, 3584, "sliding", 4096),
+          "phase 54: qwen2-7b long_500k is not at its published size")
+    params = {"backbone": M.init(cfg, seed, device="cuda")["backbone"],
+              "adapters": domain_adapters(cfg, seed + 54)["domain0"]}
+    rng = np.random.default_rng(seed + 54)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, LONG_PROMPT)), device="cuda")
+    T = cfg.sliding_window
+
+    def run(mesh):
+        p = params if mesh is None else M.place_params(
+            params, cfg, mesh, R.long_decode_rules())
+        rules = contextlib.nullcontext() if mesh is None else \
+            R.use_rules(mesh, R.long_decode_rules())
+        with rules, torch.no_grad(), plain_calls(serving=True) as plain:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t_a = time.perf_counter()
+            logits, caches = M.prefill(p, {"tokens": toks}, cfg, max_len=T)
+            if mesh is not None:
+                caches = M.place_caches(caches, cfg, 1, T)
+            tok = dtn.whole(logits)[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            steps, got = [], [tok]
+            for i in range(LONG_STEPS):
+                logits, caches = M.decode_step(
+                    p, tok, caches, torch.tensor([LONG_PROMPT + i],
+                                                 device="cuda"), cfg)
+                lg = dtn.whole(logits)[:, -1]
+                steps.append(lg)
+                tok = lg.argmax(-1, keepdim=True)
+                got.append(tok)
+            torch.cuda.synchronize()
+            t_c = time.perf_counter()
+            launches = ops.launch_counts()
+        check(all(v == 0 for v in plain.values()),
+              f"phase 54: a plain version ran: {plain}")
+        k = caches["g0"]["s0"]["k"]
+        where = repr(tuple(k.placements)) if dtn.is_dt(k) else "whole"
+        local = (k.to_local() if dtn.is_dt(k) else k).shape[2]
+        del caches, p
+        return (torch.stack(steps), torch.cat(got, 1), launches,
+                (t_b - t_a, (t_c - t_b) / LONG_STEPS), where, local)
+
+    with torch.no_grad():          # warm: the timed runs start alike
+        _, c = M.prefill(params, {"tokens": toks[:, :64]}, cfg, max_len=T)
+        M.decode_step(params, toks[:, :1], c, 64, cfg)
+        del c
+    u_lg, u_tok, u_n, u_t, _, _ = run(None)
+    with single_process_mesh() as mesh:
+        m_lg, m_tok, m_n, m_t, where, local = run(mesh)
+    torch.cuda.empty_cache()
+    bits = torch.equal(m_lg, u_lg)
+    check(torch.equal(m_tok, u_tok) and bits,
+          f"phase 54: the mesh's tokens / logits differ from the mesh-less "
+          f"ones: tokens equal {torch.equal(m_tok, u_tok)}, logits max "
+          f"diff {(m_lg - u_lg).abs().max().item()}")
+    check(m_n == u_n and m_n["flash_decode"] == cfg.n_layers * LONG_STEPS,
+          f"phase 54: launches {m_n}, without a mesh {u_n}")
+    check(where == "(Shard(dim=2), Shard(dim=3))" and local == T,
+          f"phase 54: the cache is {where}, {local} local slots")
+    check(len(set(u_tok[0].tolist())) > 1 and bool(
+        torch.isfinite(u_lg).all()), "phase 54: degenerate decode")
+    no_pad_copies("phase 54")
+    rec = dict(config=f"qwen2-7b long_500k variant, {cfg.n_layers} layers, "
+                      f"window {T}, bf16", mesh="1x1 (data, model), nccl",
+               rules="long_decode_rules", prompt=LONG_PROMPT,
+               steps=LONG_STEPS, cache=where, local_slots=local,
+               bit_equal=bits, launches=m_n,
+               prefill_s=m_t[0], meshless_prefill_s=u_t[0],
+               step_s=m_t[1], meshless_step_s=u_t[1],
+               tokens=u_tok[0, :8].tolist(),
+               phase_s=time.perf_counter() - t0)
+    log(f"phase 54: long decode on the 1x1 mesh, the cache {where}: "
+        f"{LONG_PROMPT}-token prompt, {LONG_STEPS} steps (positions "
+        f"{LONG_PROMPT}-{LONG_PROMPT + LONG_STEPS - 1}, window {T}); tokens "
+        f"and logits bit for bit {bits}; a step {m_t[1] * 1e3:.2f} ms beside "
+        f"{u_t[1] * 1e3:.2f} ms without the mesh, prefill {m_t[0]:.3f} s / "
+        f"{u_t[0]:.3f} s; launches equal "
+        f"{ {k: v for k, v in m_n.items() if v} }; {rec['phase_s']:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_serve_phase(seed: int) -> dict:
+    """Phase 55: granite-moe-1b-a400m at its published size prefills 8 x
+    512 tokens without a mesh and under ``moe_serving_rules`` on the 1x1
+    NCCL mesh (experts on `data`, their d_model on `model`): logits bit
+    for bit, equal launches, no plain version."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import dtensor as dtn
+    from repro_torch.sharding import rules as R
+
+    t0 = time.perf_counter()
+    cfg = granite_config()
+    params = M.init(cfg, seed, device="cuda")
+    rng = np.random.default_rng(seed + 55)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 512)),
+                           device="cuda")
+
+    def run(mesh):
+        p = params if mesh is None else M.place_params(
+            params, cfg, mesh, R.moe_serving_rules())
+        rules = contextlib.nullcontext() if mesh is None else \
+            R.use_rules(mesh, R.moe_serving_rules())
+        with rules, torch.no_grad(), plain_calls(serving=True) as plain:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t_a = time.perf_counter()
+            logits = dtn.whole(M.prefill(p, {"tokens": toks}, cfg)[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_a
+            launches = ops.launch_counts()
+        check(all(v == 0 for v in plain.values()),
+              f"phase 55: a plain version ran: {plain}")
+        gate = p["backbone"]["layers"]["g0"][0]["s0"]["moe"]["gate"]
+        where = repr(tuple(gate.placements)) if dtn.is_dt(gate) else "whole"
+        return logits, launches, wall, where
+
+    u_lg, u_n, u_wall, _ = run(None)
+    with single_process_mesh() as mesh:
+        m_lg, m_n, m_wall, where = run(mesh)
+    torch.cuda.empty_cache()
+    bits = torch.equal(m_lg, u_lg)
+    check(bits, f"phase 55: logits max diff "
+                f"{(m_lg - u_lg).abs().max().item()}")
+    check(m_n == u_n and m_n["flash_attention"] == cfg.n_layers,
+          f"phase 55: launches {m_n}, without a mesh {u_n}")
+    check(where == "(Shard(dim=0), Shard(dim=1))",
+          f"phase 55: the expert weights are {where}")
+    no_pad_copies("phase 55")
+    rec = dict(config="granite-moe-1b-a400m, 24 layers, 32 experts top 8, "
+                      "bf16", mesh="1x1 (data, model), nccl",
+               rules="moe_serving_rules", batch=8, seq=512, experts=where,
+               bit_equal=bits, launches=m_n, prefill_s=m_wall,
+               meshless_prefill_s=u_wall, phase_s=time.perf_counter() - t0)
+    log(f"phase 55: moe serving prefill (8 x 512) on the 1x1 mesh, experts "
+        f"{where}: logits bit for bit {bits}; {m_wall:.3f} s beside "
+        f"{u_wall:.3f} s without; launches equal "
+        f"{ {k: v for k, v in m_n.items() if v} }")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sl_mesh_phase(seed: int) -> dict:
+    """Phase 56: vit-edge's 12-layer f32 chain (B 16 x S 197, ``N_MICRO``
+    microbatches) with ``mesh=`` a 1-stage NCCL `stage` mesh against the
+    mesh-less chain of phases 30-31 (``N_STAGES`` stages): logits and one
+    sgd ``make_sl_finetune_step`` bit for bit, equal launches, each
+    timed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import sl_pipeline as sl
+    from repro_torch.launch.mesh import single_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import sgd
+
+    t0 = time.perf_counter()
+    vit = get_config("vit-edge").with_(dtype="float32")
+    vp = {"backbone": M.init(vit, seed, device="cuda")["backbone"],
+          "adapters": domain_adapters(vit, seed + 6)["domain0"]}
+    rng = np.random.default_rng(seed + 56)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, vit.vocab_size,
+                                                    (16, 197)),
+                                       device="cuda"),
+             "label": torch.as_tensor(rng.integers(0, 5, (16,)),
+                                      device="cuda")}
+    opt = sgd(0.1)
+    head = vp["adapters"]["head"]
+
+    def run(mesh, n_stages):
+        st = sl.split_for_stages(vp, vit, n_stages)
+        step = sl.make_sl_finetune_step(vp, vit, opt, n_microbatches=N_MICRO,
+                                        mesh=mesh)
+        state = opt.init({"a": st["adapters"], "h": head})
+        times, n = {}, {}
+        with plain_calls() as plain:
+            with torch.no_grad():
+                logits, n["chain"] = counted({}, lambda: host_ms(
+                    times, "chain", lambda: sl.pipeline_classify(
+                        vp, st, batch["tokens"], vit, n_microbatches=N_MICRO,
+                        mesh=mesh)))
+            (new, nh, _, loss), n["step"] = counted({}, lambda: host_ms(
+                times, "step", lambda: step(st, head, state, batch)))
+        check(all(v == 0 for v in plain.values()),
+              f"phase 56: a plain version ran: {plain}")
+        return [logits, loss] + _leaves([new["adapters"], nh]), n, times
+
+    u_out, u_n, u_t = run(None, N_STAGES)
+    with single_process_mesh(stage=True) as mesh:
+        m_out, m_n, m_t = run(mesh, 1)
+    torch.cuda.empty_cache()
+    bits = len(u_out) == len(m_out) and all(
+        torch.equal(a, b) for a, b in zip(u_out, m_out))
+    check(bits, "phase 56: the stage mesh's logits / step differ from the "
+                "mesh-less chain's")
+    check(m_n == u_n, f"phase 56: launches {m_n}, without a mesh {u_n}")
+    total = {}
+    for v in m_n.values():
+        _add(total, v)
+    no_pad_copies("phase 56")
+    rec = dict(config="vit-edge 12 layers f32, B 16 S 197",
+               mesh="1-stage (stage,), nccl", microbatches=N_MICRO,
+               meshless_stages=N_STAGES, bit_equal=bits, launches=total,
+               chain_ms=m_t["chain"][0], meshless_chain_ms=u_t["chain"][0],
+               step_ms=m_t["step"][0], meshless_step_ms=u_t["step"][0],
+               loss=float(m_out[1]), phase_s=time.perf_counter() - t0)
+    log(f"phase 56: the SL chain on a 1-stage mesh: logits and an sgd step "
+        f"bit for bit {bits}; chain {m_t['chain'][0]:.2f} ms beside "
+        f"{u_t['chain'][0]:.2f} ms without the mesh, step "
+        f"{m_t['step'][0]:.2f} / {u_t['step'][0]:.2f} ms (host, "
+        f"synchronised); launches equal "
+        f"{ {k: v for k, v in total.items() if v} }")
+    del vp
+    return rec
+
+
+def last_mesh_phases(seed: int) -> dict:
+    """Phases 54 to 56, each path's launches in its record."""
+    t0 = time.perf_counter()
+    out = {"mesh_long_decode": long_decode_phase(seed),
+           "mesh_moe_serve": moe_serve_phase(seed),
+           "mesh_sl": sl_mesh_phase(seed)}
+    out["last_mesh_s"] = time.perf_counter() - t0
+    log(f"phases 54-56: {out['last_mesh_s']:.1f}s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5966,6 +6335,7 @@ def main(argv=None) -> int:
     family_kernel_cases(timer, cases, args.seed)
     mesh_kernel_cases(gen, timer, cases)
     mesh_scan_cases(gen, timer, cases)
+    shard_decode_case(gen, timer, cases)
     rec["main"], rec["bank"], rec["paged"], rec["spec"], rec["mesh"] = \
         main_path(args.seed)
     log(f"multi-tenancy: bank drain {rec['bank']['tok_per_s']:.2f} tok/s "
@@ -5991,6 +6361,7 @@ def main(argv=None) -> int:
     rec["tools"] = tools_phases(args.seed, gen, timer, cases)
     rec["multipod"] = multipod_phase()
     rec.update(mesh_phases(args.seed))
+    rec.update(last_mesh_phases(args.seed))
 
     kernels = []
     for name, cs in cases.items():

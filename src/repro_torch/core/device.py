@@ -20,14 +20,3 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "port's plain PyTorch path on the CPU")
     return dev
 
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error every not-yet-ported feature raises, naming the ROADMAP
-    item that will port it: "later, multi-GPU sharding" (``ROADMAP.md``
-    1-E2's last items), the SL chain's `stage` axis (``sl_pipeline`` with
-    ``mesh=``); ``long_decode_rules`` and ``moe_serving_rules``, which the
-    reference reads only in its dry-run's lowering, come with it. Every
-    model family and every serving mode, and every family's HFSL round,
-    are ported on a mesh."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP: {item})")

@@ -130,7 +130,10 @@ struct Strided {
 // struct with `static constexpr bool on = true` and pos(t), krow(t),
 // vrow(t); the strided arguments are then unused). Row r's query position
 // is qpos_s[r]. On return, each warp's lanes hold acc / max(l, 1e-30) for
-// its rows in `out_acc[i][*]` (row w + NW * i).
+// its rows in `out_acc[i][*]` (row w + NW * i). With `row_lse`, row r's
+// log-sum-exp of its visible scores goes to row_lse[r] (the partial of a
+// cache split over ranks), and a row that saw no visible key gets -inf
+// and a zero output instead of the uniform average of its keys.
 template <typename T, int NW, int RPW, int DM, typename Paged = Strided>
 __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
                              const T* __restrict__ k_base,
@@ -140,7 +143,8 @@ __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
                              int D, float scale, int causal, int window,
                              AttnSmem<DM>& sm,
                              float (&out_acc)[RPW][DM / 32],
-                             const Paged paged = Paged()) {
+                             const Paged paged = Paged(),
+                             float* row_lse = nullptr) {
   constexpr int NI = AttnSmem<DM>::NI;
   constexpr int KSTRIDE = AttnSmem<DM>::KSTRIDE;
   constexpr int NT = NW * 32;
@@ -261,5 +265,15 @@ __device__ void attend_tiles(const float* Qs, const int* qpos_s, int nrows,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NI; ++j) out_acc[i][j] /= denom;
+    if (row_lse != nullptr) {                   // m, l are warp-uniform
+      const int r = warp + NW * i;
+      const bool blind = m[i] <= -1e29f;        // no visible key
+      if (r < nrows && lane == 0)
+        row_lse[r] = blind ? -INFINITY : m[i] + logf(l[i]);
+      if (blind) {
+#pragma unroll
+        for (int j = 0; j < NI; ++j) out_acc[i][j] = 0.f;
+      }
+    }
   }
 }

@@ -34,7 +34,10 @@
 // all (dense, no lead, every slot masked; paged with no prefix and
 // q_pos < 0): there every block folds every tile of its split with -1e30
 // scores, which averages the row's keys uniformly after the combine, as
-// the reference softmax does.
+// the reference softmax does. In the partial mode (an lse output, for a
+// cache split over ranks, where a rank's shard often holds no visible
+// key) such a row folds nothing: every split is empty, and the combine
+// gives O = 0 and lse = -inf, which add nothing to the ranks' merge.
 //
 // Loads. Thread 0 issues TMA tensor loads (128-byte swizzle, 64-column
 // boxes) of each folded tile's K and V into a ring of STAGES stages, each
@@ -61,7 +64,8 @@
 // unnormalised O) per query head, __threadfence(), and takes a ticket on
 // the (row, KV head)'s counter. The block that draws the last ticket
 // combines the splits in split order (m = max m_s, weights exp2(m_s - m),
-// 0 for an empty split, O / max(l, 1e-30)), writes the bf16 output and
+// 0 for an empty split, O / max(l, 1e-30)), writes the bf16 output (and,
+// when asked, lse = m ln 2 + ln l in natural-log units beside it) and
 // resets the counter to 0 for the next launch. One launch a call.
 //
 // Known limit: the time is a chain of latencies more than bytes. On an
@@ -122,6 +126,7 @@ struct Params {
   const int* kv_pos;               // dense: (B, T); paged: unused
   const int* table;                // paged: (B, maxb); dense: unused
   __nv_bfloat16* out;              // (B, Hq, D)
+  float* lse;                      // (B, Hq) or null: the partial mode
   float* part_o;                   // (B, Hkv, n_splits, g, D)
   float* part_ml;                  // (B, Hkv, n_splits, g, 2)
   int* counters;                   // (B, Hkv), 0 between launches
@@ -504,7 +509,7 @@ split_kernel(const __grid_constant__ CUtensorMap tmk,
   }
   const bool split_any = __syncthreads_or(any);
   bool blind = false;              // the row sees no key at all
-  if (!split_any) {
+  if (!split_any && p.lse == nullptr) {
     bool row_any;
     if constexpr (PAGED)
       row_any = p.n_p > 0 || (p.T > 0 && qp >= 0);
@@ -650,6 +655,9 @@ split_kernel(const __grid_constant__ CUtensorMap tmk,
   if (tid < g) {
     float lsum = 0.f;
     for (int s = 0; s < ns; ++s) lsum += wts[s * g + tid] * mls[s * g + tid].y;
+    if (p.lse != nullptr)          // m is in log2 units: -inf when blind
+      p.lse[(long long)b * p.Hq + (long long)hk * g + tid] =
+          rowv[tid] * 0.6931471805599453f + logf(lsum);
     rowv[tid] = 1.f / fmaxf(lsum, 1e-30f);
   }
   __syncthreads();                 // each row's 1 / l

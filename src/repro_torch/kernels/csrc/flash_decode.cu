@@ -38,8 +38,8 @@ __global__ void __launch_bounds__(TileShape<DM>::NW * 32)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, T* __restrict__ out,
-                    int T_len, int Hq, int Hkv, int D, float scale,
-                    int causal, int window) {
+                    float* __restrict__ lse, int T_len, int Hq, int Hkv,
+                    int D, float scale, int causal, int window) {
   constexpr int NW = TileShape<DM>::NW, RPW = TileShape<DM>::RPW;
   constexpr int NI = DM / 32;
   BlockSmem<DM, GMAX>& blk = block_smem<DM, GMAX>();
@@ -63,7 +63,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[RPW][NI];
   attend_tiles<T, NW, RPW>(Qs, qpos_s, g, k + base, v + base, kv_stride,
                            kv_pos + (long long)b * T_len, T_len, D, scale,
-                           causal, window, blk.sm, acc);
+                           causal, window, blk.sm, acc, Strided(),
+                           lse == nullptr ? nullptr
+                                          : lse + (long long)b * Hq +
+                                                (long long)hk * g);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T* og = out + ((long long)b * Hq + (long long)hk * g) * D;
@@ -80,9 +83,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DM>
 cudaError_t launch_dm(const void* q, const void* k, const void* v,
-                      const int* q_pos, const int* kv_pos, void* out, int B,
-                      int T_len, int Hq, int Hkv, int D, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      const int* q_pos, const int* kv_pos, void* out,
+                      float* lse, int B, int T_len, int Hq, int Hkv, int D,
+                      float scale, int causal, int window,
+                      cudaStream_t stream) {
   dim3 grid(Hkv, B);
   size_t smem;
   const cudaError_t e =
@@ -91,21 +95,21 @@ cudaError_t launch_dm(const void* q, const void* k, const void* v,
   flash_decode_kernel<T, DM><<<grid, TileShape<DM>::NW * 32, smem,
                                stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), T_len,
-      Hq, Hkv, D, scale, causal, window);
+      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), lse,
+      T_len, Hq, Hkv, D, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int T_len, int Hq, int Hkv, int D, float scale, int causal,
-                   int window, cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out, float* lse,
+                   int B, int T_len, int Hq, int Hkv, int D, float scale,
+                   int causal, int window, cudaStream_t stream) {
   if (D <= 128)
-    return launch_dm<T, 128>(q, k, v, q_pos, kv_pos, out, B, T_len, Hq, Hkv,
-                             D, scale, causal, window, stream);
-  return launch_dm<T, 256>(q, k, v, q_pos, kv_pos, out, B, T_len, Hq, Hkv,
-                           D, scale, causal, window, stream);
+    return launch_dm<T, 128>(q, k, v, q_pos, kv_pos, out, lse, B, T_len, Hq,
+                             Hkv, D, scale, causal, window, stream);
+  return launch_dm<T, 256>(q, k, v, q_pos, kv_pos, out, lse, B, T_len, Hq,
+                           Hkv, D, scale, causal, window, stream);
 }
 
 // The bf16 tile's layout checks: one block, one tile. QK: S (16 x 64) = q
@@ -199,19 +203,21 @@ cudaError_t probe_dm(const void* map_k, const void* map_v, const void* q,
 
 // f32 only (the bf16 calls take flash_decode_bf16_launch): q (B, Hq, D),
 // k/v (B, T, Hkv, D), out (B, Hq, D), contiguous; q_pos (B,), kv_pos
-// (B, T) int32. D <= 256, Hq / Hkv <= 16.
+// (B, T) int32. D <= 256, Hq / Hkv <= 16. lse (B, Hq) f32 or null: each
+// row's log-sum-exp of its visible scores (the partial mode: a row that
+// sees no key gets -inf and a zero output).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* q_pos,
-                                   const int* kv_pos, void* out, int B,
-                                   int T_len, int Hq, int Hkv, int D,
+                                   const int* kv_pos, void* out, void* lse,
+                                   int B, int T_len, int Hq, int Hkv, int D,
                                    float scale, int causal, int window,
                                    int dtype, void* stream) {
   if (D > DMAX || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
       dtype != DT_F32)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  return launch<float>(q, k, v, q_pos, kv_pos, out, B, T_len, Hq, Hkv, D,
-                       scale, causal, window,
+  return launch<float>(q, k, v, q_pos, kv_pos, out, static_cast<float*>(lse),
+                       B, T_len, Hq, Hkv, D, scale, causal, window,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -230,9 +236,10 @@ extern "C" int flash_decode_encode_map(void* out, const void* base, int D,
 // each row's slot (any map when n_p == 0); work holds B * Hkv * n_splits * g * (D + 2) floats;
 // counters B * Hkv ints, 0 (and left at 0). D % 8 == 0, D <= 256,
 // Hq / Hkv <= 16; tps and n_splits from flash_decode.py::split_plan.
+// lse (B, Hq) f32 or null, as in flash_decode_launch.
 extern "C" int flash_decode_bf16_launch(
     const void* q, const int* q_pos, const int* kv_pos, void* out,
-    const void* map_k, const void* map_v, const void* map_pk,
+    void* lse, const void* map_k, const void* map_v, const void* map_pk,
     const void* map_pv, const int* prefix_ids, void* work, int* counters,
     int B, int T_len, int n_p, int prefix_per_row, int n_slots, int Hq,
     int Hkv, int D, float scale, int causal, int window, int tps,
@@ -248,6 +255,7 @@ extern "C" int flash_decode_bf16_launch(
   p.q_pos = q_pos;
   p.kv_pos = kv_pos;
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
   p.part_o = static_cast<float*>(work);
   p.part_ml = p.part_o + (long long)B * Hkv * n_splits * g * D;
   p.counters = counters;

@@ -68,10 +68,13 @@ def visible(qp: torch.Tensor, kp: torch.Tensor, window: int,
 
 
 def online_softmax(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   vis_fn, scale: float) -> torch.Tensor:
+                   vis_fn, scale: float, with_lse: bool = False):
     """The kernels' tile loop. qf: (B, Hkv, g, S, D) f32; k, v: (B, T, Hkv,
     D); ``vis_fn(t0, t1)`` gives the visibility of keys [t0, t1) broadcast
-    to (B, 1, 1, S, t1 - t0). Returns (B, Hkv, g, S, D) f32."""
+    to (B, 1, 1, S, t1 - t0). Returns (B, Hkv, g, S, D) f32; with
+    ``with_lse`` also each row's log-sum-exp of its visible scores (B,
+    Hkv, g, S), the partial of a split cache: a row that sees no key gives
+    ``-inf`` and a zero output (not the uniform average of its keys)."""
     B, Hkv, g, S, D = qf.shape
     T = k.shape[1]
     m = qf.new_full((B, Hkv, g, S), NEG_INF)
@@ -90,7 +93,12 @@ def online_softmax(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + torch.einsum("bngst,bntd->bngsd", p,
                                                     vt)
         m = m_new
-    return acc / l.clamp_min(1e-30)[..., None]
+    out = acc / l.clamp_min(1e-30)[..., None]
+    if not with_lse:
+        return out
+    blind = m <= NEG_INF / 10                    # no visible key
+    lse = torch.where(blind, float("-inf"), m + torch.log(l))
+    return out.masked_fill(blind[..., None], 0.0), lse
 
 
 def flash_attention_torch(q, k, v, *, q_pos, kv_pos, window: int = 0,

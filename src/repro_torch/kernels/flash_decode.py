@@ -33,6 +33,14 @@ serving path runs f32) keeps the CUDA-core tile of
 front of the cache. Bound on an H100 and design: see the source notes in
 ``csrc/``.
 
+``flash_decode(..., return_lse=True)`` is the partial mode of a cache
+split over ranks (``long_decode_rules``: each `data` rank holds its own
+slots): both routes also write each row's log-sum-exp of its visible
+scores, (B, Hq) f32 in natural-log units, and a row that sees no key on
+this shard gives ``lse = -inf`` and a zero output instead of the uniform
+average of its keys; :func:`combine` (and ``kernels/ops.py`` across
+ranks) merges the partials. Without it the outputs are what they were.
+
 The plain versions are the f32 kernels' dataflow in torch (the same 32-key
 tile loop as ``flash_attention.online_softmax``); the paged one gathers
 ``pool[table]`` into the dense layout and runs the dense plain version, so
@@ -63,9 +71,9 @@ PAGED_DMAX = 128           # largest head dim of the paged kernel
 TILE = 64                  # keys a tile of the bf16 kernels
 MAX_SPLITS = 32            # splits a (row, KV head) at most
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P]
 _PAGED_ARGS = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
-_BF16_ARGS = [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _P]
+_BF16_ARGS = [_P] * 12 + [_I] * 8 + [_F, _I, _I, _I, _I, _P]
 _PAGED_BF16_ARGS = [_P] * 11 + [_I] * 10 + [_F, _I, _I, _I, _P]
 _MAP_ARGS = [_P, _P] + [_I] * 5
 
@@ -156,13 +164,16 @@ def _workspace(t: torch.Tensor, n_counters: int, n_floats: int):
 
 def flash_decode_torch(q, k, v, *, q_pos, kv_pos, window: int = 0,
                        causal: bool = True, scale: Optional[float] = None,
-                       prefix_k=None, prefix_v=None,
-                       prefix_ids=None) -> torch.Tensor:
+                       prefix_k=None, prefix_v=None, prefix_ids=None,
+                       return_lse: bool = False):
     """Plain version. q: (B, Hq, D); k, v: (B, T, Hkv, D); q_pos (B,);
     kv_pos (B, T); prefix_k / prefix_v (n_p, Hkv, D) or (B, n_p, Hkv, D),
     or a stacked bank (n_slots, n_p, Hkv, D) read through prefix_ids (B,)
     (:func:`select_rows`), put in front at position -1
-    (:func:`with_prefix`). Returns (B, Hq, D) in q.dtype."""
+    (:func:`with_prefix`). Returns (B, Hq, D) in q.dtype; with
+    ``return_lse`` also the (B, Hq) f32 log-sum-exp of each row's visible
+    scores, the partial that :func:`combine` merges (a row that sees no
+    key: ``-inf`` and a zero output)."""
     prefix_k, prefix_v = select_rows(prefix_k, prefix_v, prefix_ids)
     k, v, kv_pos = with_prefix(k, v, kv_pos, prefix_k, prefix_v)
     B, Hq, D = q.shape
@@ -174,8 +185,11 @@ def flash_decode_torch(q, k, v, *, q_pos, kv_pos, window: int = 0,
     kp = kv_pos.to(torch.int64).reshape(B, 1, 1, 1, -1)
     out = online_softmax(
         qf, k, v, lambda t0, t1: visible(qp, kp[..., t0:t1], window, causal),
-        scale)
-    return out.reshape(B, Hq, D).to(q.dtype)
+        scale, with_lse=return_lse)
+    if not return_lse:
+        return out.reshape(B, Hq, D).to(q.dtype)
+    out, lse = out
+    return out.reshape(B, Hq, D).to(q.dtype), lse.reshape(B, Hq)
 
 
 def contiguous_as(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -218,7 +232,15 @@ def _check_prefix(name, prefix_k, prefix_v, prefix_ids, B, Hkv, D):
     return n_p, per_row, n_slots
 
 
-def _launch(q, k, v, q_pos, kv_pos, window, causal, scale):
+def _lse_out(q, return_lse: bool):
+    """The (B, Hq) f32 log-sum-exp output of a partial-mode launch, or
+    None."""
+    return q.new_empty(q.shape[:2], dtype=torch.float32) if return_lse \
+        else None
+
+
+def _launch(q, k, v, q_pos, kv_pos, window, causal, scale,
+            return_lse=False):
     """The f32 CUDA-core kernel (a prefix bank already in front)."""
     global launches
     B, Hq, D = q.shape
@@ -228,18 +250,21 @@ def _launch(q, k, v, q_pos, kv_pos, window, causal, scale):
         {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos}, q.dtype)
     lib = _build.bind("flash_decode", _ARGS)
     out = torch.empty_like(q)
+    lse = _lse_out(q, return_lse)
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
+        kv_pos.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, T, Hq, Hkv, D,
         float(scale if scale is not None else D ** -0.5), int(causal),
         int(window or 0), code, _build.stream(q))
     _build.check(lib, "flash_decode", err)
     launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 def _launch_bf16(q, k, v, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
-                 n_p, per_row, n_slots, window, causal, scale):
+                 n_p, per_row, n_slots, window, causal, scale,
+                 return_lse=False):
     """The split-KV tensor-core kernel, the prefix bank read in place."""
     global launches
     B, Hq, D = q.shape
@@ -269,14 +294,17 @@ def _launch_bf16(q, k, v, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
         mpk = _map(lib, "flash_decode", prefix_k, Hkv, n_p, nb, TILE)
         mpv = _map(lib, "flash_decode", prefix_v, Hkv, n_p, nb, TILE)
     out = torch.empty_like(q)
+    lse = _lse_out(q, return_lse)
     err = fn(q.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-             out.data_ptr(), mk, mv, mpk, mpv,
+             out.data_ptr(), None if lse is None else lse.data_ptr(), mk, mv,
+             mpk, mpv,
              None if prefix_ids is None else prefix_ids.data_ptr(), part,
              cnt, B, T, n_p, int(per_row), n_slots, Hq, Hkv, Dp, scale,
              int(causal), int(window or 0), tps, n_splits, stream)
     _build.check(lib, "flash_decode", err)
     launches += 1
-    return out if Dp == D else out[..., :D].contiguous()
+    out = out if Dp == D else out[..., :D].contiguous()
+    return out if lse is None else (out, lse)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -285,7 +313,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  prefix_k: Optional[torch.Tensor] = None,
                  prefix_v: Optional[torch.Tensor] = None,
                  prefix_ids: Optional[torch.Tensor] = None,
-                 backend: Optional[str] = None) -> torch.Tensor:
+                 backend: Optional[str] = None, return_lse: bool = False):
     """Shapes as in :func:`ref.decode_attention` with per-row positions:
     q_pos (B,), kv_pos (B, T), both int32; an optional prefix bank
     prefix_k / prefix_v in k's dtype, always visible in front (position
@@ -294,12 +322,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bank with ``prefix_ids`` (B,) int32 naming each row's slot (a
     multi-tenant bank; ids outside the bank are clamped into it by the
     bf16 kernel). In bf16 the kernel reads the bank in place; in f32 the
-    rows' slots are concatenated in front (:func:`with_prefix`)."""
+    rows' slots are concatenated in front (:func:`with_prefix`).
+
+    ``return_lse`` returns ``(out, lse)``: the partial of a cache split
+    over ranks, ``lse`` (B, Hq) f32 the log-sum-exp of each row's visible
+    scores (natural log), a row that sees no key ``-inf`` with a zero
+    output; :func:`combine` merges partials. Without it every route's
+    output is what it was."""
     if backend == "torch" or (backend is None and q.device.type == "cpu"):
         return flash_decode_torch(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                   window=window, causal=causal, scale=scale,
                                   prefix_k=prefix_k, prefix_v=prefix_v,
-                                  prefix_ids=prefix_ids)
+                                  prefix_ids=prefix_ids,
+                                  return_lse=return_lse)
     if backend not in (None, "cuda"):
         raise ValueError(f"flash_decode: unknown backend {backend!r}")
     B, Hq, D = q.shape
@@ -322,11 +357,32 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             prefix_ids = contiguous_as(prefix_ids, torch.int32)
         return _launch_bf16(q, k, v, q_pos, kv_pos, prefix_k, prefix_v,
                             prefix_ids, n_p, per_row, n_slots, window,
-                            causal, scale)
+                            causal, scale, return_lse)
     prefix_k, prefix_v = select_rows(prefix_k, prefix_v, prefix_ids)
     k, v, kv_pos = with_prefix(k, v, kv_pos, prefix_k, prefix_v)
     return _launch(q, k.contiguous(), v.contiguous(), q_pos,
-                   kv_pos.contiguous(), window, causal, scale)
+                   kv_pos.contiguous(), window, causal, scale, return_lse)
+
+
+def combine(outs, lses):
+    """Merge the partials of disjoint key sets of the same rows (each
+    ``flash_decode(..., return_lse=True)``): ``lse* = log sum_r
+    exp(lse_r)`` and ``o = sum_r exp(lse_r - lse*) o_r`` in f32, in the
+    order given. Returns ``(o in outs[0]'s dtype, lse*)``. A part whose
+    rows see no key (``-inf``) weighs exactly 0."""
+    lse = torch.stack(lses)
+    m = lse.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    star = m + torch.log(torch.exp(lse - m).sum(0))
+    w = merge_weights(lse, star)
+    o = (w[..., None] * torch.stack([o.float() for o in outs])).sum(0)
+    return o.to(outs[0].dtype), star
+
+
+def merge_weights(lse: torch.Tensor, star: torch.Tensor) -> torch.Tensor:
+    """``exp(lse - lse*)``, exactly 0 where ``lse`` is ``-inf``."""
+    return torch.where(lse == float("-inf"), torch.zeros_like(lse),
+                       torch.exp(lse - star))
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ declared placements: the LoRA products column-parallel (W and B split by
 output column over `model`, x and A replicated, output split) or
 row-parallel (W and A split by input row, output ``Partial``: the ranks'
 ``(x_r A_r) B`` and ``x_r W_r`` sum exactly to the product), attention
-with its heads on `model` and its batch rows where they are. A weight
-split over the batch axes (FSDP) is gathered by the redistribution.
+with its heads on `model` and its batch rows where they are; a decode
+cache split over its slots stays split, each rank's partial merged with
+the others'. A weight split over the batch axes (FSDP) is gathered by
+the redistribution.
 """
 from __future__ import annotations
 
@@ -210,7 +212,7 @@ def _int32(x, shape, device) -> torch.Tensor:
 def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
                  prefix_ids=None, window: int = 0, causal: bool = True,
                  scale: Optional[float] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, return_lse: bool = False):
     """One decode token per sequence against a KV cache (+ prefix bank).
 
     q: (B, Hq, D); k, v: (B, T, Hkv, D); q_pos: scalar or (B,); kv_pos:
@@ -221,8 +223,16 @@ def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
     stacked (n_slots, n_p, Hkv, D) slots with ``prefix_ids`` (B,) naming
     each row's slot: the bf16 kernel reads them in place, the f32 kernel
     and the plain version (the CPU path) after :func:`fd.with_prefix`
-    concatenates them. Returns (B, Hq, D)."""
+    concatenates them. Returns (B, Hq, D); with ``return_lse`` (no mesh)
+    ``(out, lse)``, the partial that :func:`fd.combine` merges.
+
+    On a mesh whose cache splits its slot dim (``long_decode_rules``:
+    ``kv_seq`` on (`pod`, `data`)) each rank attends its own slots and the
+    ranks merge their partials (:func:`_decode_mesh`)."""
     if dt.mesh_of(q, k, v, prefix_k, prefix_v) is not None:
+        if return_lse:
+            raise ValueError("flash_decode: return_lse takes local tensors, "
+                             "not a mesh")
         return _decode_mesh(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                             prefix_k=prefix_k, prefix_v=prefix_v,
                             prefix_ids=prefix_ids, window=window,
@@ -240,7 +250,7 @@ def flash_decode(q, k, v, *, q_pos, kv_pos, prefix_k=None, prefix_v=None,
                            window=window,
                            causal=causal, scale=scale, prefix_k=prefix_k,
                            prefix_v=prefix_v, prefix_ids=prefix_ids,
-                           backend=_pick(backend))
+                           backend=_pick(backend), return_lse=return_lse)
 
 
 def flash_decode_paged(q, k_pool, v_pool, table, *, q_pos, prefix_k=None,
@@ -439,6 +449,12 @@ def _prefix_args(mesh, rows, kv_split, B, dev, prefix_k, prefix_v,
 
 def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
                  window, causal, scale, backend):
+    """The dense decode kernel on this rank's rows and `model` heads. A
+    cache whose slot dim is split (over `data`, and `pod`: the mesh dims
+    where k is ``Shard(1)``) stays split: each rank attends its own
+    slots, giving its partial (``return_lse``), and the ranks merge them
+    (:func:`_merge_ranks`). The prefix bank, replicated, is read by the
+    ranks at slot coordinate 0 only, so it counts once."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = dt.mesh_of(q, k, v, prefix_k, prefix_v)
     B, T = k.shape[0], k.shape[1]
@@ -449,13 +465,20 @@ def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
     qp = dt.with_model(rows, mesh, Shard(1) if q_split else R)
     kp = dt.with_model(rows, mesh, Shard(2) if kv_split else R)
     row_int = dt.with_model(rows, mesh, R)
+    kpos_pl = row_int
+    slot_dims = dt.split_dims(k, 1)
+    if slot_dims:
+        kp = dt.with_dims(kp, slot_dims, Shard(1))
+        kpos_pl = dt.with_dims(row_int, slot_dims, Shard(1))
     dev = q.device
     pargs, ppl, hd_dim = _prefix_args(mesh, rows, kv_split, B, dev,
                                       prefix_k, prefix_v, prefix_ids)
     args = [q, k, v, _int32(dt.whole(q_pos), (B,), dev),
             kv_pos if dt.is_dt(kv_pos) else _int32(kv_pos, (B, T), dev)] \
         + pargs
-    in_pl = [qp, kp, kp, row_int, row_int] + ppl
+    in_pl = [qp, kp, kp, row_int, kpos_pl] + ppl
+    groups = [mesh.get_group(i) for i in slot_dims]
+    first = all(mesh.get_local_rank(i) == 0 for i in slot_dims)
 
     def fn(q_, k_, v_, qpos_, kvpos_, pk_=None, pv_=None, ids_=None):
         if q_split and not kv_split:
@@ -463,12 +486,36 @@ def _decode_mesh(q, k, v, *, q_pos, kv_pos, prefix_k, prefix_v, prefix_ids,
             if pk_ is not None:
                 pk_, pv_ = _kv_of(mesh, hq, hkv, q_.shape[1], pk_, pv_,
                                   dim=hd_dim)
-        return flash_decode(q_, k_, v_, q_pos=qpos_, kv_pos=kvpos_,
-                            prefix_k=pk_, prefix_v=pv_, prefix_ids=ids_,
-                            window=window, causal=causal, scale=scale,
-                            backend=backend)
+        if not first:                           # the bank counts once
+            pk_ = pv_ = ids_ = None
+        out = flash_decode(q_, k_, v_, q_pos=qpos_, kv_pos=kvpos_,
+                           prefix_k=pk_, prefix_v=pv_, prefix_ids=ids_,
+                           window=window, causal=causal, scale=scale,
+                           backend=backend, return_lse=bool(slot_dims))
+        return _merge_ranks(*out, groups) if slot_dims else out
 
     return dt.on_shards(fn, args, in_pl, qp)
+
+
+def _merge_ranks(out, lse, groups):
+    """:func:`fd.combine` over the ranks of ``groups`` (each rank's
+    partial of its own slots): ``lse* = log sum_r exp(lse_r)`` from an
+    all-reduce of the max and one of the sum, then ``o = sum_r exp(lse_r
+    - lse*) o_r`` (f32) by an all-reduce. Over one rank the weights are
+    exactly 1 and the output is the partial's own bits."""
+    import torch.distributed as dist
+
+    def reduce(t, op):
+        for g in groups:
+            dist.all_reduce(t, op=op, group=g)
+        return t
+
+    m = reduce(lse.clone(), dist.ReduceOp.MAX)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    star = m + torch.log(reduce(torch.exp(lse - m), dist.ReduceOp.SUM))
+    o = reduce(fd.merge_weights(lse, star)[..., None] * out.float(),
+               dist.ReduceOp.SUM)
+    return o.to(out.dtype)
 
 
 def _paged_mesh(q, k_pool, v_pool, table, *, q_pos, prefix_k, prefix_v,

@@ -9,7 +9,18 @@ mesh and reads XLA's memory and cost analyses. The port runs on one
 card, which plays one data row of that mesh: each shape's batch is
 ``global_batch // 16`` (``DATA_ROWS``, the mesh's data-parallel size;
 ``long_500k`` keeps its batch of 1), and a train step trains one
-cluster. :func:`build_step` builds the step (the HFSL train step, the
+cluster. A decode of batch 1 (``long_500k``) runs under the reference's
+``long_decode_rules``, which split the KV cache's slot dim (``kv_seq``)
+over the data rows instead of the batch: one card counts its share of
+every attention cache, ``1 / 16`` of the slots (``1 / 32`` with
+``--multi-pod``; qwen2-7b's sliding-window variant keeps 256 of its
+4096), while the ssm and hybrid recurrent states, which have no
+``kv_seq`` dim, stay whole (:func:`card_share`). A moe prefill needs no
+such change: its expert bytes a card are ``1 / 256`` of the experts
+under both ``DEFAULT_RULES`` (experts on `model`, their d_model on the
+data rows) and ``moe_serving_rules`` (experts on `data`, their d_model
+on `model`) on the 16 x 16 mesh, and one card plays both axes' share of
+them here. :func:`build_step` builds the step (the HFSL train step, the
 prefill or the decode step) and its parameter, optimizer, cache and batch
 tensors on ``meta`` from ``model_spec`` / ``cache_spec`` /
 ``input_specs``: no weight is drawn and nothing runs on a card.
@@ -66,10 +77,37 @@ def data_rows(multi_pod: bool = False) -> int:
     return data_parallel_size(production_layout(multi_pod=multi_pod))
 
 
-def mesh_label(multi_pod: bool = False) -> str:
+def mesh_label(multi_pod: bool = False, kv_split: bool = False) -> str:
     lay = production_layout(multi_pod=multi_pod)
+    rows = data_rows(multi_pod)
+    split = (f"; long_decode_rules: the KV cache's kv_seq split over the "
+             f"{rows} data rows, 1/{rows} of its slots a card"
+             if kv_split else "")
     return (f"1 (one data row of the "
-            f"{'x'.join(map(str, lay.shape))} mesh)")
+            f"{'x'.join(map(str, lay.shape))} mesh{split})")
+
+
+def card_share(spec, multi_pod: bool = False):
+    """A cache spec tree with each dim that ``long_decode_rules`` puts on
+    the batch axes (`pod`, `data`) cut to one data row's share (the
+    attention caches' ``kv_seq``; a dim that does not divide stays whole,
+    as ``fit_spec`` leaves it); every other dim, the recurrent states
+    included, as it is."""
+    from repro_torch.sharding import rules as R
+    lay = production_layout(multi_pod=multi_pod)
+    rules = R.long_decode_rules()
+    names = tuple(lay.mesh_dim_names)
+
+    def one(s):
+        p = R.fit_spec(R.spec_for(s.axes, lay, rules), s.shape, lay)
+        shape = list(s.shape)
+        for i, entry in enumerate(p):
+            axes = (entry,) if isinstance(entry, str) else (entry or ())
+            for a in axes:
+                if a in ("pod", "data"):
+                    shape[i] //= lay.shape[names.index(a)]
+        return dataclasses.replace(s, shape=tuple(shape))
+    return tree_map(one, spec)
 
 
 def variant_for(cfg: ModelConfig, shape_name: str) -> ModelConfig:
@@ -156,6 +194,9 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
     if reduced:
         cfg = variant_for(get_config(arch).reduced(), shape_name)
         cfg = cfg.with_(sliding_window=64)
+    # the reference's rule: a decode of global batch 1 takes
+    # long_decode_rules (kv_seq on the data rows)
+    kv_split = shape.kind == "decode" and shape.global_batch == 1
     params = _tensors_of(M.model_spec(cfg), dev, seed)
     batch = _inputs(cfg, row, dev, seed)
 
@@ -176,8 +217,10 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
     else:
         window = cfg.sliding_window if cfg.attn_variant == "sliding" else 0
         cache_len = min(window, shape.seq_len) if window else shape.seq_len
-        caches = _tensors_of(M.cache_spec(cfg, row.global_batch, cache_len),
-                             dev, seed)
+        cspec = M.cache_spec(cfg, row.global_batch, cache_len)
+        if kv_split:
+            cspec = card_share(cspec, multi_pod)
+        caches = _tensors_of(cspec, dev, seed)
         if dev.type != "meta":
             _fill_positions(caches, shape.seq_len)
         pos = torch.full((), shape.seq_len - 1, dtype=torch.int32,
@@ -187,7 +230,7 @@ def build_step(arch: str, shape_name: str, *, reduced: bool = False,
             return M.decode_step(p, token, c, pos_, cfg)
         args = (params, batch["token"], caches, pos)
     meta = {"arch": arch, "shape": shape_name,
-            "mesh": mesh_label(multi_pod), "chips": 1,
+            "mesh": mesh_label(multi_pod, kv_split), "chips": 1,
             "data_rows": data_rows(multi_pod),
             "kind": shape.kind, "family": cfg.family, "cfg": cfg,
             "shape_obj": row, "global_batch": shape.global_batch,

@@ -64,6 +64,13 @@ def make_test_mesh(n_data: int = 2, n_model: int = 2, device=None):
     return _mesh((n_data, n_model), ("data", "model"), device)
 
 
+def make_stage_mesh(n_stages: int, device=None):
+    """The SL chain's 1-D (`stage`,) mesh (``core/sl_pipeline.py``): S
+    gloo ranks on the CPU, one NCCL rank on the card; rank s is stage
+    s."""
+    return _mesh((n_stages,), ("stage",), device)
+
+
 def data_parallel_size(mesh) -> int:
     """Product of the cluster-carrying axes ('pod' x 'data')."""
     names = tuple(mesh.mesh_dim_names)
@@ -76,12 +83,13 @@ def data_parallel_size(mesh) -> int:
 
 
 @contextlib.contextmanager
-def single_process_mesh(device=None):
-    """A 1x1 (`data`, `model`) mesh for one process: a process group of
-    one rank (``nccl`` on ``cuda``, the default, ``gloo`` on the CPU) at a
-    free ``localhost`` port, made here and destroyed on exit. The mesh
-    path then runs as it would on a rank of a larger mesh, with every
-    split of size one. Raises if a process group already exists."""
+def single_process_mesh(device=None, stage: bool = False):
+    """A 1x1 (`data`, `model`) mesh for one process (with ``stage``, a
+    1-stage (`stage`,) mesh): a process group of one rank (``nccl`` on
+    ``cuda``, the default, ``gloo`` on the CPU) at a free ``localhost``
+    port, made here and destroyed on exit. The mesh path then runs as it
+    would on a rank of a larger mesh, with every split of size one.
+    Raises if a process group already exists."""
     import socket
 
     import torch.distributed as dist
@@ -101,6 +109,7 @@ def single_process_mesh(device=None):
                             init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
     try:
-        yield make_test_mesh(1, 1, device=dev)
+        yield make_stage_mesh(1, device=dev) if stage else \
+            make_test_mesh(1, 1, device=dev)
     finally:
         dist.destroy_process_group()

@@ -112,7 +112,8 @@ def kernel_costs(name: str, dtype: torch.dtype = torch.bfloat16,
     - ``flash_decode``: B, Hq, Hkv, D, Tc (cache slots), keys (visible
       cache keys of all rows), n_p (bank slots a row sees), n_read (bank
       slots read: 1 shared, B per row, the distinct ids of a stacked
-      bank), ids (bool: the rows' slot ids are read);
+      bank), ids (bool: the rows' slot ids are read), lse (bool: the
+      partial mode's (B, Hq) f32 log-sum-exp is written);
     - ``flash_decode_paged``: B, Hq, Hkv, D, maxb (table width), keys
       (visible keys of all rows, prefix slots included);
     - ``selective_scan``: B, S, Di, N, h0 (bool), ck (checkpoint bytes
@@ -152,7 +153,8 @@ def kernel_costs(name: str, dtype: torch.dtype = torch.bfloat16,
         keys = d["keys"]
         nbytes = e * (2 * B * Hq * D + 2 * (keys + d["n_read"] * n_p)
                       * Hkv * D) + 4 * (B + B * d["Tc"]) \
-            + (4 * B if d.get("ids") else 0)
+            + (4 * B if d.get("ids") else 0) \
+            + (4 * B * Hq if d.get("lse") else 0)
         return KernelCost(nbytes, 4 * D * (keys + B * n_p) * Hq,
                           flops_dtype=dtype)
     if name == "flash_decode_paged":
@@ -318,7 +320,8 @@ def _call_cost(name: str, a: dict, value) -> KernelCost:
         return kernel_costs(name, q.dtype, B=B, Hq=Hq, Hkv=k.shape[2], D=D,
                             Tc=k.shape[1], keys=_decode_keys(a, value),
                             n_p=n_p, n_read=n_read,
-                            ids=a["prefix_ids"] is not None)
+                            ids=a["prefix_ids"] is not None,
+                            lse=a.get("return_lse", False))
     if name == "flash_decode_paged":
         q, kp = a["q"], a["k_pool"]
         B, Hq, D = q.shape
@@ -361,6 +364,9 @@ def _meta_out(name: str, a: dict):
     if name in ("lora_bgmv_rows", "lora_bgmv_seq"):
         x = a["x"]
         return _empty((*x.shape[:-1], a["w"].shape[1]), x.dtype, x)
+    if name == "flash_decode" and a.get("return_lse"):
+        q = a["q"]
+        return torch.empty_like(q), _empty(q.shape[:2], f32, q)
     if name in ("flash_attention", "flash_decode", "flash_decode_paged"):
         return torch.empty_like(a["q"])
     if name == "attention_bwd":

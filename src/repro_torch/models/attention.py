@@ -12,7 +12,11 @@ query and carrying no rotary phase (position < 0 in the masking rules of
   not causal, no rotary phase; its decode reads a static per-request
   cache of them (``cross=True``);
 - decode: single-token flash decode against the cache, after writing the
-  token's K/V at slot ``pos`` (``pos % window`` for sliding). A paged
+  token's K/V at slot ``pos`` (``pos % window`` for sliding); on a mesh
+  whose rules split the cache's slots (``long_decode_rules``) the rank
+  that owns the slot writes it and each rank attends its own slots, the
+  ranks' partials merged (``kernels/ops.py``), so no step gathers the
+  cache. A paged
   cache (``{'k', 'v'}`` block pools (n_blocks, bs, Hkv, D) and a
   ``'table'`` (B, max_blocks)) is recognised by its ``table`` leaf: the
   write goes through the table and the attention is the paged kernel,
@@ -316,20 +320,19 @@ def _write_slot(buf, slot: torch.Tensor, new, keep: torch.Tensor) -> None:
     place. On a mesh the write is local to the rows this rank holds: a
     DTensor cache writes its local shard, with ``new`` brought to the
     cache's placements first and the per-row host vectors cut to the same
-    rows."""
+    rows. A cache whose slot dim is split (``long_decode_rules``: kv_seq
+    over `pod`, `data`) writes slot ``s`` only on the rank that owns it,
+    at its local index (:func:`dt.owned`)."""
     if dt.is_dt(buf):
-        from torch.distributed.tensor import Shard
-        if any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
-            raise ValueError("a per-row cache write needs the cache's slot "
-                             "dim unsplit (serving_rules keeps kv_seq "
-                             "replicated)")
-        # new is buf without its slot dim (dim 1)
-        pl = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p
-              for p in buf.placements]
+        from torch.distributed.tensor import Replicate, Shard
+        # new is buf without its slot dim (dim 1): whole where the slots
+        # are split, else split as buf's other dims are
+        pl = [(Replicate() if p.dim == 1 else Shard(p.dim - (p.dim > 1)))
+              if isinstance(p, Shard) else p for p in buf.placements]
         new = dt.as_replicated(new, buf.device_mesh) \
             .redistribute(buf.device_mesh, pl).to_local()
         slot, keep = dt.rows_of(slot, buf), dt.rows_of(keep, buf)
-        buf = buf.to_local()
+        buf, slot, keep = dt.owned(buf, slot, keep, 1)
     elif dt.is_dt(new):
         new = dt.whole(new)
     rows = torch.arange(buf.shape[0], device=buf.device)

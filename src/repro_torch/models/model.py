@@ -104,6 +104,24 @@ def place_params(params: dict, cfg: ModelConfig, mesh,
                          for k in specs}}
 
 
+def place_caches(caches: dict, cfg: ModelConfig, batch: int,
+                 seq_len: int) -> dict:
+    """Lay a dense decode-cache tree (a prefill's) out per the active
+    mesh and rules of ``use_rules``, as the reference's dry-run takes its
+    cache: an input sharded by :func:`cache_spec`'s axes. Under
+    ``long_decode_rules`` each rank keeps its own ``T / d`` slots of every
+    attention cache (kv_seq over `pod`, `data`; slicing, no
+    communication) and the recurrent states as they are. ``batch`` and
+    ``seq_len`` are :func:`cache_spec`'s; outside ``use_rules`` the tree
+    comes back as it is."""
+    from repro_torch.sharding import rules as R
+    mesh, rules = R.active()
+    if mesh is None:
+        return caches
+    specs = R.partition_specs(cache_spec(cfg, batch, seq_len), mesh, rules)
+    return R.distribute_tree(caches, specs, mesh)
+
+
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
                paged=None) -> dict:
     """``paged=(n_blocks, block_size)`` gives the paged layout of the
@@ -328,6 +346,19 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
                                  adapter_ids=adapter_ids)
     x = rmsnorm(params["backbone"]["final_norm"], x)
     return unembed(_head(params), x), caches
+
+
+def _slots_split() -> bool:
+    """Whether the active rules put the KV cache's slot dim (kv_seq) on
+    the batch axes (`pod`, `data`), as ``long_decode_rules`` does."""
+    from repro_torch.sharding import rules as R
+    mesh, rules = R.active()
+    if mesh is None:
+        return False
+    spec = R.spec_for(("kv_seq",), mesh, rules)
+    axes = spec[0] if spec else None
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return bool(axes) and set(axes) <= {"pod", "data"}
 
 
 def _next_token(logits: torch.Tensor, greedy: bool,
@@ -613,6 +644,9 @@ def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor, *,
     batch = {"tokens": prompts, **(extra_batch or {})}
     tok0, caches, pos0 = _prefill_state(params, batch, cfg, S + gen, lens,
                                         ids)
+    if _slots_split():             # long_decode_rules: each rank its slots
+        caches = place_caches(caches, cfg, prompts.shape[0],
+                              S + gen + _n_vis(cfg))
     remaining = torch.full((prompts.shape[0],), gen, dtype=torch.int32,
                            device=prompts.device)
     toks, _ = _decode_steps(params, cfg, gen, greedy, tok0, caches, pos0,

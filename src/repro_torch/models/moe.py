@@ -19,15 +19,27 @@ at most once, so its backward is a write to unique rows; the sum over a
 token's k experts and the gradient's sum over its k copies are fixed-order
 reductions of a ``(T, k, d)`` tensor.
 
-On a device mesh (the reference's ``act_experts`` on `model`) every rank
-routes the whole batch: the rows are gathered over the batch axes, so
-the capacity ``C`` and every buffer position are the global ones and a
-rank drops exactly the assignments the whole batch drops. Each `model`
-rank then runs only its own experts' FFN (``experts`` on `model`, the
-expert weights gathered over their ``moe_fsdp`` split) on its rows of
-the buffer, and the combine takes each assignment from the one rank that
-holds its expert: a sum over the `model` ranks in which every term but
-one is zero, so it is exact. Each rank keeps its own rows of the result.
+On a device mesh every rank routes the whole batch: the rows are
+gathered over the batch axes, so the capacity ``C`` and every buffer
+position are the global ones and a rank drops exactly the assignments
+the whole batch drops. The layout comes from the placements of the
+expert weights:
+
+- training and engine serving (``experts`` on `model`, the reference's
+  ``act_experts`` on `model`): each `model` rank runs only its own
+  experts' FFN (the expert weights gathered over their ``moe_fsdp``
+  split) on its rows of the buffer;
+- ``moe_serving_rules`` (``experts`` on `data`, ``moe_fsdp``, the expert
+  d_model dim, on `model`): each `data` rank runs its ``E / d`` experts
+  on its ``d / m`` columns. The gate and up products contract over the
+  split d_model, so their partial sums are added over `model` before
+  ``silu(gate) * up``; ``down`` gives a d_model slice, which the combine
+  keeps until the end and gathers over `model`.
+
+Either way the combine takes each assignment from the one rank that
+holds its expert: a sum over the expert ranks in which every term but
+one is zero, so it is exact, and the fixed-order sum over a token's k
+experts follows. Each rank keeps its own rows of the result.
 """
 from __future__ import annotations
 
@@ -102,39 +114,44 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-class _SumRanks(torch.autograd.Function):
-    """Forward: the sum of ``x`` over ``group``'s ranks; backward: the
-    gradient as it is (every rank's consumers of the sum hold the same
-    replicated values, so each already has the whole gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 class _SumGrads(torch.autograd.Function):
-    """Forward: ``x`` as it is; backward: the gradient summed over
-    ``group``'s ranks (each rank's experts see their part of the
+    """Forward: ``x`` as it is; backward: the gradient summed over the
+    ranks of ``groups`` (each rank's experts see their part of the
     buffer)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
         return g, None
+
+
+class _GatherCols(torch.autograd.Function):
+    """Forward: the ranks' column slices of ``x`` (T, n) concatenated over
+    ``group`` in rank order, (T, n * ranks); backward: this rank's
+    columns of the gradient (every rank's consumers hold the same
+    gathered values)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.lo = dist.get_rank(group) * x.shape[-1]
+        ctx.n = x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.n], None
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -148,12 +165,15 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _moe(params: dict, xt: torch.Tensor, cfg: ModelConfig, capacity_factor,
-         experts: tuple = (0, None), reduce=None):
+         experts: tuple = (0, None), reduce: tuple = (), cols=None):
     """The moe FFN of (T, d) tokens. ``experts`` (first, count) names the
     experts whose weights ``params`` holds (all of them by default);
-    ``reduce``, a process group (None without a mesh), sums the combine's
+    ``reduce``, process groups (none without a mesh), sums the combine's
     per-assignment rows over the ranks that hold the other experts, and
-    the buffer's gradient back over them."""
+    the buffer's gradient back over them. ``cols`` (first, count, group)
+    names the d_model columns that the expert weights hold
+    (``moe_serving_rules``): the gate and up products are summed over
+    ``group`` and the result's columns gathered over it."""
     m = cfg.moe
     T, d = xt.shape
     E, k = m.n_experts, m.top_k
@@ -178,24 +198,32 @@ def _moe(params: dict, xt: torch.Tensor, cfg: ModelConfig, capacity_factor,
     dest_flat[order] = dest
     src = torch.full((E * C + 1,), T * k, dtype=order.dtype, device=dev)
     src[dest] = order
-    xe = xt if reduce is None else _SumGrads.apply(xt, reduce)
-    x_rep = xe[:, None].expand(T, k, d).reshape(T * k, d)
-    # this rank's experts' rows of the (E, C, d) buffer
-    buf = _Take.apply(x_rep, src[e0 * C:(e0 + n_e) * C]).reshape(n_e, C, d)
+    sums = tuple(reduce) + ((cols[2],) if cols is not None else ())
+    xe = _SumGrads.apply(xt, sums) if sums else xt
+    c0, n_c = (0, d) if cols is None else cols[:2]
+    x_rep = xe[:, None].expand(T, k, d).reshape(T * k, d)[:, c0:c0 + n_c]
+    # this rank's experts' rows of the (E, C, d) buffer (its columns)
+    buf = _Take.apply(x_rep, src[e0 * C:(e0 + n_e) * C]).reshape(n_e, C,
+                                                                 n_c)
 
     # ---- expert FFN (stacked) ------------------------------------------
-    h = F.silu(torch.bmm(buf, params["gate"])) * torch.bmm(buf, params["up"])
-    out = torch.bmm(h, params["down"]).reshape(n_e * C, d)
+    gate, up = torch.bmm(buf, params["gate"]), torch.bmm(buf, params["up"])
+    if cols is not None:             # the partial sums over split d_model
+        gate, up = (dt.SumRanks.apply(t, (cols[2],)) for t in (gate, up))
+    h = F.silu(gate) * up
+    out = torch.bmm(h, params["down"]).reshape(n_e * C, n_c)
 
     # ---- combine, token-major, a fixed-order sum over k ----------------
     if n_e != E:              # assignments of other ranks' experts: zero
         mine = (dest_flat >= e0 * C) & (dest_flat < (e0 + n_e) * C)
         dest_flat = torch.where(mine, dest_flat - e0 * C, n_e * C)
-    yc = _Take.apply(out, dest_flat)                        # (T*k, d)
-    if reduce is not None:
-        yc = _SumRanks.apply(yc, reduce)
-    y = (top_w.reshape(-1, 1) * yc.float()).reshape(T, k, d).sum(1)
+    yc = _Take.apply(out, dest_flat)                        # (T*k, n_c)
+    if reduce:
+        yc = dt.SumRanks.apply(yc, tuple(reduce))
+    y = (top_w.reshape(-1, 1) * yc.float()).reshape(T, k, n_c).sum(1)
     y = y.to(xt.dtype)
+    if cols is not None:
+        y = _GatherCols.apply(y, cols[2])
     if m.n_shared_experts:
         y = y + mlp(params["shared"], xt)
 
@@ -209,25 +237,46 @@ def _moe(params: dict, xt: torch.Tensor, cfg: ModelConfig, capacity_factor,
 
 def _moe_mesh(params: dict, x, cfg: ModelConfig, capacity_factor):
     """:func:`moe_apply` on a mesh (see the module note): the whole batch
-    routed on every rank, this rank's experts run, the combine summed
-    over `model`, this rank's rows kept."""
+    routed on every rank, this rank's experts run (on its d_model columns
+    under ``moe_serving_rules``), the combine summed over the expert
+    ranks, this rank's rows kept."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = dt.mesh_of(x, params["gate"])
     rep = dt.replicated(mesh)
-    E, m = cfg.moe.n_experts, dt.model_size(mesh)
-    split = m > 1 and E % m == 0
-    ep = dt.with_model(rep, mesh, Shard(0) if split else Replicate())
-    p = {"router": dt.local_as(params["router"], rep),
-         **{n: dt.local_as(params[n], ep) for n in ("gate", "up", "down")}}
+    md = dt.model_dim(mesh)
+    p = {"router": dt.local_as(params["router"], rep)}
     if "shared" in params:
         p["shared"] = {n: dt.local_as(w, rep)
                        for n, w in params["shared"].items()}
-    n_e = E // m if split else E
-    first = mesh.get_local_rank(dt.model_dim(mesh)) * n_e if split else 0
+    on = [i for i in dt.split_dims(params["gate"], 0) if i != md]
+    cols = None
+    if on:                           # moe_serving_rules: experts on `data`
+        dsplit = md in dt.split_dims(params["gate"], 1)
+
+        def pl(dim):                 # experts on `on`, d_model on `model`
+            return dt.with_model(dt.with_dims(rep, on, Shard(0)), mesh,
+                                 Shard(dim) if dsplit else Replicate())
+        p.update(gate=dt.local_as(params["gate"], pl(1)),
+                 up=dt.local_as(params["up"], pl(1)),
+                 down=dt.local_as(params["down"], pl(2)))
+        n_e = p["gate"].shape[0]
+        first = dt.local_rows(params["gate"], 0)[1]   # split on `on`
+        groups = tuple(mesh.get_group(i) for i in on)
+        if dsplit:
+            n_c = p["gate"].shape[1]
+            cols = (mesh.get_local_rank(md) * n_c, n_c, mesh.get_group(md))
+    else:                            # experts on `model`
+        E, m = cfg.moe.n_experts, dt.model_size(mesh)
+        split = m > 1 and E % m == 0
+        ep = dt.with_model(rep, mesh, Shard(0) if split else Replicate())
+        p.update({n: dt.local_as(params[n], ep)
+                  for n in ("gate", "up", "down")})
+        n_e = E // m if split else E
+        first = mesh.get_local_rank(md) * n_e if split else 0
+        groups = (mesh.get_group(md),) if split else ()
     xw = dt.local_as(x, rep)                         # every row, every rank
     y, aux = _moe(p, xw.reshape(-1, xw.shape[-1]), cfg, capacity_factor,
-                  (first, n_e),
-                  mesh.get_group(dt.model_dim(mesh)) if split else None)
+                  (first, n_e), groups, cols)
     y = dt.wrap(y.reshape(xw.shape), mesh, rep)
     keep = tuple(p if isinstance(p, Shard) else Replicate()
                  for p in (x.placements if dt.is_dt(x) else rep))

@@ -10,7 +10,9 @@ that propagation, each through a helper here:
   ``kernels/ops.py``);
 - per-row writes into a KV cache (a decode step's slot, a refill's rows)
   are local to a `data` rank, so they index the local shard
-  (:func:`local_rows`, :func:`rows_of`);
+  (:func:`local_rows`, :func:`rows_of`); a cache whose slot dim is split
+  (``long_decode_rules``) is written by the rank that owns the slot
+  (:func:`owned`);
 - greedy sampling must see the whole vocabulary (:func:`whole`).
 
 Per-row host vectors (positions, lengths, adapter ids) stay plain tensors
@@ -148,6 +150,62 @@ def rows_of(v: torch.Tensor, like, dim: int = 0) -> torch.Tensor:
         return v
     loc, start = local_rows(like, dim)
     return v[start:start + loc.shape[dim]]
+
+
+def split_dims(x, dim: int) -> list:
+    """The mesh dims over which DTensor ``x``'s dim ``dim`` is split
+    (major first; [] for a plain tensor)."""
+    if not is_dt(x):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def with_dims(placements: Sequence, dims: Sequence[int], p) -> tuple:
+    """``placements`` with mesh dims ``dims`` set to ``p``."""
+    out = list(placements)
+    for i in dims:
+        out[i] = p
+    return tuple(out)
+
+
+def owned(x, idx: torch.Tensor, keep: torch.Tensor, dim: int = 1):
+    """A per-row write of global index ``idx[b]`` along ``x``'s dim
+    ``dim`` (the rows at dim 0), on the rank that owns it: ``(local
+    tensor, local index, keep)``, where this rank holds slots ``[start,
+    start + n)`` of the split dim (:func:`local_rows`), the owner of slot
+    ``s`` is the rank with ``start <= s < start + n`` (``s // n`` along
+    the split), its local index is ``s - start``, and ``keep`` is
+    cleared on every other rank. A dim that is not split: the local
+    tensor with ``idx`` and ``keep`` as they are."""
+    loc, start = local_rows(x, dim)
+    if not split_dims(x, dim):
+        return loc, idx, keep
+    n = loc.shape[dim]
+    keep = keep & (idx >= start) & (idx < start + n)
+    return loc, (idx - start).clamp(0, n - 1), keep
+
+
+class SumRanks(torch.autograd.Function):
+    """Forward: the sum of ``x`` over the ranks of ``groups`` (a tuple of
+    process groups, summed one after another); backward: the gradient as
+    it is. Every rank's consumers of the sum hold the same values and so
+    the same gradient, which each rank's term then takes once (a moe
+    combine whose terms are zero but one rank's, the SL chain's end-stage
+    logits)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class Channels:

@@ -147,6 +147,12 @@ def _get() -> tuple[Any, Optional[dict]]:
     return getattr(_ctx, "mesh", None), getattr(_ctx, "rules", None)
 
 
+def active() -> tuple[Any, Optional[dict]]:
+    """(mesh, rules) of the innermost :func:`use_rules` (None, None
+    outside one)."""
+    return _get()
+
+
 @contextlib.contextmanager
 def use_rules(mesh, rules: Optional[dict] = None):
     """Activate (mesh, rules) for :func:`shard` inside model code. With a

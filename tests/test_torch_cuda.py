@@ -684,6 +684,97 @@ def test_flash_decode_pads_only_what_tma_refuses(gen, D, copies):
                   dtype)
 
 
+@pytest.mark.parametrize("case", [(1, 1, 0, 2, 2, 16), (3, 45, 4, 7, 1, 64),
+                                  (8, 300, 16, 28, 4, 128),
+                                  (8, 300, 16, 10, 1, 256),
+                                  (2, 45, 0, 6, 2, 160),
+                                  (2, 64, 70, 16, 1, 64)])
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_lse_matches_plain(gen, case, window, dtype):
+    """The partial mode (``return_lse``): the output and the (B, Hq) f32
+    log-sum-exp against the plain version's; the output is the bits of
+    the call without it (every row here sees a key)."""
+    B, T, n_p, Hq, Hkv, D = case
+    q, k, v, qp, kp, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                               dtype)
+    kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv, window=window)
+    n0 = fd.launches
+    out, lse = ops.flash_decode(q, k, v, return_lse=True, **kw)
+    assert fd.launches == n0 + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq)
+    with ops.backend("torch"):
+        w_out, w_lse = ops.flash_decode(q, k, v, return_lse=True, **kw)
+    close(out, w_out, dtype)
+    close(lse, w_lse, torch.float32 if dtype == torch.float32 else dtype)
+    plain = ops.flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_two_shards_combine_to_the_whole(gen, D, dtype):
+    """A cache cut in two halves (the prefix bank with the first, as the
+    `data` rank at coordinate 0 takes it): the halves' partials merged by
+    ``flash_decode.combine`` give the whole call; rows whose q_pos lies
+    in the first half see nothing of the second, whose partial is then
+    exactly ``-inf`` and 0."""
+    B, T, n_p, Hq, Hkv = 4, 1000, 16, 28, 4
+    q, k, v, qp, kp, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                               dtype)
+    qp = torch.tensor([3, 400, 700, 999], dtype=torch.int32, device="cuda")
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    kp = torch.where(slots <= qp[:, None], slots,
+                     torch.full_like(slots, 10 ** 9)).contiguous()
+    whole = ops.flash_decode(q, k, v, q_pos=qp, kv_pos=kp, prefix_k=pk,
+                             prefix_v=pv)
+    h = T // 2
+    a = ops.flash_decode(q, k[:, :h].contiguous(), v[:, :h].contiguous(),
+                         q_pos=qp, kv_pos=kp[:, :h].contiguous(),
+                         prefix_k=pk, prefix_v=pv, return_lse=True)
+    b = ops.flash_decode(q, k[:, h:].contiguous(), v[:, h:].contiguous(),
+                         q_pos=qp, kv_pos=kp[:, h:].contiguous(),
+                         return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isneginf(b[1][:2]).all() and (b[0][:2] == 0).all()
+    o, _ = fd.combine([a[0], b[0]], [a[1], b[1]])
+    close(o, whole, dtype)
+    with ops.backend("torch"):
+        pa = ops.flash_decode(q, k[:, :h], v[:, :h], q_pos=qp,
+                              kv_pos=kp[:, :h], prefix_k=pk, prefix_v=pv,
+                              return_lse=True)
+    close(a[1], pa[1], torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.parametrize("n_p", [0, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_lse_rows_that_see_nothing(gen, n_p, dtype):
+    """In the partial mode a row that sees no key gives lse = -inf and a
+    zero output (not the uniform average), beside rows that see keys; a
+    row that sees only the prefix bank is not blind."""
+    B, T, Hq, Hkv, D = 6, 300, 7, 1, 128
+    q, k, v, _, _, pk, pv = _decode_operands(gen, B, T, n_p, Hq, Hkv, D,
+                                             dtype)
+    kp = torch.arange(T, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, T).contiguous()
+    qp = torch.tensor([-5, -1, -300, 10, 150, 299], dtype=torch.int32,
+                      device="cuda")
+    kw = dict(q_pos=qp, kv_pos=kp, prefix_k=pk, prefix_v=pv)
+    out, lse = ops.flash_decode(q, k, v, return_lse=True, **kw)
+    with ops.backend("torch"):
+        w_out, w_lse = ops.flash_decode(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    close(out, w_out, dtype)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+    assert torch.isneginf(lse[:3]).all() == (n_p == 0)
+    if n_p == 0:
+        assert (out[:3] == 0).all()
+    fin = torch.isfinite(w_lse)
+    close(lse[fin], w_lse[fin], torch.float32 if dtype == torch.float32
+          else dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_decode_bank_by_id_gives_the_bits_of_gathered_slots(gen,
                                                                   dtype):

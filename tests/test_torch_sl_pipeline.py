@@ -140,13 +140,35 @@ def test_indivisible_microbatches_rejected():
 
 
 def test_mesh_is_unported():
-    cfg = get_config("vit-edge")
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        sl_pipeline.pipeline_classify({}, {}, torch.zeros((4, 8)), cfg,
-                                      mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        sl_pipeline.make_sl_finetune_step({}, cfg, topt.sgd(0.1),
-                                          mesh=object())
+    """Once refused: ``pipeline_classify(mesh=)`` and
+    ``make_sl_finetune_step(mesh=)`` on a 1-stage `stage` mesh (one gloo
+    rank in this process) give the mesh-less chain's logits and sgd step
+    bit for bit (reduced vit-edge, 4 f32 layers; the 4-stage mesh against
+    the JAX package is ``tests/test_torch_sl_mesh.py``)."""
+    from repro_torch.launch.mesh import single_process_mesh
+    _, tcfg = _cfgs("vit-edge")
+    tp = M.init(tcfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    for x in tree_leaves(tp["adapters"]):
+        x.add_(0.05 * torch.randn(x.shape, generator=gen))
+    toks = torch.randint(0, tcfg.vocab_size, (B, SEQ), generator=gen)
+    batch = {"tokens": toks, "label": torch.randint(0, 5, (B,),
+                                                    generator=gen)}
+    st = sl_pipeline.split_for_stages(tp, tcfg, 1)
+    head = tp["adapters"]["head"]
+    opt = topt.sgd(0.1)
+    state = opt.init({"a": st["adapters"], "h": head})
+    outs = []
+    with single_process_mesh(device="cpu", stage=True) as mesh:
+        for m in (None, mesh):
+            logits = sl_pipeline.pipeline_classify(
+                tp, st, toks, tcfg, n_microbatches=2, mesh=m)
+            step = sl_pipeline.make_sl_finetune_step(
+                tp, tcfg, opt, n_microbatches=2, mesh=m)
+            new, nh, _, loss = step(st, head, state, batch)
+            outs.append([logits, loss] + tree_leaves([new["adapters"], nh]))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert not torch.equal(outs[0][2], tree_leaves(st["adapters"])[0])
 
 
 @pytest.mark.parametrize("n_stages,n_micro", [(2, 2), (4, 4)])

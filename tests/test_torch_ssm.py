@@ -33,7 +33,6 @@ from repro_torch.checkpoint.from_jax import caches_from_jax, from_jax
 from repro_torch.configs.base import get_config
 from repro_torch.core import hfsl
 from repro_torch.core.adapter_bank import AdapterBank
-from repro_torch.core.device import unported
 from repro_torch.core.paged import PagedSpec
 from repro_torch.data.pipeline import BatchBank
 from repro_torch.data.synthetic import ClassificationTask, LMStream
@@ -379,7 +378,6 @@ def test_ssm_training_is_not_ported():
     _, m = hfsl.make_hfsl_step(tcfg, opt, M.lm_loss)(
         out, {k: v[0] for k, v in bank.arrays.items()})
     assert torch.isfinite(m["loss"]).all()
-    assert isinstance(unported("x", "y"), NotImplementedError)
 
 
 def test_scan_refuses_autograd_on_the_card_path(monkeypatch):

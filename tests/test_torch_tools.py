@@ -248,6 +248,11 @@ PERF_ROWS = [
      "0.0180", "operations"),
     ("11b", "rglru_scan_bwd", dict(B=2, S=256, W=2560, h0="row"), "0.0055",
      "bytes"),
+    # one of 2 `data` shards of decode_32k's cache in the partial mode
+    # (phase 54)
+    ("3h", "flash_decode", dict(B=1, Hq=28, Hkv=4, D=128, Tc=16384,
+                                keys=16384, n_p=16, n_read=1, lse=True),
+     "0.0100", "bytes"),
 ]
 
 
@@ -376,6 +381,59 @@ def test_dryrun_reports_each_pair_ok_or_skipped(tmp_path, capsys):
                           multi_pod=True)["batch"] == 1
     assert dryrun.main(["--multi-pod", "--arch", "qwen2-7b", "--shape",
                         "decode_32k"]) == 0
+
+
+class _Production:
+    """The reference's production mesh's names and sizes (all that its
+    ``fit_spec`` reads)."""
+
+    def __init__(self, multi_pod):
+        self.axis_names = ("pod", "data", "model") if multi_pod else \
+            ("data", "model")
+        self.shape = dict(zip(self.axis_names,
+                              (2, 16, 16) if multi_pod else (16, 16)))
+
+
+@pytest.mark.parametrize("arch,multi_pod", [
+    ("qwen2-7b", False), ("qwen2-7b", True), ("recurrentgemma-2b", False)])
+def test_dryrun_counts_one_cards_share_of_the_long_decode_cache(arch,
+                                                                multi_pod):
+    """long_500k decodes a batch of 1 under the reference's
+    ``long_decode_rules``, which put the cache's kv_seq on the data rows:
+    on ``meta`` each attention cache leaf counts 1/16 of the unsplit
+    cache's slots (1/32 with ``--multi-pod``), as the reference's
+    ``fit_spec`` splits it; the recurrent states and the weights are
+    unchanged, and the record's mesh field says so."""
+    from repro_torch.models.params import tree_paths
+    _, args, meta = dryrun.build_step(arch, "long_500k",
+                                      multi_pod=multi_pod)
+    rows = 32 if multi_pod else 16
+    jcfg = dryrun.variant_for(jax_config(arch), "long_500k")
+    window = jcfg.sliding_window if jcfg.attn_variant == "sliding" else 0
+    whole = JM.cache_spec(jcfg, 1, min(window, 524288) if window
+                          else 524288)
+    lay = _Production(multi_pod)
+    jleaves = dict(tree_paths(whole))
+    split = 0
+    for path, t in tree_paths(args[2]):
+        sp = jleaves[path]
+        p = R.fit_spec(R.spec_for(sp.axes, lay, R.long_decode_rules()),
+                       sp.shape, lay)
+        want = list(sp.shape)
+        for i, e in enumerate(p):
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                if a != "model":         # one card is one data row
+                    want[i] //= lay.shape[a]
+        assert list(t.shape) == want, path
+        split += want != list(sp.shape)
+        if "kv_seq" in sp.axes:
+            assert t.shape[2] * rows == sp.shape[2], path
+    assert split > 0
+    assert [tuple(x.shape) for x in tree_leaves(args[0])] == \
+        [tuple(s.shape) for s in tree_leaves(M.model_spec(meta["cfg"]))]
+    assert meta["mesh"].endswith(f"1/{rows} of its slots a card)")
+    if arch == "qwen2-7b":
+        assert args[2]["g0"]["s0"]["k"].shape[2] == 4096 // rows
 
 
 def test_remat_through_a_hybrid_with_a_tail_group():
