@@ -1,0 +1,7 @@
+"""Kernels: sum of the roofline bounds over the sum of the device time of
+the attention kernels' calls in the traced sub-window, %."""
+from portbench.lib import readers as R
+
+
+def read(obs):
+    return R.roofline(obs, "attn")
