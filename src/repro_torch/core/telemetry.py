@@ -20,8 +20,16 @@ reports through:
   reservoir bias at the tail — the standard HDR-histogram trade.
 - **Spans** — ``with tel.span("decode_segment", wave=3, rows=8):`` records
   a named interval on the monotonic clock (`time.perf_counter`), with
-  nesting depth tracked per thread. ``span(...) as sp`` allows late
-  attributes (``sp.set(tokens=n)``) for values only known at exit.
+  nesting depth and the enclosing span tracked per thread. ``span(...) as
+  sp`` allows late attributes (``sp.set(tokens=n)``) for values only known
+  at exit. While a ``torch.profiler`` is collecting, an enabled span also
+  opens a ``torch.profiler.record_function`` range of its own name, so it
+  shows in the profiler's trace on the same timeline as the device's
+  kernels.
+- **The current telemetry** — model-level code (``models/``) records into
+  :func:`current`, which a caller sets for a block with :func:`using`
+  (``DecodeEngine`` does for each drain, with its own ``tel=`` or the
+  global one); outside such a block it is a disabled instance.
 - **Export** — :meth:`Telemetry.export_trace` writes Chrome trace-event
   JSON (open in Perfetto / chrome://tracing: one timeline row per thread,
   spans nested by enclosure), :meth:`Telemetry.snapshot` returns a plain
@@ -34,16 +42,19 @@ no-op context manager (zero allocations on the hot path), ``observe`` /
 ``count`` return before touching any dict. Enabling is explicit
 (:func:`enable`), per-component ``tel=`` arguments override the singleton.
 
-Host-side only by design: spans bracket *dispatches* (what the host asked
-the device to do and when the result synced), not on-device kernel time —
-that is what roofline/profile tooling is for. Not thread-safe for
-concurrent writers beyond CPython atomicity; the engines are host-serial.
+Host-side by design: spans bracket *dispatches* (what the host asked
+the device to do and when the result synced), not on-device kernel time;
+the profiler ranges put them beside the kernels in a device trace. Not
+thread-safe for concurrent writers beyond CPython atomicity; the engines
+are host-serial.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -122,14 +133,18 @@ class Histogram:
 
 @dataclasses.dataclass
 class SpanRecord:
-    """One completed span: monotonic start offset + duration (seconds,
-    relative to the Telemetry epoch), thread id, nesting depth, attrs."""
+    """One span: monotonic start offset + duration (seconds, relative to
+    the Telemetry epoch; the duration is 0 until the span closes), thread
+    id, nesting depth, attrs, and ``parent``, the index in
+    ``Telemetry.spans`` of the enclosing span (-1 at the top). A span is
+    recorded when it opens, so a parent's index is below its children's."""
     name: str
     t0: float
     dur: float
     tid: int
     depth: int
     args: dict
+    parent: int = -1
 
 
 class _NoopSpan:
@@ -150,8 +165,10 @@ _NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    """Live span handle; records itself into the owning Telemetry on exit."""
-    __slots__ = ("_tel", "name", "args", "_t0", "_depth")
+    """Live span handle; recorded into the owning Telemetry when it opens,
+    its duration set when it closes."""
+    __slots__ = ("_tel", "name", "args", "_t0", "_depth", "_parent",
+                 "_rec", "_range")
 
     def __init__(self, tel: "Telemetry", name: str, args: dict) -> None:
         self._tel = tel
@@ -163,19 +180,33 @@ class _Span:
         self.args.update(args)
 
     def __enter__(self) -> "_Span":
-        local = self._tel._local
+        tel = self._tel
+        local = tel._local
         self._depth = getattr(local, "depth", 0)
+        self._parent = getattr(local, "open", -1)
         local.depth = self._depth + 1
+        local.open = len(tel.spans)
+        # a profiler range only while a profiler collects (the flag is
+        # the module's; without torch imported none can be running)
+        prof = sys.modules.get("torch.autograd.profiler")
+        self._range = None
+        if prof is not None and prof._is_profiler_enabled:
+            self._range = prof.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
+        self._rec = SpanRecord(self.name, self._t0 - tel._epoch, 0.0,
+                               threading.get_ident(), self._depth,
+                               self.args, self._parent)
+        tel.spans.append(self._rec)
         return self
 
     def __exit__(self, *exc) -> None:
-        t1 = time.perf_counter()
-        tel = self._tel
-        tel._local.depth = self._depth
-        tel.spans.append(SpanRecord(
-            self.name, self._t0 - tel._epoch, t1 - self._t0,
-            threading.get_ident(), self._depth, self.args))
+        self._rec.dur = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        local = self._tel._local
+        local.depth = self._depth
+        local.open = self._parent
 
 
 class Telemetry:
@@ -348,3 +379,32 @@ def disable() -> Telemetry:
     """Switch the global instance off (recorded data kept for export)."""
     _GLOBAL.enabled = False
     return _GLOBAL
+
+
+class _Current(threading.local):
+    """Per thread, the telemetry model-level code records into (a class
+    default, so that reading it in a thread that never set it costs an
+    attribute lookup and not a caught AttributeError)."""
+    tel = Telemetry(enabled=False)
+
+
+_CURRENT = _Current()
+
+
+def current() -> Telemetry:
+    """The telemetry that model-level code (``models/``) records into: the
+    one made current by the innermost :func:`using` block of this thread,
+    else a disabled instance. Resolved at call time, like :func:`get`."""
+    return _CURRENT.tel
+
+
+@contextlib.contextmanager
+def using(tel: Telemetry):
+    """Make ``tel`` current (:func:`current`) for the block; the previous
+    one is current again on exit."""
+    prev = _CURRENT.tel
+    _CURRENT.tel = tel
+    try:
+        yield tel
+    finally:
+        _CURRENT.tel = prev

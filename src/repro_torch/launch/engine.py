@@ -109,7 +109,8 @@ class Request:
     max_new_tokens: int
     domain: Optional[str] = None       # multi-tenant: AdapterBank slot owner
     deadline_s: Optional[float] = None  # monotonic budget from submit time
-    t_submit: float = 0.0              # time.perf_counter() at submit
+    t_submit: float = 0.0              # time.perf_counter() at submit, or
+                                       # the timed arrival's due time
     sla: Optional[str] = None          # service class label
     speculative: bool = True           # spec engine: draft for this row
     extras: Optional[dict] = None      # per-request modality rows (no batch dim)
@@ -157,7 +158,6 @@ class EngineStats:
     drafted: int = 0                   # drafter proposals (spec serving)
     accepted: int = 0                  # proposals the verify pass committed
     ttft_hist: Optional[dict] = None       # time-to-first-token (s)
-    queue_hist: Optional[dict] = None      # queue wait (s)
     tok_latency_hist: Optional[dict] = None  # per-token decode latency (s)
     sla_stats: Optional[dict] = None       # per service class
     # paged serving (DecodeEngine(paged=PagedSpec(...))):
@@ -168,6 +168,9 @@ class EngineStats:
                                        # blocks (a shared prefix counts once)
     prefix_hits: int = 0               # admissions that matched a cached prefix
     prefix_hit_tokens: int = 0         # prompt tokens served from shared blocks
+    # the telemetry this drain's spans went to while it was on, else None
+    tel: Optional[Telemetry] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
 
     @property
     def pool_occupancy(self) -> float:
@@ -255,7 +258,8 @@ class DecodeEngine:
                domain: Optional[str] = None,
                deadline_s: Optional[float] = None,
                speculative: bool = True,
-               sla: Optional[str] = None) -> int:
+               sla: Optional[str] = None,
+               t_due: Optional[float] = None) -> int:
         """Enqueue one request; returns its uid. ``extras`` is one modality
         row per key (``{"vision_embeds": (n_vis, d)}`` or ``{"frames":
         (n_frames, d)}``, numpy or torch, no batch dim), bound to this
@@ -266,8 +270,11 @@ class DecodeEngine:
         ``EngineStats.sla_stats``). ``domain`` names the request's adapter
         slot in the engine's AdapterBank. ``speculative=False`` opts the
         row out of drafting on a spec engine (it decodes plainly through
-        the verify pass; ignored on plain engines). Malformed requests fail
-        here with ``ValueError``, as in the reference."""
+        the verify pass; ignored on plain engines). ``t_due``
+        (``time.perf_counter``, default now) is when the request was due:
+        queue wait, time to first token, latency and the deadline count
+        from it (``serve_trace`` passes each arrival's due time). Malformed
+        requests fail here with ``ValueError``, as in the reference."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or tokens.size == 0:
             raise ValueError(
@@ -304,10 +311,10 @@ class DecodeEngine:
                              "merged-param requests is ambiguous)")
         uid = self._uid
         self._uid += 1
-        self._queue.append(Request(uid, tokens, int(max_new_tokens), domain,
-                                   deadline_s, time.perf_counter(), sla,
-                                   bool(speculative), extras))
-        self._telemetry().count("engine.submitted")
+        self._queue.append(Request(
+            uid, tokens, int(max_new_tokens), domain, deadline_s,
+            time.perf_counter() if t_due is None else t_due, sla,
+            bool(speculative), extras))
         return uid
 
     def _telemetry(self) -> Telemetry:
@@ -385,11 +392,13 @@ class DecodeEngine:
             self._pool.setdefault(g, {})[s] = pool
 
     def _admit_due(self) -> None:
-        """serve_trace: submit every arrival whose timestamp has passed."""
+        """serve_trace: submit every arrival whose timestamp has passed,
+        stamped with its due time (a request that fell due during a
+        segment counts its wait from then)."""
         while self._arrivals and \
                 time.perf_counter() - self._trace_t0 >= self._arrivals[0][0]:
-            _, tokens, gen, kw = self._arrivals.popleft()
-            self.submit(tokens, gen, **kw)
+            t_s, tokens, gen, kw = self._arrivals.popleft()
+            self.submit(tokens, gen, t_due=self._trace_t0 + t_s, **kw)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -421,6 +430,39 @@ class DecodeEngine:
         return use_rules(self.mesh, drafter_rules()) \
             if self.mesh is not None else contextlib.nullcontext()
 
+    def _mark(self, tel: Telemetry):
+        """A point on the device's stream at a span's edge, only while
+        ``tel`` is on (None otherwise): a recorded CUDA event, or the host
+        clock on a CPU device, whose ops run in the caller."""
+        if not tel.enabled:
+            return None
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @contextlib.contextmanager
+    def _device_span(self, tel: Telemetry, timed: list, name: str, **args):
+        """Span ``name`` whose device marks, while ``tel`` is on, go on
+        ``timed`` for :meth:`_set_device_ms` (a prefill's or refill's
+        ``device_ms``: stream time from its first launch to its last op's
+        completion)."""
+        with tel.span(name, **args) as sp:
+            e0 = self._mark(tel)
+            yield
+            if e0 is not None:
+                timed.append((sp, e0, self._mark(tel)))
+
+    @staticmethod
+    def _set_device_ms(timed: list) -> None:
+        """Set ``device_ms`` on each (span, start, end) of ``timed``, whose
+        marks the last fetch has passed, and empty it."""
+        for sp, a, b in timed:
+            sp.set(device_ms=(b - a) * 1e3 if isinstance(a, float)
+                   else a.elapsed_time(b))
+        timed.clear()
+
     def _wave_params(self, params, tenant: bool):
         """Per-dispatch params: re-read the bank so publishes are fresh."""
         return params if not tenant else \
@@ -430,8 +472,10 @@ class DecodeEngine:
     def run(self, params) -> tuple[list[Completion], EngineStats]:
         """Drain the queue as one ragged continuous-batching wave.
         Returns (completions, stats)."""
+        # model-level spans (models/) record into the drain's telemetry
         with (use_rules(self.mesh, self.rules) if self.mesh is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                telemetry.using(self._telemetry()):
             return self._drain(params)
 
     # tracelint: hot
@@ -442,7 +486,12 @@ class DecodeEngine:
         if not self._queue and not self._arrivals:
             return out, stats
         tel = self._telemetry()
-        h_ttft, h_queue, h_tok = Histogram(), Histogram(), Histogram()
+        if tel.enabled:
+            stats.tel = tel
+        h_ttft, h_tok = Histogram(), Histogram()
+        # (span, start, end) of the prefills and refills whose device time
+        # the next segment's fetch makes readable (telemetry on)
+        timed: list = []
         sla_acc: dict[str, dict] = {}
         t_all = time.perf_counter()
         extras_keys = self._check_extras()
@@ -545,7 +594,6 @@ class DecodeEngine:
                     cur_dom[i], cur_extras[i] = req.domain, req.extras
                     spec_rows[i] = req.speculative
                     t_admit[i], t_first[i] = t_adm, None
-                    h_queue.record(t_adm - req.t_submit)
                     tel.observe("engine.queue_s", t_adm - req.t_submit)
                     if self.paged is not None:
                         nshared = len(self._slot_blocks[i]["shared"])
@@ -563,9 +611,6 @@ class DecodeEngine:
                                                  self._alloc.used_blocks)
                     tel.gauge("engine.pool_blocks_used",
                               self._alloc.used_blocks)
-                    tel.gauge("engine.pool_blocks_shared",
-                              sum(1 for rc in self._alloc.refcount
-                                  if rc > 1))
                 live = [i for i in range(B) if slot_req[i] is not None]
                 if tenant:
                     # full-wave ids for the segments, recomputed at every
@@ -579,7 +624,7 @@ class DecodeEngine:
                 if self.paged is not None:
                     tok, caches, pos = self._paged_admit(
                         wp, packed, tenant, ids, tok, caches, pos, S_pad,
-                        maxb, stats.waves - 1, tel)
+                        maxb, stats.waves - 1, tel, timed)
                 elif caches is None:
                     # initial wave prefill: all B slots (empty slots carry
                     # 1-token dummies and retire immediately, with a live
@@ -589,8 +634,9 @@ class DecodeEngine:
                     for i, req in packed:
                         prompts[i, :len(req.tokens)] = req.tokens
                         lens[i] = len(req.tokens)
-                    with tel.span("engine.prefill", wave=stats.waves - 1,
-                                  rows=len(packed), seq=S_pad):
+                    with self._device_span(tel, timed, "engine.prefill",
+                                           wave=stats.waves - 1,
+                                           rows=len(packed), seq=S_pad):
                         tokens = self._tensor(prompts)
                         batch = {"tokens": tokens, **self._stack_extras(
                             cur_extras, extras_keys, live)}
@@ -611,8 +657,9 @@ class DecodeEngine:
                     # (pow2-padded row count) into their slots
                     prompts, lens, row_idx, ids_rows = self._refill_rows(
                         packed, S_pad, tenant)
-                    with tel.span("engine.refill", wave=stats.waves - 1,
-                                  rows=len(packed), seq=S_pad):
+                    with self._device_span(tel, timed, "engine.refill",
+                                           wave=stats.waves - 1,
+                                           rows=len(packed), seq=S_pad):
                         tokens = self._tensor(prompts)
                         batch = {"tokens": tokens, **self._refill_extras(
                             packed, len(row_idx), extras_keys)}
@@ -662,6 +709,8 @@ class DecodeEngine:
                     counts = counts.cpu().numpy()  # tracelint: ignore[R2] same fetch, already synced
                     dr, ac = int(dr), int(ac)  # tracelint: ignore[R2] already synced
                     ssp.set(drafted=dr, accepted=ac)
+                if timed:
+                    self._set_device_ms(timed)
                 stats.drafted += dr
                 stats.accepted += ac
                 executed = chunks * Tc * B     # verify slot-steps run
@@ -676,6 +725,8 @@ class DecodeEngine:
                         self._tensor(remaining.astype(np.int32)), self._gen,
                         ids)
                     toks = toks.cpu().numpy()  # tracelint: ignore[R2] the one sync: segment done
+                if timed:
+                    self._set_device_ms(timed)
                 counts = np.minimum(seg, remaining)
                 executed = seg * B
             t_seg1 = time.perf_counter()
@@ -702,7 +753,6 @@ class DecodeEngine:
             tel.observe("engine.segment_s", seg_wall)
         stats.wall_s = time.perf_counter() - t_all
         stats.ttft_hist = h_ttft.summary()
-        stats.queue_hist = h_queue.summary()
         stats.tok_latency_hist = h_tok.summary()
         if sla_acc:
             stats.sla_stats = {
@@ -755,12 +805,13 @@ class DecodeEngine:
         return row
 
     def _paged_admit(self, wp, packed, tenant, ids, tok, caches, pos,
-                     S_pad, maxb, wave, tel):
+                     S_pad, maxb, wave, tel, timed):
         """Admit a packed wave into the paged cache: full-prefill rows go
         through a dense prefill whose K/V commit into the pool (the initial
         wave prefill, or an in-wave refill); prefix-hit rows skip it and
         run only their suffix (:func:`model.paged_suffix`), so shared
-        blocks are never prefilled or written again."""
+        blocks are never prefilled or written again. The prefill's or
+        refill's span and its device marks go on ``timed``."""
         B, bs_, nb_ = self.slots, self.paged.block_size, self.paged.n_blocks
         full_p = [(i, r) for i, r in packed
                   if not self._slot_blocks[i]["shared"]]
@@ -775,8 +826,8 @@ class DecodeEngine:
                 prompts[i, :len(req.tokens)] = req.tokens
                 lens[i] = len(req.tokens)
                 tables[i] = self._table_row(i, maxb)
-            with tel.span("engine.prefill", wave=wave, rows=len(full_p),
-                          seq=S_pad, paged=True):
+            with self._device_span(tel, timed, "engine.prefill", wave=wave,
+                                   rows=len(full_p), seq=S_pad, paged=True):
                 tok, caches, pos = M.paged_wave_prefill(
                     wp, self.cfg, {"tokens": self._tensor(prompts)},
                     self._tensor(lens), self._tensor(tables), self._pool,
@@ -787,8 +838,8 @@ class DecodeEngine:
             tables = np.full((len(row_idx), maxb), nb_, np.int32)
             for r, (i, _) in enumerate(full_p):
                 tables[r] = self._table_row(i, maxb)
-            with tel.span("engine.refill", wave=wave, rows=len(full_p),
-                          seq=S_pad, paged=True):
+            with self._device_span(tel, timed, "engine.refill", wave=wave,
+                                   rows=len(full_p), seq=S_pad, paged=True):
                 tok, caches, pos = M.paged_refill(
                     wp, self.cfg, {"tokens": self._tensor(prompts)},
                     self._tensor(lens), row_idx, self._tensor(tables), tok,

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec
 from repro_torch.models.attention import paged_write, param_dtype
@@ -330,22 +331,29 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
     """One token. token: (B, 1) int; pos: scalar or (B,) int (current
     position); ``active`` (B,) bool freezes retired rows' caches;
     ``adapter_ids`` (B,) picks each row's bank slot. The caches are
-    updated in place. Returns ((B, 1, vocab) logits, caches)."""
-    adapters = params.get("adapters", {}).get("stack", {})
+    updated in place. Returns ((B, 1, vocab) logits, caches). Spans
+    ``model.decode_step`` and, inside it, ``model.head`` (and the layers'
+    own, ``models/transformer.py``) go to ``telemetry.current()``."""
+    tel = telemetry.current()
     B = token.shape[0]
-    pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
-    x = embed(params["backbone"]["embed"], token.long())
-    x = shard(x, "batch", "seq", "d_model")
-    if cfg.family == "audio":
-        x, caches = encdec.decode_step(params["backbone"]["encdec"],
-                                       adapters, x, caches, cfg, pos=pos,
-                                       active=active)
-    else:
-        x, caches = stack_decode(params["backbone"]["layers"], adapters, x,
-                                 caches, cfg, pos=pos, active=active,
-                                 adapter_ids=adapter_ids)
-    x = rmsnorm(params["backbone"]["final_norm"], x)
-    return unembed(_head(params), x), caches
+    with tel.span("model.decode_step", rows=B):
+        adapters = params.get("adapters", {}).get("stack", {})
+        pos = torch.as_tensor(pos, device=token.device).to(
+            torch.int64).expand(B)
+        x = embed(params["backbone"]["embed"], token.long())
+        x = shard(x, "batch", "seq", "d_model")
+        if cfg.family == "audio":
+            x, caches = encdec.decode_step(params["backbone"]["encdec"],
+                                           adapters, x, caches, cfg,
+                                           pos=pos, active=active)
+        else:
+            x, caches = stack_decode(params["backbone"]["layers"], adapters,
+                                     x, caches, cfg, pos=pos, active=active,
+                                     adapter_ids=adapter_ids)
+        with tel.span("model.head"):
+            x = rmsnorm(params["backbone"]["final_norm"], x)
+            logits = unembed(_head(params), x)
+    return logits, caches
 
 
 def _slots_split() -> bool:
@@ -383,19 +391,22 @@ def _decode_steps(params: dict, cfg: ModelConfig, steps: int, greedy: bool,
     ``with_state`` also returns a copy of the recurrent cache parts
     (:func:`transformer.rec_cache_part`) after every step, stacked at dim
     2 ((L, B, steps, ...)): the speculative drafter's rollback points.
+    The next token and the carry updates are span ``model.sample``.
     Returns (toks (B, steps), (tok, caches, pos, remaining)[, snaps])."""
+    tel = telemetry.current()
     out, snaps = [], []
     for _ in range(steps):
         active = remaining > 0
         logits, caches = decode_step(params, tok, caches, pos, cfg,
                                      active=active, adapter_ids=adapter_ids)
-        nxt = _next_token(logits[:, -1], greedy, gen)
-        out.append(tok)
         if with_state:
             snaps.append(tree_map(torch.clone, rec_cache_part(caches)))
-        tok = torch.where(active[:, None], nxt, tok)
-        pos = pos + active.to(pos.dtype)
-        remaining = remaining - active.to(remaining.dtype)
+        with tel.span("model.sample"):
+            nxt = _next_token(logits[:, -1], greedy, gen)
+            out.append(tok)
+            tok = torch.where(active[:, None], nxt, tok)
+            pos = pos + active.to(pos.dtype)
+            remaining = remaining - active.to(remaining.dtype)
     toks = torch.cat(out, dim=1)
     if not with_state:
         return toks, (tok, caches, pos, remaining)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.models.attention import param_dtype
 from repro_torch.models.layers import mlp, mlp_spec
 from repro_torch.models.params import ParamSpec
@@ -173,7 +174,9 @@ def _moe(params: dict, xt: torch.Tensor, cfg: ModelConfig, capacity_factor,
     the buffer's gradient back over them. ``cols`` (first, count, group)
     names the d_model columns that the expert weights hold
     (``moe_serving_rules``): the gate and up products are summed over
-    ``group`` and the result's columns gathered over it."""
+    ``group`` and the result's columns gathered over it. The routing, the
+    experts' FFN and the combine are spans ``moe.route``,
+    ``moe.experts`` and ``moe.combine``."""
     m = cfg.moe
     T, d = xt.shape
     E, k = m.n_experts, m.top_k
@@ -181,51 +184,61 @@ def _moe(params: dict, xt: torch.Tensor, cfg: ModelConfig, capacity_factor,
     dev = xt.device
     e0, n_e = experts[0], E if experts[1] is None else experts[1]
 
-    probs = torch.softmax(xt.float() @ params["router"], dim=-1)  # (T, E)
-    top_w, top_e = top_k(probs, k)                          # (T, k)
-    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    tel = telemetry.current()
+    with tel.span("moe.route"):
+        probs = torch.softmax(xt.float() @ params["router"],
+                              dim=-1)                       # (T, E)
+        top_w, top_e = top_k(probs, k)                      # (T, k)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # ---- sort-based dispatch (flat index f = t * k + slot) -------------
-    e_flat = top_e.reshape(-1)                              # (T*k,)
-    order = torch.argsort(e_flat, stable=True)
-    se = e_flat[order]
-    starts = torch.searchsorted(se, torch.arange(E, device=dev))
-    pos = torch.arange(T * k, device=dev) - starts[se]
-    dest = torch.where(pos < C, se * C + pos, E * C)        # E*C: dropped
-    # the buffer row each assignment lands in, by flat index, and the
-    # flat index each buffer row holds (T*k: an empty row)
-    dest_flat = torch.empty_like(dest)
-    dest_flat[order] = dest
-    src = torch.full((E * C + 1,), T * k, dtype=order.dtype, device=dev)
-    src[dest] = order
-    sums = tuple(reduce) + ((cols[2],) if cols is not None else ())
-    xe = _SumGrads.apply(xt, sums) if sums else xt
-    c0, n_c = (0, d) if cols is None else cols[:2]
-    x_rep = xe[:, None].expand(T, k, d).reshape(T * k, d)[:, c0:c0 + n_c]
-    # this rank's experts' rows of the (E, C, d) buffer (its columns)
-    buf = _Take.apply(x_rep, src[e0 * C:(e0 + n_e) * C]).reshape(n_e, C,
-                                                                 n_c)
+        # ---- sort-based dispatch (flat index f = t * k + slot) ---------
+        e_flat = top_e.reshape(-1)                          # (T*k,)
+        order = torch.argsort(e_flat, stable=True)
+        se = e_flat[order]
+        starts = torch.searchsorted(se, torch.arange(E, device=dev))
+        pos = torch.arange(T * k, device=dev) - starts[se]
+        dest = torch.where(pos < C, se * C + pos, E * C)    # E*C: dropped
+        # the buffer row each assignment lands in, by flat index, and the
+        # flat index each buffer row holds (T*k: an empty row)
+        dest_flat = torch.empty_like(dest)
+        dest_flat[order] = dest
+        src = torch.full((E * C + 1,), T * k, dtype=order.dtype,
+                         device=dev)
+        src[dest] = order
 
-    # ---- expert FFN (stacked) ------------------------------------------
-    gate, up = torch.bmm(buf, params["gate"]), torch.bmm(buf, params["up"])
-    if cols is not None:             # the partial sums over split d_model
-        gate, up = (dt.SumRanks.apply(t, (cols[2],)) for t in (gate, up))
-    h = F.silu(gate) * up
-    out = torch.bmm(h, params["down"]).reshape(n_e * C, n_c)
+    with tel.span("moe.experts"):
+        sums = tuple(reduce) + ((cols[2],) if cols is not None else ())
+        xe = _SumGrads.apply(xt, sums) if sums else xt
+        c0, n_c = (0, d) if cols is None else cols[:2]
+        x_rep = xe[:, None].expand(T, k, d).reshape(T * k, d)[
+            :, c0:c0 + n_c]
+        # this rank's experts' rows of the (E, C, d) buffer (its columns)
+        buf = _Take.apply(x_rep, src[e0 * C:(e0 + n_e) * C]).reshape(
+            n_e, C, n_c)
 
-    # ---- combine, token-major, a fixed-order sum over k ----------------
-    if n_e != E:              # assignments of other ranks' experts: zero
-        mine = (dest_flat >= e0 * C) & (dest_flat < (e0 + n_e) * C)
-        dest_flat = torch.where(mine, dest_flat - e0 * C, n_e * C)
-    yc = _Take.apply(out, dest_flat)                        # (T*k, n_c)
-    if reduce:
-        yc = dt.SumRanks.apply(yc, tuple(reduce))
-    y = (top_w.reshape(-1, 1) * yc.float()).reshape(T, k, n_c).sum(1)
-    y = y.to(xt.dtype)
-    if cols is not None:
-        y = _GatherCols.apply(y, cols[2])
-    if m.n_shared_experts:
-        y = y + mlp(params["shared"], xt)
+        # ---- expert FFN (stacked) --------------------------------------
+        gate = torch.bmm(buf, params["gate"])
+        up = torch.bmm(buf, params["up"])
+        if cols is not None:         # the partial sums over split d_model
+            gate, up = (dt.SumRanks.apply(t, (cols[2],))
+                        for t in (gate, up))
+        h = F.silu(gate) * up
+        out = torch.bmm(h, params["down"]).reshape(n_e * C, n_c)
+
+    with tel.span("moe.combine"):
+        # ---- combine, token-major, a fixed-order sum over k ------------
+        if n_e != E:          # assignments of other ranks' experts: zero
+            mine = (dest_flat >= e0 * C) & (dest_flat < (e0 + n_e) * C)
+            dest_flat = torch.where(mine, dest_flat - e0 * C, n_e * C)
+        yc = _Take.apply(out, dest_flat)                    # (T*k, n_c)
+        if reduce:
+            yc = dt.SumRanks.apply(yc, tuple(reduce))
+        y = (top_w.reshape(-1, 1) * yc.float()).reshape(T, k, n_c).sum(1)
+        y = y.to(xt.dtype)
+        if cols is not None:
+            y = _GatherCols.apply(y, cols[2])
+        if m.n_shared_experts:
+            y = y + mlp(params["shared"], xt)
 
     # ---- load-balance aux loss (Switch-style) --------------------------
     # assignments per expert, dropped ones included (``bincount(e_flat)``)

@@ -20,6 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -195,29 +196,33 @@ _RECURRENT = {
 
 def _ffn(p: dict, x, cfg: ModelConfig):
     """The sub-layer's feed-forward block: the MLP, or the moe FFN and its
-    aux loss; ssm has none. Returns (x, aux or None)."""
-    if "moe" in p:
-        h, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
-        return x + h, aux
-    if "mlp" in p:
+    aux loss, in span ``layer.ffn``; ssm has none. Returns (x, aux or
+    None)."""
+    if "moe" not in p and "mlp" not in p:
+        return x, None
+    with telemetry.current().span("layer.ffn"):
+        if "moe" in p:
+            h, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
+            return x + h, aux
         return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), None
-    return x, None
 
 
 def _apply_seq(kind: str, p: dict, a: dict, x, cfg: ModelConfig, *,
                positions, make_cache: bool, cache_len, lengths,
                adapter_ids):
-    """One full-sequence sub-layer. Returns (x, cache or None, aux or
-    None)."""
+    """One full-sequence sub-layer (attention in span ``layer.attn``).
+    Returns (x, cache or None, aux or None)."""
     if kind in _RECURRENT:
         h, c = _RECURRENT[kind][0](p["mix"], _select_state0(a, adapter_ids),
                                    rmsnorm(p["ln1"], x), cfg,
                                    make_cache=make_cache, lengths=lengths)
     else:
-        h, c = attn_mod.attention_seq(
-            p["attn"], a, rmsnorm(p["ln1"], x), cfg, positions=positions,
-            window=attn_window(cfg, kind), make_cache=make_cache,
-            cache_len=cache_len, lengths=lengths, adapter_ids=adapter_ids)
+        with telemetry.current().span("layer.attn"):
+            h, c = attn_mod.attention_seq(
+                p["attn"], a, rmsnorm(p["ln1"], x), cfg,
+                positions=positions, window=attn_window(cfg, kind),
+                make_cache=make_cache, cache_len=cache_len, lengths=lengths,
+                adapter_ids=adapter_ids)
     x, aux = _ffn(p, x + h, cfg)
     return x, c, aux
 
@@ -283,7 +288,9 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
     place (each layer writes its slice of the (L, B, ...) leaves).
     ``pos`` (B,) per row; ``active`` (B,) bool freezes retired rows' caches;
     ``adapter_ids`` (B,) as in :func:`stack_seq`. A moe sub-layer's aux
-    loss is dropped, as in the reference. Returns (x, caches)."""
+    loss is dropped, as in the reference. Each attention is span
+    ``layer.attn``, each FFN ``layer.ffn``. Returns (x, caches)."""
+    tel = telemetry.current()
     for name, kinds, n in groups_for(cfg):
         gc = caches[name]
         for l, (lp, la) in enumerate(zip(params[name],
@@ -297,10 +304,11 @@ def stack_decode(params: dict, adapters: dict, x: torch.Tensor,
                                               rmsnorm(p["ln1"], x), lc, cfg)
                     _freeze_inactive(lc, new, active)
                 else:
-                    h, _ = attn_mod.attention_decode(
-                        p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
-                        pos=pos, window=attn_window(cfg, k), active=active,
-                        adapter_ids=adapter_ids)
+                    with tel.span("layer.attn"):
+                        h, _ = attn_mod.attention_decode(
+                            p["attn"], a, rmsnorm(p["ln1"], x), lc, cfg,
+                            pos=pos, window=attn_window(cfg, k),
+                            active=active, adapter_ids=adapter_ids)
                 x, _ = _ffn(p, x + h, cfg)
     return x, caches
 
